@@ -1,0 +1,84 @@
+"""Host<->device staging for the streaming loops.
+
+Eager PyTorch launches return before the device finishes, so the host
+loop overlaps with device compute as long as no call blocks.  Two things
+would block: a pageable host->device copy, and fetching a block's outputs
+after the NEXT block's kernels were enqueued on the same stream.  So:
+
+  * ``Feeder`` copies each input block into one of TWO pinned staging
+    buffers, alternated per block, and issues a ``non_blocking`` copy to
+    the device.  Buffer b is free again by iteration b+2: draining block
+    b's outputs on iteration b+1 waits for an event recorded after block
+    b's step, and that step consumed the input.
+  * ``Fetcher`` enqueues the device->host copies of block b's outputs
+    right after block b's step (before block b+1 is enqueued) into
+    alternating pinned buffers and records an event; ``wait`` on iteration
+    b+1 blocks only until those copies are done — block b+1 keeps
+    computing meanwhile.
+
+On the CPU device both degrade to plain tensor/numpy views.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+class Feeder:
+    """numpy uint8 blocks -> device tensors through pinned staging."""
+
+    def __init__(self, shape: tuple, device: torch.device):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self._bufs = [torch.empty(shape, dtype=torch.uint8,
+                                  pin_memory=self.cuda) for _ in range(2)]
+        self._slot = 0
+
+    def staging(self) -> np.ndarray:
+        """The next staging buffer as a numpy view (fill it, then call
+        ``push``)."""
+        self._slot ^= 1
+        return self._bufs[self._slot].numpy()
+
+    def push(self) -> torch.Tensor:
+        """Device tensor of the buffer ``staging`` last handed out."""
+        buf = self._bufs[self._slot]
+        if not self.cuda:
+            return buf.clone()
+        return buf.to(self.device, non_blocking=True)
+
+
+class Fetcher:
+    """Device outputs -> host numpy arrays, one block behind the device."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self._bufs: list = [None, None]
+        self._slot = 0
+
+    def start(self, tensors: tuple):
+        """Begin fetching ``tensors``; returns a ticket for ``wait``."""
+        if not self.cuda:
+            return None, tuple(t.numpy() for t in tensors)
+        self._slot ^= 1
+        bufs = self._bufs[self._slot]
+        if bufs is None or any(b.shape != t.shape
+                               for b, t in zip(bufs, tensors)):
+            bufs = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                         for t in tensors)
+            self._bufs[self._slot] = bufs
+        for b, t in zip(bufs, tensors):
+            b.copy_(t, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return event, tuple(b.numpy() for b in bufs)
+
+    @staticmethod
+    def wait(ticket) -> tuple:
+        """Block until the ticket's copies are done; the host arrays (valid
+        until the next-but-one ``start``)."""
+        event, arrays = ticket
+        if event is not None:
+            event.synchronize()
+        return arrays

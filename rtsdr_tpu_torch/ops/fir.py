@@ -1,0 +1,161 @@
+"""Block FIR filtering with overlap-save state carry.
+
+Counterpart of ``rtsdr_tpu/ops/fir.py``.  One formulation covers the
+stateful block FIR, the multi-filter bank and the decimating FIR:
+
+  * the carried state is the last ``taps-1`` *input* samples (overlap-save):
+    ``y[n] = sum_k h[k] * xext[n*s + taps-1-k]``, ``xext = [zi | x]``,
+    output-equivalent to chained ``scipy.signal.lfilter`` from zero initial
+    conditions;
+  * decimation fuses into the convolution as the output stride ``s``.
+
+All functions are shape-polymorphic over leading batch dimensions
+(channels) and dtype-polymorphic (float32 on the production path, float64
+for oracle parity).
+
+Where the work runs: a CUDA tensor goes to the hand-written FIR-bank
+kernel (``ops/cuda_fir.py``), as the JAX functions go to their Pallas
+kernel on a TPU — the kernel is float32, and its wrapper raises for any
+other dtype rather than computing elsewhere; a CPU tensor takes the plain
+version below, an explicit sum over the taps in the input's own dtype —
+no convolution library call, so no TF32 on any device.  float64 is
+therefore a CPU-only (oracle) path.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def fir_zi(num_taps: int, batch_shape: tuple = (), dtype=torch.float32,
+           device="cuda") -> torch.Tensor:
+    """Zero initial overlap-save state (last ``taps-1`` inputs)."""
+    return torch.zeros((*batch_shape, num_taps - 1), dtype=dtype,
+                       device=device)
+
+
+def resample_zi(num_taps: int, batch_shape: tuple = (), dtype=torch.float32,
+                device="cuda") -> torch.Tensor:
+    """Zero initial state for ``fir_resample`` (upsampled-domain tail)."""
+    return torch.zeros((*batch_shape, num_taps - 1), dtype=dtype,
+                       device=device)
+
+
+def _h64(h) -> np.ndarray:
+    if isinstance(h, torch.Tensor):
+        h = h.detach().cpu().numpy()
+    return np.asarray(h, np.float64)
+
+
+def _conv1d_valid(xext: torch.Tensor, h, stride: int = 1) -> torch.Tensor:
+    """VALID 1-D convolution (true convolution: kernel flipped) over the
+    last axis, batched over all leading axes — the plain version of every
+    FIR in the port: ``y[m] = sum_k h[k] * xext[m*stride + taps-1-k]``
+    accumulated tap by tap (k ascending) in ``xext``'s dtype."""
+    h = _h64(h)
+    taps = h.shape[0]
+    m = (xext.shape[-1] - taps) // stride + 1
+    y = torch.zeros((*xext.shape[:-1], m), dtype=xext.dtype,
+                    device=xext.device)
+    span = (m - 1) * stride + 1
+    for k in range(taps):
+        lo = taps - 1 - k
+        y.add_(xext[..., lo:lo + span:stride], alpha=float(h[k]))
+    return y
+
+
+def _bank_kernel(x, h_list, zi, stride: int):
+    """Run the CUDA FIR-bank kernel (it flattens the batch itself; it
+    raises unless x is a non-empty float32 tensor)."""
+    from rtsdr_tpu_torch.ops import cuda_fir
+
+    return cuda_fir.fir_bank_carried(x.contiguous(), h_list,
+                                     zi.contiguous(), stride)
+
+
+def fir_block(x: torch.Tensor, h, zi: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stateful block FIR: y[n] = sum_k h[k] * xext[n + taps - 1 - k].
+
+    Args:
+      x:  (..., N) input block.
+      h:  (taps,) impulse response.
+      zi: (..., taps-1) previous block's input tail.
+
+    Returns:
+      y:      (..., N) filtered block (same alignment as lfilter).
+      new_zi: (..., taps-1) this block's input tail.
+    """
+    if x.is_cuda:
+        ys, new_zi = _bank_kernel(x, [_h64(h)], zi, 1)
+        return ys[0], new_zi
+    taps = len(h)
+    xext = torch.cat([zi, x], dim=-1)
+    return _conv1d_valid(xext, h), xext[..., -(taps - 1):]
+
+
+def fir_block_bank(x: torch.Tensor, h_list, zi: torch.Tensor
+                   ) -> tuple[tuple, torch.Tensor]:
+    """``fir_block_multi`` returning a TUPLE of per-filter outputs (the
+    kernel's outputs are separate arrays; callers that unpack at once skip
+    the stacked copy)."""
+    taps = {len(h) for h in h_list}
+    assert len(taps) == 1, "fir_block_bank requires equal tap counts"
+    if x.is_cuda:
+        ys, new_zi = _bank_kernel(x, [_h64(h) for h in h_list], zi, 1)
+        return tuple(ys), new_zi
+    xext = torch.cat([zi, x], dim=-1)
+    ys = tuple(_conv1d_valid(xext, h) for h in h_list)
+    return ys, xext[..., -(taps.pop() - 1):]
+
+
+def fir_block_multi(x: torch.Tensor, h_list, zi: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """F same-length FIRs over ONE input with ONE shared overlap-save state.
+
+    Args:
+      x: (..., N); h_list: sequence of (taps,) responses, equal taps.
+      zi: (..., taps-1) shared input tail (all filters see the same input).
+
+    Returns:
+      y: (..., F, N); new_zi: (..., taps-1).
+    """
+    ys, new_zi = fir_block_bank(x, h_list, zi)
+    return torch.stack(ys, dim=-2), new_zi
+
+
+def fir_decimate(x: torch.Tensor, h, zi: torch.Tensor,
+                 decim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused FIR + downsample-by-``decim``: computes only the kept outputs.
+
+    Equivalent to ``lfilter(h, 1, x, zi)[::decim]`` but never materializes
+    the dropped samples.
+    """
+    if x.is_cuda:
+        ys, new_zi = _bank_kernel(x, [_h64(h)], zi, decim)
+        return ys[0], new_zi
+    taps = len(h)
+    xext = torch.cat([zi, x], dim=-1)
+    return _conv1d_valid(xext, h, stride=decim), xext[..., -(taps - 1):]
+
+
+def fir_resample(x: torch.Tensor, h, zi: torch.Tensor, up: int, down: int,
+                 gain: float | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused rational resampler: zero-stuff x``up``, FIR, keep every
+    ``down``-th; ``gain`` defaults to ``up`` (Parseval compensation).
+
+    Only ``up == 1`` (mode 0: a decimating FIR) is ported; the polyphase
+    form is part of the mode-1 slice.
+    """
+    if gain is None:
+        gain = float(up)
+    if up != 1:
+        raise NotImplementedError(
+            "fir_resample with up > 1 (the mode-1 x24/125 polyphase "
+            "resampler) is not ported yet: it belongs to the mode-1 slice")
+    y, new_zi = fir_decimate(x, h, zi, down)
+    if gain == 1.0:
+        return y, new_zi
+    return y * gain, new_zi

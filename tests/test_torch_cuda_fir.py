@@ -1,0 +1,145 @@
+"""``rtsdr_tpu_torch.ops.cuda_fir`` on CPU tensors (the plain version of
+the FIR-bank kernel) against the JAX XLA route and against the Pallas
+kernel in interpret mode.
+
+XLA route (float32): 2e-6 * max|ref|.  Interpret-mode Pallas kernel: it
+truncates its windows to bf16 as the TPU's matrix unit does, so it is held
+at the JAX tests' own bound ``_bf16_tol`` (tests/test_pallas_fir.py); the
+port computes in float32.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rtsdr_tpu.ops import coeffs
+from rtsdr_tpu.ops import fir as jfir
+from rtsdr_tpu.ops import pallas_fir as jpf
+from rtsdr_tpu_torch.ops import cuda_fir as tcf
+
+torch.set_num_threads(1)
+
+BANK_H = [coeffs.bandpass_taps(240e3, 18.5e3, 19.5e3, 151),
+          coeffs.bandpass_taps(240e3, 22e3, 54e3, 151),
+          coeffs.bandpass_taps(240e3, 54e3, 60e3, 151)]
+AUDIO_H = coeffs.lowpass_taps(240e3, 16e3, 151)
+# the interpret-mode Pallas kernel takes a decimating 151-tap bank only from
+# 1024 channels up; its own tests decimate with 101 taps (test_pallas_fir.py)
+AUDIO_H101 = coeffs.lowpass_taps(240e3, 16e3, 101)
+
+
+def _bf16_tol(y):
+    return 2e-2 * float(np.max(np.abs(y))) + 1e-6
+
+
+def _f32_tol(y):
+    return 2e-6 * float(np.max(np.abs(y)))
+
+
+def _inputs(rng, c, n, t1=150):
+    return (rng.standard_normal((c, n)).astype(np.float32),
+            rng.standard_normal((c, n)).astype(np.float32),
+            rng.standard_normal((c, t1)).astype(np.float32))
+
+
+def _pre_np(x, x2, pre):
+    return x * x if pre == "square" else 2.0 * x * x2 if pre == "mul2" else x
+
+
+@pytest.mark.parametrize("pre", ["none", "square", "mul2"])
+@pytest.mark.parametrize("stride", [1, 5])
+@pytest.mark.parametrize("n_f", [1, 2, 3])
+def test_carried_matches_xla_route(rng, pre, stride, n_f):
+    x, x2, zi = _inputs(rng, 3, 1280)
+    hs = BANK_H[:n_f] if stride == 1 else [AUDIO_H] * n_f
+    ys, tail = tcf.fir_bank_carried(torch.as_tensor(x), hs,
+                                    torch.as_tensor(zi), stride,
+                                    x2=torch.as_tensor(x2), pre=pre)
+    xp = jnp.asarray(_pre_np(x, x2, pre))
+    assert len(ys) == n_f
+    for y, h in zip(ys, hs):
+        ref, ref_zi = jfir.fir_decimate(xp, h, jnp.asarray(zi), stride)
+        ref = np.asarray(ref)
+        assert y.numpy().shape == ref.shape and y.numpy().dtype == ref.dtype
+        np.testing.assert_allclose(y.numpy(), ref, rtol=0, atol=_f32_tol(ref))
+    np.testing.assert_allclose(tail.numpy(), np.asarray(ref_zi), rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("pre,stride,n_f", [
+    ("none", 1, 3), ("none", 1, 2), ("square", 1, 1), ("mul2", 1, 1),
+    ("none", 5, 1), ("mul2", 5, 1)])
+def test_carried_matches_pallas_interpret(rng, pre, stride, n_f):
+    c, n = 32, 2560
+    hs = BANK_H[:n_f] if stride == 1 else [AUDIO_H101]
+    x, x2, zi = _inputs(rng, c, n, len(hs[0]) - 1)
+    assert jpf.eligible(jnp.asarray(x), len(hs[0]), stride)
+    p_ys, p_zi = jpf.fir_bank_carried(
+        jnp.asarray(x), hs, jnp.asarray(zi), stride,
+        x2=jnp.asarray(x2) if pre == "mul2" else None, pre=pre)
+    t_ys, t_zi = tcf.fir_bank_carried(
+        torch.as_tensor(x), hs, torch.as_tensor(zi), stride,
+        x2=torch.as_tensor(x2) if pre == "mul2" else None, pre=pre)
+    for t, p in zip(t_ys, p_ys):
+        p = np.asarray(p)
+        np.testing.assert_allclose(t.numpy(), p, rtol=0, atol=_bf16_tol(p))
+    np.testing.assert_allclose(t_zi.numpy(), np.asarray(p_zi), rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("pre", ["square", "mul2"])
+def test_fir_block_pre_matches(rng, pre):
+    x, x2, zi = _inputs(rng, 4, 1536)
+    ty, tz = tcf.fir_block_pre(torch.as_tensor(x), BANK_H[2],
+                               torch.as_tensor(zi), pre,
+                               x2=torch.as_tensor(x2))
+    jy, jz = jpf.fir_block_pre(jnp.asarray(x), BANK_H[2], jnp.asarray(zi),
+                               pre, x2=jnp.asarray(x2))
+    jy = np.asarray(jy)
+    np.testing.assert_allclose(ty.numpy(), jy, rtol=0, atol=_f32_tol(jy))
+    np.testing.assert_allclose(tz.numpy(), np.asarray(jz), rtol=0, atol=1e-6)
+
+
+def test_fir_bank_zero_state(rng):
+    x, _, _ = _inputs(rng, 2, 1000)
+    ys = tcf.fir_bank(torch.as_tensor(x), BANK_H[:2])
+    for y, h in zip(ys, BANK_H):
+        ref, _ = jfir.fir_block(jnp.asarray(x), h,
+                                jnp.zeros((2, 150), jnp.float32))
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(y.numpy(), ref, rtol=0, atol=_f32_tol(ref))
+
+
+def test_three_seams_equal_one_block(rng):
+    """Four chained blocks (mixer fused, decimating) equal one long block:
+    the carried tail is in the pre-op domain."""
+    x, x2, _ = _inputs(rng, 2, 4 * 640)
+    xt, x2t = torch.as_tensor(x), torch.as_tensor(x2)
+    zi = torch.zeros(2, 150)
+    outs = []
+    for b in range(4):
+        sl = slice(b * 640, (b + 1) * 640)
+        (y,), zi = tcf.fir_bank_carried(xt[:, sl].contiguous(), [AUDIO_H], zi,
+                                        5, x2=x2t[:, sl].contiguous(),
+                                        pre="mul2")
+        outs.append(y)
+    (whole,), _ = tcf.fir_bank_carried(xt, [AUDIO_H], torch.zeros(2, 150), 5,
+                                       x2=x2t, pre="mul2")
+    np.testing.assert_allclose(torch.cat(outs, -1).numpy(), whole.numpy(),
+                               rtol=0, atol=_f32_tol(whole.numpy()))
+
+
+def test_ragged_shapes_and_leading_dims(rng):
+    """Any C >= 1 and any N: no tile or lane alignment is required."""
+    x = rng.standard_normal((1, 3, 1001)).astype(np.float32)
+    zi = rng.standard_normal((1, 3, 150)).astype(np.float32)
+    (y,), tail = tcf.fir_bank_carried(torch.as_tensor(x), [AUDIO_H],
+                                      torch.as_tensor(zi), 5)
+    assert tuple(y.shape) == (1, 3, 201) and tuple(tail.shape) == (1, 3, 150)
+    xext = np.concatenate([zi, x], -1).astype(np.float64)
+    ref = np.stack([np.convolve(r, AUDIO_H)[150:150 + 1001:5]
+                    for r in xext.reshape(3, -1)]).reshape(1, 3, -1)
+    np.testing.assert_allclose(y.numpy(), ref, rtol=0,
+                               atol=_f32_tol(ref) * 2)
+    assert np.array_equal(tail.numpy(), x[..., -150:])

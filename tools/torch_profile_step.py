@@ -1,0 +1,117 @@
+#!/usr/bin/env python3
+"""Where one step of the port's receiver spends its device time.
+
+    python3 tools/torch_profile_step.py [--channels 1024] [--steps 4]
+
+Runs ``rtsdr_tpu_torch``'s ``Receiver(MODE0, (C,), enable_rds=False)`` on
+the GPU over noisy synthetic FM stations and traces ``--steps`` steady steps
+with ``torch.profiler`` (CPU + CUDA activities), after timing as many
+untraced steps on the host clock.  Prints one JSON line: the card's name
+and power limit, the host-clock time per step, and device time per step by
+kernel name (hand-written kernels and the stock PyTorch ops
+around them), with the device's idle share of the traced window.  If the
+profiler reports no device time (CUPTI unavailable), says so instead.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from rtsdr_tpu_torch.config import MODE0  # noqa: E402
+from rtsdr_tpu_torch.pipeline.receiver import Receiver  # noqa: E402
+from rtsdr_tpu_torch.utils.signals import fm_multiplex_iq  # noqa: E402
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--channels", type=int, default=1024)
+    ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip()
+    cfg = MODE0
+    c = args.channels
+    n_blocks = 2 + 2 * args.steps
+    rows = np.stack([
+        fm_multiplex_iq(n_blocks * cfg.iq_len, mono_hz=700.0 + 130.0 * k,
+                        stereo_hz=1500.0 + 210.0 * k, pilot_phase=0.37 * k
+                        ).reshape(n_blocks, cfg.block_size)
+        for k in range(min(c, 8))], axis=1)                # (blocks, 8, B)
+    rows = torch.as_tensor(rows).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+
+    def block(b):
+        x = rows[b].repeat(-(-c // rows.shape[1]), 1)[:c].to(torch.int16)
+        x += torch.randint(-8, 9, x.shape, generator=gen, device=dev,
+                           dtype=torch.int16)
+        return x.clamp_(0, 255).to(torch.uint8)
+
+    rx = Receiver(cfg, (c,), enable_rds=False)
+    state = rx.init()
+    for b in range(2):                                     # warm-up
+        state, _ = rx.step(state, block(b))
+    blocks = [block(2 + b) for b in range(2 * args.steps)]
+    torch.cuda.synchronize()
+
+    # host clock over steady steps, without the profiler ...
+    t0 = time.perf_counter()
+    for raw in blocks[:args.steps]:
+        state, out = rx.step(state, raw)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    # ... then the same number of steps traced
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for raw in blocks[args.steps:]:
+            state, out = rx.step(state, raw)
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        for name in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(e, name):
+                return float(getattr(e, name))
+        return 0.0
+
+    kernels = {}
+    for e in prof.key_averages():
+        us = dev_us(e)
+        # device-side rows only (an operator's row repeats its kernels' time)
+        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.key] = {"ms_per_step": us / 1e3 / args.steps,
+                              "calls_per_step": e.count / args.steps}
+    busy_ms = sum(k["ms_per_step"] for k in kernels.values())
+    result = {"card": card, "channels": c, "steps": args.steps,
+              "wall_ms_per_step": wall_ms / args.steps}
+    if not kernels:
+        result["device_time"] = "not measured (profiler saw no device time)"
+    else:
+        top = dict(sorted(kernels.items(),
+                          key=lambda kv: -kv[1]["ms_per_step"])[:16])
+        result.update({
+            "device_busy_ms_per_step": busy_ms,
+            "device_idle_share_of_wall": max(
+                0.0, 1.0 - busy_ms / (wall_ms / args.steps)),
+            "by_kernel": top})
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
