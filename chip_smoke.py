@@ -7,25 +7,33 @@ Builds the CUDA kernels from ``rtsdr_tpu_torch/csrc`` (``nvcc``, into the
 git-ignored ``rtsdr_tpu_torch/build``), then
 
   1. ``kernel_cases`` — calls every kernel wrapper on CUDA tensors at the
-     shapes the receiver gives it (MODE0: 307,200-byte blocks, 151 taps,
-     C = 1 and C = 1024) and holds the result against its plain PyTorch
-     version on the same inputs, within the stated tolerance; times the
-     kernel (CUDA events, median), the plain version, and for the FIR bank
-     one ``torch.nn.functional.conv1d`` call as a yardstick that the port
-     itself never uses; computes the least time the card could need;
-  2. ``stream`` — the CLI path: 8 blocks of a synthetic FM stereo station
-     through ``StreamRunner`` at C = 1 (and once more through
-     ``python -m rtsdr_tpu_torch.cli 0 --no-rds`` as a subprocess, whose
-     bytes must be identical); the decoded tones must have the expected
-     amplitudes, which shows the pilot loop locked;
-  3. ``batch`` — ``Receiver(MODE0, (1024,), enable_rds=False)``: 6 steps on
-     1024 noisy stations; finite outputs, row 0 equal to a C = 1 run;
-  4. ``batch_runner`` — the ``--stations`` path: 16 capture files through
-     ``BatchRunner`` (one reader per file, pinned staging, one batched step
-     per block); station 0 equal to the C = 1 run;
-  5. checks that phases 2-4 (the main path) went through the kernels: the
-     launch counts, set to 0 just before, must equal steps x launches per
-     step.
+     shapes the receiver gives it (MODE0: 307,200-byte blocks, 151-tap
+     filters, the 3,001-tap composed resampler, C = 1 and C = 1024) and
+     holds the result against its plain PyTorch version on the same inputs,
+     within the stated tolerance; times the kernel (CUDA events, median),
+     the plain version, and for the FIR bank one
+     ``torch.nn.functional.conv1d`` call as a yardstick that the port itself
+     never uses; computes the least time the card could need;
+  2. the audio path (``enable_rds=False``), counted on its own:
+     ``stream_audio`` (4 blocks through ``StreamRunner`` at C = 1 and once
+     more through ``python -m rtsdr_tpu_torch.cli 0 --no-rds``, identical
+     bytes, tones right), ``batch_audio`` (1024 channels, 3 steps, row 0
+     equal to a C = 1 run), ``batch_runner_audio`` (16 capture files through
+     ``BatchRunner``);
+  3. the full mode-0 path (audio + RDS), counted on its own: ``stream`` —
+     24 blocks of a station that carries a PS name over 0A groups, through
+     ``StreamRunner`` with the CLI's settings and a ``GroupDecoder``: tones
+     right, enough syncs, few false positives, the decoded PI and PS equal
+     to what was encoded; once more through ``python -m rtsdr_tpu_torch.cli
+     0 --rds-groups`` (identical bytes and stderr lines); ``batch`` — 1024
+     RDS-bearing stations, 6 steps, finite, row 0 equal to its C = 1 twin
+     in audio and frame outputs; ``batch_runner`` — 16 capture files with
+     an ``rds_hook``;
+  4. ``fuse_if_bank`` — the same receiver with the band-pass bank inside
+     the ingest kernel, counted on its own: outputs against the unfused
+     run, ms per step of both at C = 1024 and C = 2048;
+  5. for each counted window the launch counts, set to 0 just before, must
+     equal steps x launches per step.
 
 Every line printed is one JSON object, except the line with the card's name
 and power limit.  Exit code 0 and a last line ``{"ok": true, ...}`` only if
@@ -53,12 +61,30 @@ TOL_STATE = 1e-6      # carried FIR / discriminator state
 TOL_NCO = 5e-5        # cos/sin of angles the two detectors round differently
 TOL_PLL_STATE = 1e-4  # sequential float32 rounding over 15,360 samples
 TOL_PLL_INTEG = 1e-5  # the integrator of a locked loop is itself ~1e-3
+TOL_RRC_REL = 5e-6    # x max|ref|: float32 sums of 158 + 151 terms, FMA vs
+#                       multiply-then-add, the zi terms summed by a warp
+TOL_ROW0 = 2e-5       # a batch row against the same station run alone
+TOL_FUSED_AUDIO = 2e-5    # fused-bank receiver against the unfused one
+TOL_FUSED_SYMBOLS_REL = 1e-4  # x peak symbol: through two locked loops
 
-N_STREAM_BLOCKS = 8
+N_AUDIO_STREAM_BLOCKS = 4
+N_AUDIO_BATCH_STEPS = 3
+N_AUDIO_RUNNER_BLOCKS = 2
+N_STREAM_BLOCKS = 24
 N_BATCH_STEPS = 6
 N_BATCH_CHANNELS = 1024
 N_RUNNER_STATIONS = 16
 N_RUNNER_BLOCKS = 4
+N_FUSE_STEPS = 4
+FUSE_CHANNELS = (1024, 2048)
+
+# what the stream phase must decode (24 blocks air ~17 groups of ~70
+# 26-bit blocks; the first two blocks go to carrier and clock acquisition;
+# each of ~1,800 windows matches one of 5 offset words by chance with
+# probability 5/1024: ~9 false positives expected)
+STATION_PI, STATION_PS = 0x3A5C, "H100 FM "
+MIN_STREAM_SYNCS = 40
+MAX_STREAM_FALSE_POSITIVES = 25
 
 
 def emit(obj) -> None:
@@ -88,12 +114,15 @@ def main() -> int:
     from rtsdr_tpu_torch.io.batch import BatchRunner
     from rtsdr_tpu_torch.io.stream import StreamRunner
     from rtsdr_tpu_torch.ops import (
-        _cuda, coeffs, cuda_fir, cuda_pll, fir, ingestfir)
+        _cuda, coeffs, cuda_fir, cuda_pll, cuda_resample, fir, ingestfir)
     from rtsdr_tpu_torch.ops.pll import PLLState, pll, pll_init, pll_loop
     from rtsdr_tpu_torch.pipeline.audio import audio_lpf_taps
     from rtsdr_tpu_torch.pipeline.frontend import rf_lpf_taps
+    from rtsdr_tpu_torch.pipeline.groups import GroupDecoder, format_group
+    from rtsdr_tpu_torch.pipeline.rds import composed_resampler_taps
     from rtsdr_tpu_torch.pipeline.receiver import Receiver
-    from rtsdr_tpu_torch.utils.signals import fm_multiplex_iq
+    from rtsdr_tpu_torch.utils.signals import (
+        encode_rds_blocks, fm_multiplex_iq, ps_station_words, rds_baseband)
 
     # the plain versions are explicit float32 sums, but state it anyway:
     # no TF32 anywhere in a reference or a yardstick
@@ -174,26 +203,39 @@ def main() -> int:
                                   cfg.stereo.chan_hi, cfg.stereo.taps)
     rds_h = coeffs.bandpass_taps(if_fs, cfg.rds.extract_lo,
                                  cfg.rds.extract_hi, cfg.rds.taps)
-    n_if, n_audio = cfg.if_len, cfg.audio_len
+    sq_h = coeffs.bandpass_taps(if_fs, cfg.rds.squared_lo,
+                                cfg.rds.squared_hi, cfg.rds.taps)
+    comb_h = composed_resampler_taps(cfg)
+    rrc_h = coeffs.rrc_taps(cfg.rds.rrc_fs, cfg.rds.rrc_taps,
+                            cfg.rds.rrc_beta, cfg.rds.symbol_rate)
+    up, down = cfg.rds.up, cfg.rds.down
+    n_if, n_audio, n_rds = cfg.if_len, cfg.audio_len, cfg.rds_len
     taps = cfg.rf.taps
 
-    n_blocks = max(N_STREAM_BLOCKS, N_BATCH_STEPS)
-    station = fm_multiplex_iq(n_blocks * cfg.iq_len).reshape(
-        n_blocks, cfg.block_size)
-    # 16 distinct stations (tone frequencies, pilot phases), tiled to 1024
-    # rows; every row but row 0 gets its own +-8 LSB of uniform noise
+    def rds_station(n_blocks, pi, ps, **kw):
+        """(n_blocks, block_size) u8 of a stereo station that spells ``ps``
+        over 0A groups (0.73 groups per block)."""
+        wave = rds_baseband(encode_rds_blocks(
+            ps_station_words(n_blocks + 4, pi, ps)))
+        return fm_multiplex_iq(n_blocks * cfg.iq_len, rds_wave=wave, **kw
+                               ).reshape(n_blocks, cfg.block_size)
+
+    station = rds_station(N_STREAM_BLOCKS, STATION_PI, STATION_PS)
+    # 16 distinct stations (tone frequencies, pilot phases, PI codes, PS
+    # names), tiled to the batch's rows; every row but row 0 gets its own
+    # +-8 LSB of uniform noise
     variants = [station[:N_BATCH_STEPS]]
     for k in range(1, 16):
-        variants.append(fm_multiplex_iq(
-            N_BATCH_STEPS * cfg.iq_len, mono_hz=700.0 + 130.0 * k,
-            stereo_hz=1500.0 + 210.0 * k, pilot_phase=0.37 * k
-        ).reshape(N_BATCH_STEPS, cfg.block_size))
+        variants.append(rds_station(
+            N_BATCH_STEPS, STATION_PI + k, f"STN {k:02d}  ",
+            mono_hz=700.0 + 130.0 * k, stereo_hz=1500.0 + 210.0 * k,
+            pilot_phase=0.37 * k))
     variants_host = np.stack(variants, axis=1)                   # (6, 16, B)
     variants = torch.as_tensor(variants_host).to(dev)
     gen = torch.Generator(device=dev).manual_seed(20260)
 
-    def batch_block(b: int) -> torch.Tensor:
-        rows = variants[b].repeat(N_BATCH_CHANNELS // 16, 1).to(torch.int16)
+    def batch_block(b: int, c: int = N_BATCH_CHANNELS) -> torch.Tensor:
+        rows = variants[b].repeat(c // 16, 1).to(torch.int16)
         noise = torch.randint(-8, 9, rows.shape, generator=gen, device=dev,
                               dtype=torch.int16)
         noise[0] = 0
@@ -251,41 +293,62 @@ def main() -> int:
                   library_ms=None,
                   **bound(nbytes(raw, zi_i, zi_q, pi, pq, *k),
                           rf_flop + c * n_if * 8))
-        for emit_fm in ((True, False) if c != 1 else (True,)):
-            args = (raw, rf_h, zi_i, zi_q, pi, pq, cfg.rf.decim, mono_h, azi,
-                    cfg.mono.down)
-            k = ingestfir.ingest_fir_demod_audio(*args, emit_fm=emit_fm)
-            r = ingestfir.ingest_fir_demod_audio_ref(*args, emit_fm=emit_fm)
-            names = ("fm", "audio", "zi_i", "zi_q", "prev_i", "prev_q",
-                     "audio_zi")
+        args = (raw, rf_h, zi_i, zi_q, pi, pq, cfg.rf.decim, mono_h, azi,
+                cfg.mono.down)
+        names = ("fm", "audio", "zi_i", "zi_q", "prev_i", "prev_q",
+                 "audio_zi")
+        if_zi = fm_prev[:, -(taps - 1):].contiguous()
+        bank_hs = [pilot_h, chan_h, rds_h]
+        fm_err = 0.0
+        # without and with the band-pass bank stage, fm written or not
+        for bank, emit_fm in ((False, True), (False, False), (True, True),
+                              (True, False)):
+            if c == 1 and not emit_fm and not bank:
+                continue
+            kw = dict(emit_fm=emit_fm)
+            if bank:
+                kw.update(bank_h=bank_hs, bank_zi=if_zi)
+            k = ingestfir.ingest_fir_demod_audio(*args, **kw)
+            r = ingestfir.ingest_fir_demod_audio_ref(*args, **kw)
             tols = (TOL_FM, TOL_FIR_REL * float(r[1].abs().max()),
                     TOL_STATE, TOL_STATE, TOL_STATE, TOL_STATE, TOL_FM)
             errs = {n: max_err(a, b) for n, a, b in zip(names, k, r)
                     if a is not None}
+            tols = {n: t for n, t in zip(names, tols) if n in errs}
             assert (k[0] is None) == (not emit_fm)
-            check("ingest.fm_audio", shape, errs,
-                  {n: t for n, t in zip(names, tols) if n in errs},
-                  emit_fm=emit_fm,
+            fm_err = max(fm_err, errs.get("fm", 0.0))
+            flop = rf_flop + c * n_if * 8 + au_flop
+            if bank:
+                # the plain bank filters the PLAIN fm, which differs from
+                # the kernel's by fm_err (atan2f vs torch.atan2): a filter
+                # passes that on scaled by at most sum|h|, which for the
+                # narrow pilot band-pass is not small beside its output
+                for f, (a, b) in enumerate(zip(k[7], r[7])):
+                    errs[f"bank{f}"] = max_err(a, b)
+                    tols[f"bank{f}"] = (
+                        TOL_FIR_REL * float(b.abs().max())
+                        + max(fm_err, 2.5e-7)
+                        * float(np.abs(bank_hs[f]).sum()))
+                flop += 3 * c * n_if * 2 * taps
+            outs = [t for t in k[:7]] + (list(k[7]) if bank else [])
+            check("ingest.fm_audio_bank" if bank else "ingest.fm_audio",
+                  shape, errs, tols, emit_fm=emit_fm,
                   kernel_ms=time_ms(
-                      lambda: ingestfir.ingest_fir_demod_audio(
-                          *args, emit_fm=emit_fm)),
+                      lambda: ingestfir.ingest_fir_demod_audio(*args, **kw)),
                   plain_ms=time_ms(
                       lambda: ingestfir.ingest_fir_demod_audio_ref(
-                          *args, emit_fm=emit_fm), reps=2, warm=0),
+                          *args, **kw), reps=2, warm=0),
                   library_ms=None,
-                  **bound(nbytes(raw, zi_i, zi_q, pi, pq, azi, *k),
-                          rf_flop + c * n_if * 8 + au_flop))
+                  **bound(nbytes(raw, zi_i, zi_q, pi, pq, azi,
+                                 if_zi if bank else None, *outs), flop))
 
         # FIR bank at the shapes audio.py gives it: fm of this block, the
         # bank's own outputs as the mixer's inputs
-        fm = ingestfir.ingest_fir_demod_audio(
-            raw, rf_h, zi_i, zi_q, pi, pq, cfg.rf.decim, mono_h, azi,
-            cfg.mono.down)[0]
-        if_zi = fm_prev[:, -(taps - 1):].contiguous()
-        (_, chan_prev), _ = cuda_fir.fir_bank_carried(
-            fm_prev, [pilot_h, chan_h], None)
-        (pilot, chan), _ = cuda_fir.fir_bank_carried(fm, [pilot_h, chan_h],
-                                                     if_zi)
+        fm = ingestfir.ingest_fir_demod_audio(*args)[0]
+        (_, chan_prev, ext_prev), _ = cuda_fir.fir_bank_carried(
+            fm_prev, bank_hs, None)
+        (pilot, chan, extract), _ = cuda_fir.fir_bank_carried(fm, bank_hs,
+                                                              if_zi)
         st0 = pll_init((c,), device=dev)
         pkw = dict(freq=cfg.stereo.pll.freq, fs=if_fs,
                    nco_scale=cfg.stereo.pll.nco_scale,
@@ -296,15 +359,14 @@ def main() -> int:
         nco, _, _ = cuda_pll.pll_cuda(pilot, st1, **pkw)
         mix_zi = (2.0 * chan_prev * nco_prev)[:, -(len(mono_h) - 1):
                                               ].contiguous()
-        sq_zi = (chan_prev * chan_prev)[:, -(taps - 1):].contiguous()
+        sq_zi = (ext_prev * ext_prev)[:, -(taps - 1):].contiguous()
 
         bank_cases = [("none", [pilot_h, chan_h], 1, fm, None, if_zi)]
         bank_cases.append(("mul2", [mono_h], cfg.mono.down, chan, nco,
                            mix_zi))
         if c != 1:
-            bank_cases.append(("square", [rds_h], 1, chan, None, sq_zi))
-            bank_cases.append(("none", [pilot_h, chan_h, rds_h], 1, fm, None,
-                               if_zi))
+            bank_cases.append(("square", [sq_h], 1, extract, None, sq_zi))
+            bank_cases.append(("none", bank_hs, 1, fm, None, if_zi))
         for pre, hl, s, x, x2, zi in bank_cases:
             k_ys, k_t = cuda_fir.fir_bank_carried(x, hl, zi, s, x2=x2,
                                                   pre=pre)
@@ -373,11 +435,20 @@ def main() -> int:
                           + 5 * 4 * lanes,
                           lanes * n * (12 // div + 8)))
 
+        b1 = (2, 1)
+        sp, rp = cfg.stereo.pll, cfg.rds.pll
+        kw2 = dict(
+            freq=np.array([sp.freq, rp.freq]).reshape(b1), fs=if_fs,
+            nco_scale=np.array([sp.nco_scale, rp.nco_scale]).reshape(b1),
+            phase_adjust=np.array([sp.phase_adjust,
+                                   rp.phase_adjust]).reshape(b1),
+            norm_bandwidth=np.array([sp.norm_bandwidth,
+                                     rp.norm_bandwidth]).reshape(b1))
         pll_case(f"({c}, N)", pilot, st1, 1, **pkw)
         pll_case(f"({c}, N)", pilot, st1, 4, **pkw)
         if c != 1:
             # two-part input with per-part constants: the stereo-pilot +
-            # squared-RDS-carrier pair of the RDS slice
+            # squared-RDS-carrier pair of the receiver's one PLL launch
             # (the second part is a clean 114 kHz carrier per lane: an
             # unlocked loop fed noise wanders across the detector's +-pi
             # seam, where two roundings of one angle legitimately part)
@@ -385,19 +456,56 @@ def main() -> int:
             ph = 0.05 * (torch.arange(c, device=dev) % 16)[:, None]
             sq = torch.cos(2 * np.pi * cfg.rds.pll.freq * tt[None, :] + ph
                            ).to(torch.float32)
-            b1 = (2, 1)
-            sp, rp = cfg.stereo.pll, cfg.rds.pll
-            kw2 = dict(
-                freq=np.array([sp.freq, rp.freq]).reshape(b1), fs=if_fs,
-                nco_scale=np.array([sp.nco_scale, rp.nco_scale]).reshape(b1),
-                phase_adjust=np.array([sp.phase_adjust,
-                                       rp.phase_adjust]).reshape(b1),
-                norm_bandwidth=np.array([sp.norm_bandwidth,
-                                         rp.norm_bandwidth]).reshape(b1))
             st2 = PLLState(*(torch.stack([a, b]) for a, b in
                              zip(st1, pll_init((c,), device=dev))))
             pll_case(f"2 parts of ({c}, N)", (pilot, sq), st2, 1, **kw2)
-        del fm, pilot, chan, nco, fm_prev, chan_prev, nco_prev, raw
+
+        # mixers + resampler + RRC: extract of both blocks, the carrier NCO
+        # the PLL kernel makes of their squared band-pass; block 0 from the
+        # zero state, block 1 (the one timed) from the states block 0 left
+        rkw = dict(freq=rp.freq, fs=if_fs, nco_scale=rp.nco_scale,
+                   phase_adjust=rp.phase_adjust,
+                   norm_bandwidth=rp.norm_bandwidth)
+        pre0, sq_zi0 = cuda_fir.fir_block_pre(
+            ext_prev, sq_h, torch.zeros(c, taps - 1, device=dev), "square")
+        ni0, nq0, rst = cuda_pll.pll_cuda(pre0, st0, **rkw)
+        pre1, _ = cuda_fir.fir_block_pre(extract, sq_h, sq_zi0, "square")
+        ni1, nq1, _ = cuda_pll.pll_cuda(pre1, rst, **rkw)
+        r_zi = torch.zeros(c, 2, len(comb_h) - 1, device=dev)
+        r_rzi = torch.zeros(c, 2, len(rrc_h) - 1, device=dev)
+        for blk, (e_, ni_, nq_) in enumerate(((ext_prev, ni0, nq0),
+                                              (extract, ni1, nq1))):
+            rargs = (e_, ni_, nq_, comb_h, r_zi, rrc_h, r_rzi, up, down)
+            k = cuda_resample.resample_mul2_rrc(*rargs)
+            r = cuda_resample.resample_mul2_rrc_ref(*rargs)
+            rnames = ("rrc", "new_zi", "new_rrc_zi")
+            errs = {n: max_err(a, b) for n, a, b in zip(rnames, k, r)}
+            scale = float(r[0].abs().max())
+            tols = {"rrc": TOL_RRC_REL * scale, "new_zi": TOL_STATE,
+                    "new_rrc_zi": TOL_RRC_REL * scale}
+            timing = {}
+            if blk == 1:
+                timing = dict(
+                    kernel_ms=time_ms(
+                        lambda: cuda_resample.resample_mul2_rrc(*rargs)),
+                    plain_ms=time_ms(
+                        lambda: cuda_resample.resample_mul2_rrc_ref(*rargs),
+                        reps=2, warm=0),
+                    library_ms=None,
+                    # per output and branch: the taps that meet a sample
+                    # (every up-th of the composed filter) + the RRC's;
+                    # 2 multiplies per mixed sample
+                    **bound(nbytes(e_, ni_, nq_, r_zi, r_rzi, *k),
+                            c * 2 * n_rds * 2 * (-(-len(comb_h) // up)
+                                                 + len(rrc_h))
+                            + c * 2 * n_if * 2))
+            check("resample_rrc", f"3 x f32 ({c}, {n_if})", errs, tols,
+                  block=blk, rrc_max_abs=scale,
+                  carried_zi_max_abs=float(r_zi.abs().max()), **timing)
+            r_zi, r_rzi = k[1], k[2]
+        del (fm, pilot, chan, extract, nco, fm_prev, chan_prev, ext_prev,
+             nco_prev, raw, pre0, pre1, ni0, nq0, ni1, nq1, r_zi, r_rzi, k, r)
+        torch.cuda.empty_cache()
 
     emit({"kernel_cases": cases, "card": card})
     torch.cuda.empty_cache()
@@ -412,8 +520,10 @@ def main() -> int:
         "fir_bank_carried": lambda: cuda_fir.fir_bank_carried(
             x64, [mono_h], zi64),
         "pll": lambda: pll(x64, pll_init((2,), torch.float64, dev), **pkw),
-        "Receiver": lambda: Receiver(cfg, (), torch.float64,
-                                     enable_rds=False),
+        "resample_mul2_rrc": lambda: cuda_resample.resample_mul2_rrc(
+            x64, x64, x64, mono_h, torch.stack([zi64, zi64], 1), mono_h,
+            torch.stack([zi64, zi64], 1), 1, 2),
+        "Receiver": lambda: Receiver(cfg, (), torch.float64),
     }
     before = _cuda.launch_counts()
     for name, call in refusals.items():
@@ -427,178 +537,381 @@ def main() -> int:
         raise SystemExit("chip_smoke: a refused call launched a kernel")
     emit({"refused_float64_on_card": sorted(refusals), "card": card})
 
-    # --------------------------------- warm-up outside the counted window
-    rx1 = Receiver(cfg, (), enable_rds=False)
-    rxb = Receiver(cfg, (N_BATCH_CHANNELS,), enable_rds=False)
-    st = rx1.init()
-    for b in range(2):
-        st, _ = rx1.step(st, torch.as_tensor(station[b]).to(dev))
-    rxb.step(rxb.init(), batch_block(0))
+    # ------------------------------------------------------- shared checks
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def run_cli(iq_path, *flags):
+        with open(iq_path, "rb") as f:
+            return subprocess.run(
+                [sys.executable, "-m", "rtsdr_tpu_torch.cli", "0", *flags],
+                stdin=f, capture_output=True, timeout=600, cwd=here)
+
+    def tone_amplitudes(pcm):
+        """Tone fits over all but the first block of int16 stereo bytes."""
+        lr = np.frombuffer(pcm, np.int16).reshape(-1, 2)[n_audio:] / 16384.0
+        t = np.arange(lr.shape[0]) / cfg.audio_fs
+
+        def tone(x, hz):
+            return 2.0 * float(np.hypot(
+                np.mean(x * np.sin(2 * np.pi * hz * t)),
+                np.mean(x * np.cos(2 * np.pi * hz * t))))
+
+        amps = {"mono_1100Hz_in_L+R": tone(lr[:, 0] + lr[:, 1], 1.1e3),
+                "stereo_2300Hz_in_L-R": tone(lr[:, 0] - lr[:, 1], 2.3e3),
+                "leak_2300Hz_in_L+R": tone(lr[:, 0] + lr[:, 1], 2.3e3)}
+        if not (abs(amps["mono_1100Hz_in_L+R"] - 0.88) < 0.088
+                and abs(amps["stereo_2300Hz_in_L-R"] - 0.83) < 0.083
+                and amps["leak_2300Hz_in_L+R"] < 0.02):
+            raise SystemExit(f"chip_smoke: stream tones are off: {amps}")
+        return amps
+
+    TONES_EXPECTED = {"mono": 0.88, "stereo": 0.83, "leak_below": 0.02,
+                      "within": "10%"}
+
+    def stream_phase(n_blocks, rds: bool):
+        """``n_blocks`` of ``station`` through StreamRunner at C = 1 and
+        through the CLI as a subprocess; returns the phase's report."""
+        lines, chunks = [], []
+        dec = GroupDecoder()
+
+        def hook(fo):
+            for g in dec.feed(fo):
+                lines.append(format_group(g, dec.pty_table))
+
+        with tempfile.TemporaryDirectory() as tmp:
+            iq_path = os.path.join(tmp, "station.iq")
+            station[:n_blocks].tofile(iq_path)
+            # the CLI's own settings (its --resync default is on)
+            runner = (StreamRunner(cfg, resync=True) if rds
+                      else StreamRunner(cfg, enable_rds=False))
+            with open(iq_path, "rb") as f:
+                t0 = time.perf_counter()
+                stats = runner.run(f.fileno(), emit=chunks.append,
+                                   rds_log=lines.append, frame_hook=hook)
+                stream_s = time.perf_counter() - t0
+            cli = run_cli(iq_path, *(("--rds-groups",) if rds
+                                     else ("--no-rds",)))
+        pcm = b"".join(chunks)
+        expect_bytes = n_blocks * n_audio * 4
+        if stats["blocks"] != n_blocks or len(pcm) != expect_bytes:
+            raise SystemExit(f"chip_smoke: stream wrote {len(pcm)} bytes in "
+                             f"{stats['blocks']} blocks, expected "
+                             f"{expect_bytes}")
+        cli_lines = cli.stderr.decode().splitlines()
+        summary_at = next((i for i, ln in enumerate(cli_lines)
+                           if ln.startswith("processed ")), len(cli_lines))
+        if (cli.returncode != 0 or cli.stdout != pcm
+                or cli_lines[:summary_at] != lines):
+            raise SystemExit(
+                "chip_smoke: the CLI subprocess failed, or its bytes or its "
+                f"stderr lines differ from StreamRunner's (rc "
+                f"{cli.returncode}, {len(cli.stdout)} bytes, "
+                f"{summary_at} lines vs {len(lines)}): "
+                f"{cli.stderr.decode()[-2000:]}")
+        report = {"blocks": n_blocks, "channels": 1, "bytes_out": len(pcm),
+                  "tone_amplitudes": tone_amplitudes(pcm),
+                  "expected": TONES_EXPECTED,
+                  "ms_per_64ms_block": stream_s * 1e3 / n_blocks,
+                  "cli_bytes_identical": True}
+        if rds:
+            report.update({
+                "rds_syncs": stats["rds_events"],
+                "rds_false_positives": stats["rds_false_positives"],
+                "min_syncs": MIN_STREAM_SYNCS,
+                "max_false_positives": MAX_STREAM_FALSE_POSITIVES,
+                "groups": len(dec.groups),
+                "decoded_pi": None if dec.pi is None else f"0x{dec.pi:04X}",
+                "decoded_ps": dec.ps_name,
+                "encoded_pi": f"0x{STATION_PI:04X}",
+                "encoded_ps": STATION_PS,
+                "cli_stderr_lines_identical": summary_at,
+                "cli_summary": cli_lines[summary_at:]})
+        return report
+
+    def batch_phase(rxb, rx1, n_steps):
+        """Step ``rxb`` (1024 channels) and its C = 1 twin on row 0."""
+        st_b, st_1 = rxb.init(), rx1.init()
+        step_ms, row0_err, finite, peak, twin = [], 0.0, True, 0, []
+        frames_equal = True
+        for b in range(n_steps):
+            raw = batch_block(b)
+            torch.cuda.synchronize()
+            # peak while stepping: state, this block's input and outputs,
+            # the step's intermediates (not the scratch the input was made
+            # with)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            st_b, out_b = rxb.step(st_b, raw)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            st_1, out_1 = rx1.step(st_1, raw[0])
+            twin.append((out_1.left.cpu().numpy(), out_1.right.cpu().numpy(),
+                         out_1.rds))
+            for a, r in ((out_b.left, out_1.left), (out_b.right, out_1.right),
+                         (out_b.mono, out_1.mono)):
+                finite = finite and bool(torch.isfinite(a).all())
+                if tuple(a.shape) != (N_BATCH_CHANNELS, n_audio):
+                    raise SystemExit(f"chip_smoke: batch output {a.shape}")
+                row0_err = max(row0_err, max_err(a[0], r))
+            if out_b.rds is not None:
+                for name, a, r in zip(out_b.rds._fields, out_b.rds,
+                                      out_1.rds):
+                    if a.dtype.is_floating_point:
+                        finite = finite and bool(torch.isfinite(a).all())
+                        row0_err = max(row0_err, max_err(a[0], r))
+                    else:
+                        frames_equal = frames_equal and torch.equal(a[0], r)
+        steady = statistics.median(step_ms[1:])
+        report = {"channels": N_BATCH_CHANNELS, "steps": n_steps,
+                  "bytes_per_step": N_BATCH_CHANNELS * cfg.block_size,
+                  "finite": finite, "row0_max_abs_err_vs_c1": row0_err,
+                  "row0_tolerance": TOL_ROW0,
+                  "row0_frame_integers_equal": frames_equal,
+                  "step_ms": step_ms, "ms_per_step_median": steady,
+                  "realtime_multiple": N_BATCH_CHANNELS * 64.0 / steady,
+                  "max_memory_allocated_bytes": peak}
+        if not finite or not row0_err <= TOL_ROW0 or not frames_equal:
+            raise SystemExit(f"chip_smoke: batch outputs wrong: {report}")
+        return report, twin, out_b
+
+    def runner_phase(n_blocks, twin, rds: bool):
+        """The --stations path: one capture file per station (the 16
+        noiseless variants; station 0 is the C = 1 twin's input), one reader
+        thread per file, pinned (N, block) staging, one batched step per
+        block."""
+        got = [[] for _ in range(N_RUNNER_STATIONS)]
+        frames = [[] for _ in range(N_RUNNER_STATIONS)]
+        with tempfile.TemporaryDirectory() as tmp:
+            files = []
+            for c in range(N_RUNNER_STATIONS):
+                path = os.path.join(tmp, f"station{c}.iq")
+                variants_host[:n_blocks, c].tofile(path)
+                files.append(open(path, "rb"))
+            try:
+                kw = {} if rds else {"enable_rds": False}
+                with BatchRunner(cfg, [f.fileno() for f in files],
+                                 **kw) as runner:
+                    t0 = time.perf_counter()
+                    rstats = runner.run(
+                        emit=lambda c, left, right: got[c].append(
+                            (left.copy(), right.copy())),
+                        rds_hook=(lambda c, fo: frames[c].append(
+                            type(fo)(*(np.array(x) for x in fo))))
+                        if rds else None)
+                    runner_s = time.perf_counter() - t0
+            finally:
+                for f in files:
+                    f.close()
+        if (rstats != {"blocks": n_blocks, "stations": N_RUNNER_STATIONS}
+                or any(len(g) != n_blocks for g in got)
+                or (rds and any(len(f) != n_blocks for f in frames))):
+            raise SystemExit(f"chip_smoke: BatchRunner stats {rstats}, blocks "
+                             f"emitted per station {[len(g) for g in got]}")
+        finite = all(np.isfinite(a).all() and a.shape == (n_audio,)
+                     for g in got for lr_ in g for a in lr_)
+        err = max(float(np.abs(a - r).max())
+                  for b in range(n_blocks)
+                  for a, r in zip(got[0][b], twin[b][:2]))
+        # the stations differ, so no two rows may carry the same audio
+        distinct = len({got[c][-1][0].tobytes()
+                        for c in range(N_RUNNER_STATIONS)})
+        report = {"stations": N_RUNNER_STATIONS, "blocks": n_blocks,
+                  "finite": finite, "station0_max_abs_err_vs_c1": err,
+                  "station0_tolerance": TOL_ROW0,
+                  "distinct_stations": distinct,
+                  "ms_per_block": runner_s * 1e3 / n_blocks}
+        ok = finite and err <= TOL_ROW0 and distinct == N_RUNNER_STATIONS
+        if rds:
+            # station 0's frame outputs are the twin's; every station's
+            # windows are counted, shaped per station
+            same = all(
+                np.array_equal(getattr(frames[0][b], name),
+                               getattr(twin[b][2], name).cpu().numpy())
+                for b in range(n_blocks)
+                for name in ("n_windows", "syndrome_id", "is_sync",
+                             "positions", "info_word"))
+            shapes = all(fo.syndrome_id.shape == (77,) and fo.n_windows.shape
+                         == () for fr in frames for fo in fr)
+            report.update({"rds_hook_calls": sum(len(f) for f in frames),
+                           "station0_frames_equal_c1": same,
+                           "per_station_shapes": shapes,
+                           "syncs_per_station": [
+                               int(sum(fo.is_sync.sum() for fo in fr))
+                               for fr in frames]})
+            ok = ok and same and shapes
+        if not ok:
+            raise SystemExit(f"chip_smoke: BatchRunner outputs wrong: "
+                             f"{report}")
+        return report
+
+    def expect_counts(window, steps, per_step):
+        counts = _cuda.launch_counts()
+        expected = {k: v * steps for k, v in per_step.items()}
+        if counts != expected:
+            raise SystemExit(f"chip_smoke: launch counts {counts} on the "
+                             f"{window} path, expected {expected}")
+        return counts
+
+    # --------------------------------- warm-up outside the counted windows
+    rx1a = Receiver(cfg, (), enable_rds=False)
+    rxba = Receiver(cfg, (N_BATCH_CHANNELS,), enable_rds=False)
+    rx1 = Receiver(cfg, ())
+    rxb = Receiver(cfg, (N_BATCH_CHANNELS,))
+    for one, many in ((rx1a, rxba), (rx1, rxb)):
+        st = one.init()
+        for b in range(2):
+            st, _ = one.step(st, torch.as_tensor(station[b]).to(dev))
+        many.step(many.init(), batch_block(0))
     torch.cuda.synchronize()
 
-    # ============================ the main path: counts start from 0 here
+    # ============ 2. the audio path (enable_rds=False): counts from 0 here
     _cuda.reset_launch_counts()
-
-    # ---------------------------------------------------------- 2. stream
-    with tempfile.TemporaryDirectory() as tmp:
-        iq_path = os.path.join(tmp, "station.iq")
-        station[:N_STREAM_BLOCKS].tofile(iq_path)
-        chunks = []
-        runner = StreamRunner(cfg, enable_rds=False)
-        with open(iq_path, "rb") as f:
-            t0 = time.perf_counter()
-            stats = runner.run(f.fileno(), emit=chunks.append)
-            stream_s = time.perf_counter() - t0
-        stream_counts = _cuda.launch_counts()
-        # the same capture through the command-line entry point
-        with open(iq_path, "rb") as f:
-            cli = subprocess.run(
-                [sys.executable, "-m", "rtsdr_tpu_torch.cli", "0", "--no-rds"],
-                stdin=f, capture_output=True, timeout=600,
-                cwd=os.path.dirname(os.path.abspath(__file__)))
-    pcm = b"".join(chunks)
-    expect_bytes = N_STREAM_BLOCKS * n_audio * 4
-    if stats["blocks"] != N_STREAM_BLOCKS or len(pcm) != expect_bytes:
-        raise SystemExit(f"chip_smoke: stream wrote {len(pcm)} bytes in "
-                         f"{stats['blocks']} blocks, expected {expect_bytes}")
-    if cli.returncode != 0 or cli.stdout != pcm:
-        raise SystemExit(
-            "chip_smoke: the CLI subprocess failed or its bytes differ from "
-            f"StreamRunner's (rc {cli.returncode}, {len(cli.stdout)} bytes): "
-            f"{cli.stderr.decode()[-2000:]}")
-    lr = np.frombuffer(pcm, np.int16).reshape(-1, 2)[n_audio:] / 16384.0
-    t = np.arange(lr.shape[0]) / cfg.audio_fs
-
-    def tone(x, hz):
-        return 2.0 * float(np.hypot(np.mean(x * np.sin(2 * np.pi * hz * t)),
-                                    np.mean(x * np.cos(2 * np.pi * hz * t))))
-
-    amps = {"mono_1100Hz_in_L+R": tone(lr[:, 0] + lr[:, 1], 1.1e3),
-            "stereo_2300Hz_in_L-R": tone(lr[:, 0] - lr[:, 1], 2.3e3),
-            "leak_2300Hz_in_L+R": tone(lr[:, 0] + lr[:, 1], 2.3e3)}
-    emit({"stream": {"blocks": N_STREAM_BLOCKS, "channels": 1,
-                     "bytes_out": len(pcm), "tone_amplitudes": amps,
-                     "expected": {"mono": 0.88, "stereo": 0.83,
-                                  "leak_below": 0.02, "within": "10%"},
-                     "ms_per_64ms_block": stream_s * 1e3 / N_STREAM_BLOCKS,
-                     "cli_bytes_identical": True,
-                     "launches": stream_counts}, "card": card})
-    if not (abs(amps["mono_1100Hz_in_L+R"] - 0.88) < 0.088
-            and abs(amps["stereo_2300Hz_in_L-R"] - 0.83) < 0.083
-            and amps["leak_2300Hz_in_L+R"] < 0.02):
-        raise SystemExit(f"chip_smoke: stream tones are off: {amps}")
-
-    # ----------------------------------------------------------- 3. batch
-    st_b, st_1 = rxb.init(), rx1.init()
-    step_ms, row0_err, finite, peak, twin_lr = [], 0.0, True, 0, []
-    for b in range(N_BATCH_STEPS):
-        raw = batch_block(b)
-        torch.cuda.synchronize()
-        # peak while stepping: state, this block's input and outputs, the
-        # step's intermediates (not the scratch the input was made with)
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        st_b, out_b = rxb.step(st_b, raw)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        peak = max(peak, torch.cuda.max_memory_allocated())
-        st_1, out_1 = rx1.step(st_1, raw[0])
-        twin_lr.append((out_1.left.cpu().numpy(), out_1.right.cpu().numpy()))
-        for a, r in ((out_b.left, out_1.left), (out_b.right, out_1.right),
-                     (out_b.mono, out_1.mono)):
-            finite = finite and bool(torch.isfinite(a).all())
-            if tuple(a.shape) != (N_BATCH_CHANNELS, n_audio):
-                raise SystemExit(f"chip_smoke: batch output shape {a.shape}")
-            row0_err = max(row0_err, max_err(a[0], r))
-    steady = statistics.median(step_ms[1:])
-
-    # ---------------------------------------------------- 4. batch_runner
-    # the --stations path: one capture file per station (the 16 noiseless
-    # variants; station 0 is the C = 1 twin's input), one reader thread per
-    # file, pinned (N, block) staging, one batched step per block
-    got = [[] for _ in range(N_RUNNER_STATIONS)]
-    with tempfile.TemporaryDirectory() as tmp:
-        files = []
-        for c in range(N_RUNNER_STATIONS):
-            path = os.path.join(tmp, f"station{c}.iq")
-            variants_host[:N_RUNNER_BLOCKS, c].tofile(path)
-            files.append(open(path, "rb"))
-        try:
-            with BatchRunner(cfg, [f.fileno() for f in files],
-                             enable_rds=False) as runner:
-                t0 = time.perf_counter()
-                rstats = runner.run(emit=lambda c, left, right: got[c].append(
-                    (left.copy(), right.copy())))
-                runner_s = time.perf_counter() - t0
-        finally:
-            for f in files:
-                f.close()
-    if (rstats != {"blocks": N_RUNNER_BLOCKS, "stations": N_RUNNER_STATIONS}
-            or any(len(g) != N_RUNNER_BLOCKS for g in got)):
-        raise SystemExit(f"chip_smoke: BatchRunner stats {rstats}, blocks "
-                         f"emitted per station {[len(g) for g in got]}")
-    runner_finite = all(np.isfinite(a).all() and a.shape == (n_audio,)
-                        for g in got for lr_ in g for a in lr_)
-    runner_err = max(float(np.abs(a - r).max())
-                     for b in range(N_RUNNER_BLOCKS)
-                     for a, r in zip(got[0][b], twin_lr[b]))
-    # the stations differ, so no two rows may carry the same audio
-    distinct = len({got[c][-1][0].tobytes()
-                    for c in range(N_RUNNER_STATIONS)})
-    counts = _cuda.launch_counts()
-    # ============================================= end of the main path
-    emit({"batch": {"channels": N_BATCH_CHANNELS, "steps": N_BATCH_STEPS,
-                    "bytes_per_step": N_BATCH_CHANNELS * cfg.block_size,
-                    "finite": finite, "row0_max_abs_err_vs_c1": row0_err,
-                    "row0_tolerance": 2e-5, "step_ms": step_ms,
-                    "ms_per_step_median": steady,
-                    "realtime_multiple": N_BATCH_CHANNELS * 64.0 / steady,
-                    "max_memory_allocated_bytes": peak}, "card": card})
-    if not finite or not row0_err <= 2e-5:
-        raise SystemExit(f"chip_smoke: batch outputs wrong (finite={finite}, "
-                         f"row 0 differs from the C=1 run by {row0_err})")
-    emit({"batch_runner": {"stations": N_RUNNER_STATIONS,
-                           "blocks": N_RUNNER_BLOCKS, "finite": runner_finite,
-                           "station0_max_abs_err_vs_c1": runner_err,
-                           "station0_tolerance": 2e-5,
-                           "distinct_stations": distinct,
-                           "ms_per_block": runner_s * 1e3 / N_RUNNER_BLOCKS},
-          "card": card})
-    if (not runner_finite or not runner_err <= 2e-5
-            or distinct != N_RUNNER_STATIONS):
-        raise SystemExit(
-            f"chip_smoke: BatchRunner outputs wrong (finite={runner_finite}, "
-            f"station 0 differs from the C=1 run by {runner_err}, "
-            f"{distinct} distinct stations of {N_RUNNER_STATIONS})")
-
+    rep_stream = stream_phase(N_AUDIO_STREAM_BLOCKS, rds=False)
+    rep_batch, twin_a, _ = batch_phase(rxba, rx1a, N_AUDIO_BATCH_STEPS)
+    rep_runner = runner_phase(N_AUDIO_RUNNER_BLOCKS, twin_a, rds=False)
     # stream, batch, the batch's C = 1 twin, BatchRunner
-    steps = N_STREAM_BLOCKS + 2 * N_BATCH_STEPS + N_RUNNER_BLOCKS
-    per_step = {"ingest.fm_audio": 1, "fir_bank.none": 1, "fir_bank.mul2": 1,
-                "pll": 1}
-    expected = {k: v * steps for k, v in per_step.items()}
-    if counts != expected:
-        raise SystemExit(f"chip_smoke: launch counts {counts} on the main "
-                         f"path, expected {expected}")
+    audio_counts = expect_counts(
+        "audio", N_AUDIO_STREAM_BLOCKS + 2 * N_AUDIO_BATCH_STEPS
+        + N_AUDIO_RUNNER_BLOCKS,
+        {"ingest.fm_audio": 1, "fir_bank.none": 1, "fir_bank.mul2": 1,
+         "pll": 1})
+    # ======================================== end of the audio path
+    emit({"stream_audio": rep_stream, "card": card})
+    emit({"batch_audio": rep_batch, "card": card})
+    emit({"batch_runner_audio": rep_runner, "card": card})
+    del rxba, rx1a, twin_a
+
+    # ======= 3. the full mode-0 path (audio + RDS): counts from 0 here
+    _cuda.reset_launch_counts()
+    rep_stream = stream_phase(N_STREAM_BLOCKS, rds=True)
+    rep_batch, twin, _ = batch_phase(rxb, rx1, N_BATCH_STEPS)
+    rep_runner = runner_phase(N_RUNNER_BLOCKS, twin, rds=True)
+    rds_per_step = {"ingest.fm_audio": 1, "fir_bank.none": 1,
+                    "fir_bank.square": 1, "fir_bank.mul2": 1, "pll": 1,
+                    "resample_rrc": 1}
+    rds_counts = expect_counts(
+        "RDS", N_STREAM_BLOCKS + 2 * N_BATCH_STEPS + N_RUNNER_BLOCKS,
+        rds_per_step)
+    # ================================== end of the full mode-0 path
+    rep_stream["launches"] = rds_counts
+    emit({"stream": rep_stream, "card": card})
+    if (rep_stream["rds_syncs"] < MIN_STREAM_SYNCS
+            or rep_stream["rds_false_positives"] > MAX_STREAM_FALSE_POSITIVES
+            or rep_stream["decoded_pi"] != rep_stream["encoded_pi"]
+            or rep_stream["decoded_ps"] != STATION_PS):
+        raise SystemExit(f"chip_smoke: the stream's RDS decode is off: "
+                         f"{rep_stream}")
+    emit({"batch": rep_batch, "card": card})
+    emit({"batch_runner": rep_runner, "card": card})
+    del rxb, twin
+
+    # ===== 4. the band-pass bank inside the ingest kernel (fuse_if_bank)
+    fuse_rows = []
+    fuse_per_step = {"ingest.fm_audio_bank": 1, "fir_bank.square": 1,
+                     "fir_bank.mul2": 1, "pll": 1, "resample_rrc": 1}
+    fuse_counts = dict.fromkeys(fuse_per_step, 0)
+    for c in FUSE_CHANNELS:
+        blocks = [batch_block(b, c) for b in range(N_FUSE_STEPS)]
+        unfused = None
+        for fuse in (False, True):
+            rx = Receiver(cfg, (c,), fuse_if_bank=fuse)
+            st = rx.init()
+            torch.cuda.synchronize()
+            if fuse:
+                # ============ each fused run is counted on its own
+                _cuda.reset_launch_counts()
+            ms, outs = [], []
+            for raw in blocks:
+                t0 = time.perf_counter()
+                st, out = rx.step(st, raw)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                outs.append(out)
+            row = {"channels": c, "fuse_if_bank": fuse, "step_ms": ms,
+                   "ms_per_step_median": statistics.median(ms[1:])}
+            if not fuse:
+                unfused = outs
+            else:
+                for name, n in expect_counts(
+                        f"fuse_if_bank C = {c}", N_FUSE_STEPS,
+                        fuse_per_step).items():
+                    fuse_counts[name] += n
+                # ==================== end of this fused run
+                a_err = s_err = 0.0
+                sid_diff = sid_n = 0
+                for o, u in zip(outs, unfused):
+                    a_err = max(a_err, max_err(o.left, u.left),
+                                max_err(o.right, u.right))
+                    peak_sym = float(u.rds.symbols_i.abs().max())
+                    s_err = max(s_err,
+                                max_err(o.rds.symbols_i, u.rds.symbols_i)
+                                / peak_sym)
+                    sid_diff += int((o.rds.syndrome_id
+                                     != u.rds.syndrome_id).sum())
+                    sid_n += o.rds.syndrome_id.numel()
+                    if not (torch.equal(o.rds.n_sym, u.rds.n_sym)
+                            and torch.equal(o.rds.n_windows,
+                                            u.rds.n_windows)):
+                        raise SystemExit("chip_smoke: fused and unfused "
+                                         "receivers count differently")
+                row.update({"audio_max_abs_err_vs_unfused": a_err,
+                            "audio_tolerance": TOL_FUSED_AUDIO,
+                            "symbols_max_rel_err_vs_unfused": s_err,
+                            "symbols_tolerance": TOL_FUSED_SYMBOLS_REL,
+                            "syndrome_ids_differing": sid_diff,
+                            "syndrome_ids_compared": sid_n})
+                # a symbol within rounding of zero may slice either way;
+                # more than one window in a thousand is a fault
+                if (not a_err <= TOL_FUSED_AUDIO
+                        or not s_err <= TOL_FUSED_SYMBOLS_REL
+                        or sid_diff > sid_n // 1000):
+                    raise SystemExit(f"chip_smoke: fuse_if_bank=True "
+                                     f"differs from unfused: {row}")
+            fuse_rows.append(row)
+            del rx, st, outs
+        del blocks, unfused
+        torch.cuda.empty_cache()
+    # ============================== end of the fuse_if_bank path
+    emit({"fuse_if_bank": fuse_rows, "card": card})
 
     # -------------------------------------------------- the kernels line
+    # name -> (source, the TPU kernel it replaces, launches in the window
+    # of the main path that runs it)
     meta = {
         "ingest.fm_audio": ("rtsdr_tpu_torch/csrc/ingest.cu",
-                            "rtsdr_tpu/ops/ingestfir.py:257"),
+                            "rtsdr_tpu/ops/ingestfir.py:257", rds_counts),
+        "ingest.fm_audio_bank": ("rtsdr_tpu_torch/csrc/ingest.cu",
+                                 "rtsdr_tpu/ops/ingestfir.py:257",
+                                 fuse_counts),
         "fir_bank.none": ("rtsdr_tpu_torch/csrc/fir_bank.cu",
-                          "rtsdr_tpu/ops/pallas_fir.py:35"),
+                          "rtsdr_tpu/ops/pallas_fir.py:35", rds_counts),
+        "fir_bank.square": ("rtsdr_tpu_torch/csrc/fir_bank.cu",
+                            "rtsdr_tpu/ops/pallas_fir.py:35", rds_counts),
         "fir_bank.mul2": ("rtsdr_tpu_torch/csrc/fir_bank.cu",
-                          "rtsdr_tpu/ops/pallas_fir.py:35"),
+                          "rtsdr_tpu/ops/pallas_fir.py:35", rds_counts),
         "pll": ("rtsdr_tpu_torch/csrc/pll.cu",
-                "rtsdr_tpu/ops/pallas_pll.py:82"),
+                "rtsdr_tpu/ops/pallas_pll.py:82", rds_counts),
+        "resample_rrc": ("rtsdr_tpu_torch/csrc/resample_rrc.cu",
+                         "rtsdr_tpu/ops/pallas_fir.py:479", rds_counts),
+    }
+    # the case that has the receiver's own configuration of the kernel at
+    # the batch path's shape (C = 1024)
+    pick = {
+        "ingest.fm_audio": lambda r: r["emit_fm"],
+        "ingest.fm_audio_bank": lambda r: not r["emit_fm"],
+        "fir_bank.none": lambda r: r["filters"] == 3,
+        "pll": lambda r: r["shape"].startswith("f32 2 parts"),
+        "resample_rrc": lambda r: r["block"] == 1,
     }
     rows = []
-    for name, (source, replaces) in meta.items():
-        # the case at the batch path's shape (C = 1024; the receiver's own
-        # configuration of the kernel comes first among the cases)
+    for name, (source, replaces, counts) in meta.items():
         case = next(r for r in cases if r["name"] == name
-                    and f"({N_BATCH_CHANNELS}," in r["shape"])
+                    and f"({N_BATCH_CHANNELS}," in r["shape"]
+                    and pick.get(name, lambda r: True)(r))
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": counts[name],
+                     "launches_audio_path": audio_counts.get(name, 0),
                      "shape": case["shape"],
                      "max_abs_err": case["max_abs_err"],
                      "ms": case["kernel_ms"], "plain_ms": case["plain_ms"],

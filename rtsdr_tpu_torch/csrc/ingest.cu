@@ -1,6 +1,6 @@
 // Fused ingest: raw interleaved uint8 I/Q -> RF low-pass + decimate ->
-// FM discriminator -> audio low-pass + decimate, one kernel, three entry
-// points over one device routine:
+// FM discriminator -> audio low-pass + decimate (-> IF band-pass bank), one
+// kernel, four entry points over one device routine:
 //
 //   iq        raw (C, 2N) u8 -> I, Q (C, N/decim):   (b-128)/128 folded in,
 //             y[m] = sum_k h[k] * xext[m*decim + taps-1-k], xext = [zi | x]
@@ -8,14 +8,17 @@
 //             before the block taken from (prev_i, prev_q)
 //   fm_audio  fm + audio[a] = sum_k ah[k] * fmext[a*down + ataps-1-k],
 //             fmext = [audio_zi | fm]; fm itself is written only when asked
+//   fm_audio_bank  fm_audio + F stride-1 band-passes over the same fm:
+//             bank[f][m] = sum_k bh[f][k] * bext[m + btaps-1-k],
+//             bext = [bank_zi | fm], btaps <= ataps
 // New state: zi_i / zi_q = last taps-1 normalised I / Q, prev = last IF
 // sample, audio_zi = last ataps-1 fm samples.
 //
 // Replaces the Pallas kernels of rtsdr_tpu/ops/ingestfir.py:
 // _ingest_kernel (via _pallas_ingest), _ingest_demod_kernel /
 // _ingest_demod_core (via _pallas_ingest_demod) and
-// _ingest_demod_audio_kernel (via _pallas_ingest_demod_audio, without its
-// n_bank epilogue).  Those contract byte windows against banded two-level
+// _ingest_demod_audio_kernel (via _pallas_ingest_demod_audio, with its
+// n_bank epilogue as the fourth entry).  Those contract byte windows against banded two-level
 // int8 tap matrices on the matrix unit, carry a rolling fm scratch from one
 // grid step to the next and use a polynomial atan2; here the taps are
 // float32, the angle is atan2f, and since CUDA blocks run in no order the
@@ -37,6 +40,15 @@
 // memory; the audio stage reads it there.  The halo costs (ataps / T) extra
 // RF work (25 % at T = 615).  This first version spends about four
 // instructions per multiply-add, so it runs well below the bound.
+//
+// The bank stage reads the fm slots the audio stage reads: its look-back of
+// btaps-1 <= ataps-1 samples lies inside the halo already computed, so the
+// demodulated stream reaches the pilot / stereo / RDS band-passes without a
+// trip through device memory.  It adds 2 * F * btaps FLOP per IF sample
+// (13.9 GFLOP at 1,024 channels, F = 3: more than the RF stage) for 126 MB
+// of traffic saved; each thread keeps F accumulators so that one
+// shared-memory read of fm feeds F multiply-adds.  The first btaps-1 outputs
+// of a row take their look-back from bank_zi in device memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,14 +59,19 @@ constexpr int kThreads = 256;
 constexpr int kRounds = 3;                    // IF slots per thread
 constexpr int kSlots = kThreads * kRounds;    // IF slots per block, halo included
 
-enum Mode { kIq = 0, kFm = 1, kFmAudio = 2 };
+constexpr int kMaxBank = 3;                   // band-passes in the bank stage
+
+// modes from kFmAudio on run the audio stage
+enum Mode { kIq = 0, kFm = 1, kFmAudio = 2, kFmAudioBank = 3 };
 
 struct Args {
   const uint8_t* raw;
   const float *rf_h, *zi_i, *zi_q, *prev_i, *prev_q, *audio_h, *audio_zi;
+  const float *bank_h, *bank_zi;       // (n_bank, btaps), (C, btaps-1)
   float *out_i, *out_q, *fm, *audio;
+  float* bank;                         // (n_bank, C, m_if)
   float *zi_i_out, *zi_q_out, *prev_i_out, *prev_q_out, *audio_zi_out;
-  int n_ch, n_pairs, taps, decim, ataps, down;
+  int n_ch, n_pairs, taps, decim, ataps, down, n_bank, btaps;
   int m_if, n_audio;     // IF samples / audio samples per block
   int halo, tile, n_tiles;
   int raw_bytes;         // shared-memory bytes for the raw window (16-multiple)
@@ -71,7 +88,8 @@ __global__ void __launch_bounds__(kThreads) ingest_kernel(Args p) {
   unsigned char* sraw = smem;
   float* sh = reinterpret_cast<float*>(smem + p.raw_bytes);   // RF taps
   float* sah = sh + p.taps;                                   // audio taps
-  float* si = sah + (MODE == kFmAudio ? p.ataps : 0);         // IF slots
+  float* sbh = sah + (MODE >= kFmAudio ? p.ataps : 0);        // bank taps
+  float* si = sbh + (MODE == kFmAudioBank ? kMaxBank * p.btaps : 0);  // IF slots
   float* sq = si + kSlots;
   float* sf = sq + kSlots;                                    // fm slots
 
@@ -107,8 +125,11 @@ __global__ void __launch_bounds__(kThreads) ingest_kernel(Args p) {
     }
   }
   for (int k = tid; k < p.taps; k += kThreads) sh[k] = p.rf_h[k];
-  if (MODE == kFmAudio)
+  if (MODE >= kFmAudio)
     for (int k = tid; k < p.ataps; k += kThreads) sah[k] = p.audio_h[k];
+  if (MODE == kFmAudioBank)
+    for (int k = tid; k < kMaxBank * p.btaps; k += kThreads)
+      sbh[k] = k < p.n_bank * p.btaps ? p.bank_h[k] : 0.0f;  // unused: zero taps
   __syncthreads();
 
   // ---- RF low-pass + decimate: one (i, q) pair per slot
@@ -177,7 +198,7 @@ __global__ void __launch_bounds__(kThreads) ingest_kernel(Args p) {
     sf[r] = f;
     if (j >= t0) {                 // owned (j < m_if holds for every slot)
       if (p.fm != nullptr) p.fm[(size_t)c * p.m_if + j] = f;
-      if (MODE == kFmAudio && j >= p.m_if - at1)
+      if (MODE >= kFmAudio && j >= p.m_if - at1)
         p.audio_zi_out[(size_t)c * at1 + (j - (p.m_if - at1))] = f;
       if (j == p.m_if - 1) {
         p.prev_i_out[c] = si[r];
@@ -185,7 +206,7 @@ __global__ void __launch_bounds__(kThreads) ingest_kernel(Args p) {
       }
     }
   }
-  if (MODE != kFmAudio) return;
+  if (MODE < kFmAudio) return;
   // a block shorter than the audio look-back keeps part of the old tail
   if (tile_idx == 0)
     for (int j = tid; j < at1 - p.m_if; j += kThreads)
@@ -204,6 +225,34 @@ __global__ void __launch_bounds__(kThreads) ingest_kernel(Args p) {
     for (int k = 0; k < p.ataps; ++k) acc = fmaf(sah[k], w[-k], acc);
     p.audio[(size_t)c * p.n_audio + a0 + al] = acc;
   }
+  if (MODE != kFmAudioBank) return;
+
+  // ---- IF band-pass bank over the same fm slots, stride 1
+  const int bt1 = p.btaps - 1;
+  for (int o = tid; o < own; o += kThreads) {
+    const int m = t0 + o;
+    const float* w = sf + p.halo + o;           // w[-k] = fm[m - k]
+    const int kin = min(bt1, m);                // taps that stay in the block
+    float acc[kMaxBank] = {0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+    for (int k = 0; k <= kin; ++k) {
+      const float xv = w[-k];
+#pragma unroll
+      for (int f = 0; f < kMaxBank; ++f)
+        acc[f] = fmaf(sbh[f * p.btaps + k], xv, acc[f]);
+    }
+    // the row's first outputs: tap k > m reads bext[m + bt1 - k] = bank_zi
+    for (int k = kin + 1; k <= bt1; ++k) {
+      const float xv = p.bank_zi[(size_t)c * bt1 + (m + bt1 - k)];
+#pragma unroll
+      for (int f = 0; f < kMaxBank; ++f)
+        acc[f] = fmaf(sbh[f * p.btaps + k], xv, acc[f]);
+    }
+#pragma unroll
+    for (int f = 0; f < kMaxBank; ++f)
+      if (f < p.n_bank)
+        p.bank[((size_t)f * p.n_ch + c) * p.m_if + m] = acc[f];
+  }
 }
 
 template <int MODE>
@@ -217,20 +266,25 @@ cudaError_t launch(Args p, cudaStream_t stream) {
   p.tile = kSlots;
   p.n_audio = 0;
   if (MODE == kFm) p.halo = 1;
-  if (MODE == kFmAudio) {
+  if (MODE >= kFmAudio) {
     if (p.ataps < 1 || p.down < 1 || p.m_if % p.down != 0)
+      return cudaErrorInvalidValue;
+    if (MODE == kFmAudioBank &&
+        (p.n_bank < 1 || p.n_bank > kMaxBank || p.btaps < 1 ||
+         p.btaps > p.ataps))
       return cudaErrorInvalidValue;
     p.n_audio = p.m_if / p.down;
     p.halo = p.ataps;     // ataps-1 fm samples need one more IF sample
   }
   p.tile = kSlots - p.halo;
-  if (MODE == kFmAudio) p.tile = p.tile / p.down * p.down;
+  if (MODE >= kFmAudio) p.tile = p.tile / p.down * p.down;
   if (p.tile < 1) return cudaErrorInvalidValue;
   p.n_tiles = (p.m_if + p.tile - 1) / p.tile;
   p.raw_bytes = (2 * ((kSlots - 1) * p.decim + p.taps) + 16 + 15) & ~15;
   const size_t smem =
       p.raw_bytes +
-      sizeof(float) * ((size_t)p.taps + (MODE == kFmAudio ? p.ataps : 0) +
+      sizeof(float) * ((size_t)p.taps + (MODE >= kFmAudio ? p.ataps : 0) +
+                       (MODE == kFmAudioBank ? kMaxBank * p.btaps : 0) +
                        3 * kSlots);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -252,8 +306,9 @@ extern "C" const char* rtsdr_error_string(int err) {
 // Shapes: raw (C, 2*n_pairs) u8 at an even address; rf_h (taps,); zi_* and
 // zi_*_out (C, taps-1); prev_* and prev_*_out (C,); audio_h (ataps,);
 // audio_zi and audio_zi_out (C, ataps-1); out_i, out_q, fm (C, n_pairs/decim);
-// audio (C, n_pairs/decim/down).  All float32 but raw.  Each returns
-// cudaGetLastError().
+// audio (C, n_pairs/decim/down); bank_h (n_bank, btaps); bank_zi
+// (C, btaps-1); bank (n_bank, C, n_pairs/decim).  All float32 but raw.  Each
+// returns cudaGetLastError().
 
 extern "C" int rtsdr_ingest_iq(const uint8_t* raw, const float* rf_h,
                                const float* zi_i, const float* zi_q,
@@ -303,4 +358,28 @@ extern "C" int rtsdr_ingest_fm_audio(
   p.n_ch = n_ch; p.n_pairs = n_pairs; p.taps = taps; p.decim = decim;
   p.ataps = ataps; p.down = down;
   return (int)launch<kFmAudio>(p, (cudaStream_t)stream);
+}
+
+// fm_audio plus the band-pass bank; fm may be NULL as above.  n_bank in
+// 1..3, btaps <= ataps.
+extern "C" int rtsdr_ingest_fm_audio_bank(
+    const uint8_t* raw, const float* rf_h, const float* zi_i,
+    const float* zi_q, const float* prev_i, const float* prev_q,
+    const float* audio_h, const float* audio_zi, const float* bank_h,
+    const float* bank_zi, float* fm, float* audio, float* bank,
+    float* zi_i_out, float* zi_q_out, float* prev_i_out, float* prev_q_out,
+    float* audio_zi_out, int n_ch, int n_pairs, int taps, int decim,
+    int ataps, int down, int n_bank, int btaps, void* stream) {
+  Args p = {};
+  p.raw = raw; p.rf_h = rf_h; p.zi_i = zi_i; p.zi_q = zi_q;
+  p.prev_i = prev_i; p.prev_q = prev_q;
+  p.audio_h = audio_h; p.audio_zi = audio_zi;
+  p.bank_h = bank_h; p.bank_zi = bank_zi;
+  p.fm = fm; p.audio = audio; p.bank = bank;
+  p.zi_i_out = zi_i_out; p.zi_q_out = zi_q_out;
+  p.prev_i_out = prev_i_out; p.prev_q_out = prev_q_out;
+  p.audio_zi_out = audio_zi_out;
+  p.n_ch = n_ch; p.n_pairs = n_pairs; p.taps = taps; p.decim = decim;
+  p.ataps = ataps; p.down = down; p.n_bank = n_bank; p.btaps = btaps;
+  return (int)launch<kFmAudioBank>(p, (cudaStream_t)stream);
 }

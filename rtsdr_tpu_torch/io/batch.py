@@ -19,6 +19,7 @@ import torch
 
 from rtsdr_tpu_torch.config import ReceiverConfig
 from rtsdr_tpu_torch.io.staging import Feeder, Fetcher
+from rtsdr_tpu_torch.io.stream import fetch_list, fetched_frame
 from rtsdr_tpu_torch.pipeline.receiver import Receiver
 from rtsdr_tpu_torch.runtime import BlockReader
 
@@ -58,11 +59,15 @@ class BatchRunner:
     def run(
         self,
         emit: Callable[[int, np.ndarray, np.ndarray], None] | None = None,
+        rds_hook: Callable[[int, object], None] | None = None,
         max_blocks: int | None = None,
     ) -> dict:
         """Process blocks until EOF on any stream; returns stats.
 
         emit(channel, left, right): per-station float audio per block.
+        rds_hook(channel, FrameOutputs): per-station frame outputs as host
+        arrays (already sliced to the channel — feed a GroupDecoder, print
+        events, ...).
         """
         state = self.rx.init()
         n_blocks = 0
@@ -72,17 +77,23 @@ class BatchRunner:
             if ticket is None:
                 return
             # ONE device->host fetch per output leaf, then row slices
-            left, right = self._fetcher.wait(ticket)
-            if emit is not None:
-                for c in range(self.n):
+            arrays = self._fetcher.wait(ticket)
+            left, right = arrays[:2]
+            rds = fetched_frame(arrays) if rds_hook is not None else None
+            for c in range(self.n):
+                if emit is not None:
                     emit(c, left[c], right[c])
+                if rds is not None:
+                    rds_hook(c, type(rds)(*(leaf[c] for leaf in rds)))
 
         while max_blocks is None or n_blocks < max_blocks:
             batch = self.read_batch()
             if batch is None:
                 break
             state, out = self.rx.step(state, batch)
-            ticket = self._fetcher.start((out.left, out.right))
+            ticket = self._fetcher.start(
+                fetch_list(out) if rds_hook is not None
+                else (out.left, out.right))
             drain(pending)   # overlap: emit block b-1 while b computes
             pending = ticket
             n_blocks += 1

@@ -63,8 +63,9 @@ class Fetcher:
             return None, tuple(t.numpy() for t in tensors)
         self._slot ^= 1
         bufs = self._bufs[self._slot]
-        if bufs is None or any(b.shape != t.shape
-                               for b, t in zip(bufs, tensors)):
+        if (bufs is None or len(bufs) != len(tensors)
+                or any(b.shape != t.shape or b.dtype != t.dtype
+                       for b, t in zip(bufs, tensors))):
             bufs = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                          for t in tensors)
             self._bufs[self._slot] = bufs

@@ -3,21 +3,63 @@
 Counterpart of ``rtsdr_tpu/io/stream.py``.  The host loop pipelines three
 things: the C++ reader thread prefetches stdin blocks, eager launches
 return before the device finishes, and output fetch/emission of block b
-happens while block b+1 computes (``io/staging.py``).
-
-``format_rds_events`` arrives with the frame layer (RDS slice).
+happens while block b+1 computes (``io/staging.py``).  A block's frame
+outputs come to the host with its audio, as one fetch after the next step
+was queued.
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 from rtsdr_tpu_torch.config import ReceiverConfig
 from rtsdr_tpu_torch.io.staging import Feeder, Fetcher
+from rtsdr_tpu_torch.pipeline.frame import SYNDROME_NAMES, FrameOutputs
 from rtsdr_tpu_torch.pipeline.receiver import Receiver
 from rtsdr_tpu_torch.runtime import BlockReader, emit_int16_interleave
+
+
+def format_rds_events(frame_out) -> list[str]:
+    """Render one station's frame-sync events (a ``FrameOutputs`` of host
+    arrays) as the reference's stderr lines (src/fm_radio.cpp:652-712)."""
+    lines = []
+    n_w = int(frame_out.n_windows)
+    sid = np.asarray(frame_out.syndrome_id)
+    sync = np.asarray(frame_out.is_sync)
+    fp = np.asarray(frame_out.is_false_pos)
+    pos = np.asarray(frame_out.positions)
+    resync = np.asarray(frame_out.is_resync)
+    corr = np.asarray(frame_out.corrected)
+    for w in range(n_w):
+        if sid[w]:
+            name = SYNDROME_NAMES[int(sid[w]) - 1]
+            fixed = " (corrected)" if corr[w] else ""
+            if sync[w]:
+                lines.append(
+                    f"Syndrome {name} at position {int(pos[w])}{fixed}")
+            elif fp[w]:
+                lines.append(
+                    f"False positive Syndrome {name} at position {int(pos[w])}")
+        if resync[w]:
+            lines.append("~~~~~Re-Sync~~~~~")
+    return lines
+
+
+def fetch_list(out) -> tuple:
+    """The tensors of a step's outputs that the host loops fetch: left,
+    right, then the frame outputs' leaves when the bit layer ran."""
+    if isinstance(out.rds, FrameOutputs):
+        return (out.left, out.right, *out.rds)
+    return (out.left, out.right)
+
+
+def fetched_frame(arrays: tuple):
+    """``FrameOutputs`` of host arrays from what ``fetch_list`` fetched
+    (None without the bit layer)."""
+    return FrameOutputs(*arrays[2:]) if len(arrays) > 2 else None
 
 
 class StreamRunner:
@@ -32,12 +74,17 @@ class StreamRunner:
         self,
         fd_in: int,
         emit: Callable[[bytes], None] | None = None,
+        rds_log: Callable[[str], None] | None = None,
         max_blocks: int | None = None,
         audio_scale: float | None = None,
+        frame_hook: Callable | None = None,
     ) -> dict:
         """Process blocks until EOF; returns summary stats.
 
         emit: called with interleaved int16 stereo bytes per block.
+        rds_log: called per RDS frame-sync event line.
+        frame_hook: called with each block's FrameOutputs as host arrays
+        (e.g. a pipeline.groups.GroupDecoder.feed for payload decoding).
         """
         cfg = self.cfg
         scale = cfg.audio_scale if audio_scale is None else audio_scale
@@ -45,23 +92,43 @@ class StreamRunner:
         feeder = Feeder((cfg.block_size,), self.rx.device)
         fetcher = Fetcher(self.rx.device)
         n_blocks = 0
+        n_syncs = 0
+        n_false_pos = 0
+        n_corrected = 0
         pending = None  # ticket for the previous block's outputs
 
         def drain(ticket):
+            nonlocal n_syncs, n_false_pos, n_corrected
             if ticket is None:
                 return
-            left, right = fetcher.wait(ticket)
+            arrays = fetcher.wait(ticket)
             if emit is not None:
-                emit(emit_int16_interleave(left, right, scale).tobytes())
+                emit(emit_int16_interleave(arrays[0], arrays[1],
+                                           scale).tobytes())
+            fo = fetched_frame(arrays)
+            if fo is not None:
+                if rds_log is not None:
+                    for line in format_rds_events(fo):
+                        rds_log(line)
+                if frame_hook is not None:
+                    frame_hook(fo)
+                # count accepted (26-spaced) syncs and false positives
+                # separately: a log line is not necessarily a sync
+                n_w = int(fo.n_windows)
+                n_syncs += int(np.sum(fo.is_sync[:n_w]))
+                n_false_pos += int(np.sum(fo.is_false_pos[:n_w]))
+                n_corrected += int(np.sum(fo.corrected[:n_w]))
 
         with BlockReader(fd_in, cfg.block_size) as reader:
             while max_blocks is None or n_blocks < max_blocks:
                 if not reader.read_block_into(feeder.staging()):
                     break
                 state, out = self.rx.step(state, feeder.push())
-                ticket = fetcher.start((out.left, out.right))
+                ticket = fetcher.start(fetch_list(out))
                 drain(pending)  # overlap: emit block b-1 while b computes
                 pending = ticket
                 n_blocks += 1
         drain(pending)
-        return {"blocks": n_blocks}
+        return {"blocks": n_blocks, "rds_events": n_syncs,
+                "rds_false_positives": n_false_pos,
+                "rds_corrected": n_corrected}

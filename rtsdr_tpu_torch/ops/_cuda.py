@@ -27,11 +27,11 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("ingest.cu", "fir_bank.cu", "pll.cu")
+SOURCES = ("ingest.cu", "fir_bank.cu", "pll.cu", "resample_rrc.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     # raw, rf_h, zi_i, zi_q, out_i, out_q, zi_i_out, zi_q_out,
     # C, n_pairs, taps, decim, stream
@@ -43,6 +43,11 @@ _ARGTYPES = {
     # NULL), audio, zi_i_out, zi_q_out, prev_i_out, prev_q_out,
     # audio_zi_out, C, n_pairs, taps, decim, audio_taps, down, stream
     "rtsdr_ingest_fm_audio": [_P] * 15 + [_I] * 6 + [_P],
+    # raw, rf_h, zi_i, zi_q, prev_i, prev_q, audio_h, audio_zi, bank_h,
+    # bank_zi, fm (or NULL), audio, bank, zi_i_out, zi_q_out, prev_i_out,
+    # prev_q_out, audio_zi_out, C, n_pairs, taps, decim, audio_taps, down,
+    # n_bank, bank_taps, stream
+    "rtsdr_ingest_fm_audio_bank": [_P] * 18 + [_I] * 8 + [_P],
     # x, x2 (or NULL), zi (or NULL), h, y, zi_out (or NULL),
     # C, N, M, taps, F, stride, pre, stream
     "rtsdr_fir_bank": [_P] * 6 + [_I] * 7 + [_P],
@@ -50,6 +55,9 @@ _ARGTYPES = {
     # n_parts, consts (5, C), st_in (7, C), st_out (7, C), nco_i, nco_q,
     # C, N, loop_div, delay_output, stream
     "rtsdr_pll": [_P, _P, _I] + [_P] * 5 + [_I] * 4 + [_P],
+    # e, nco_i, nco_q, h, zi, rrc_h, rrc_zi, y, rrc_zi_out, C, N, M, taps,
+    # up, down, rrc_taps, lane_stride, gain, stream
+    "rtsdr_resample_rrc": [_P] * 9 + [_I] * 8 + [_F, _P],
 }
 
 #: launches per kernel entry since the last ``reset_launch_counts``

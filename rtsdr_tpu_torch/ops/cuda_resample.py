@@ -1,0 +1,135 @@
+"""RDS mixer + rational resampler + RRC matched filter on the hand-written
+CUDA kernel ``csrc/resample_rrc.cu``.
+
+Counterpart of ``rtsdr_tpu/ops/pallas_fir.py`` (``resample_mul2_rrc``,
+``resample_mul2_tail``): one pass does
+
+    mixed  = 2 * extract[..., None, :] * stack([nco_i, nco_q], -2)
+    resamp, new_zi     = fir_resample(mixed, h, zi, up, down)   (gain = up)
+    rrc,    new_rrc_zi = fir_block(resamp, rrc_h, rrc_zi)
+
+and the (..., 2, N) mixed streams and the (..., 2, M) resampler stream never
+reach device memory.  ``zi`` is the carried tail of the zero-stuffed mixed
+stream (upsampled domain, arbitrary floats); ``new_zi`` is computed here
+from the last ceil((taps-1)/up) inputs with a few stock ops
+(``resample_mul2_tail``), as the reference computes it outside its kernel.
+
+What the kernel replaces, what bounds it on an H100 and what its design
+does about that is in the note at the top of ``csrc/resample_rrc.cu``.  Any
+``C >= 1``, ``up``, ``down`` and tap counts are taken as long as
+``N * up`` divides by ``down``.
+
+On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
+it runs the plain version (``resample_mul2_rrc_ref``), which is also what
+the kernel is compared with on the card.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from rtsdr_tpu_torch.ops import _cuda
+from rtsdr_tpu_torch.ops.cuda_fir import _taps_on
+from rtsdr_tpu_torch.ops.fir import (
+    _conv1d_valid,
+    _upsampled_tail_of,
+    fir_resample,
+)
+
+_F32 = torch.float32
+
+
+def _mixed(extract, nco_i, nco_q):
+    return 2.0 * extract[..., None, :] * torch.stack([nco_i, nco_q], dim=-2)
+
+
+def resample_mul2_tail(extract, nco_i, nco_q, t1: int, up: int
+                       ) -> torch.Tensor:
+    """The upsampled-domain carry of the mixer + resampler: the zero-stuffed
+    tail of the mixed stream, from the last ceil(t1/up) input samples."""
+    kt = -(-t1 // up)
+    return _upsampled_tail_of(
+        _mixed(extract[..., -kt:], nco_i[..., -kt:], nco_q[..., -kt:]),
+        t1, up).contiguous()
+
+
+def resample_mul2_rrc_ref(extract, nco_i, nco_q, h, zi, rrc_h, rrc_zi,
+                          up: int, down: int, gain: float | None = None):
+    """Plain PyTorch version of ``resample_mul2_rrc`` (any device/dtype)."""
+    resamp, new_zi = fir_resample(_mixed(extract, nco_i, nco_q), h, zi,
+                                  up, down, gain=gain)
+    rext = torch.cat([rrc_zi, resamp], dim=-1)
+    return (_conv1d_valid(rext, rrc_h), new_zi,
+            rext[..., -(len(rrc_h) - 1):].contiguous())
+
+
+def _lane_stride(up: int, down: int) -> int:
+    """How far apart (in outputs) neighbouring threads of a warp work.
+
+    Output m reads x from index m*down//up downwards, so threads on
+    neighbouring outputs walk shared memory ``down/up`` words apart (4.2 at
+    x19/80: four threads on every bank).  Threads L outputs apart walk
+    L*down/up words apart; the L in 1..8 that brings this closest to an odd
+    integer spreads a warp over all 32 banks (L = 5 at x19/80: 21.05).
+    """
+    def miss(L):
+        s = L * down / up
+        odd = 2 * math.floor(s / 2) + 1
+        return abs(s - odd)
+    return min(range(1, 9), key=miss)
+
+
+def resample_mul2_rrc(extract, nco_i, nco_q, h, zi, rrc_h, rrc_zi,
+                      up: int, down: int, gain: float | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Mixer + polyphase resampler + RRC in one kernel launch.
+
+    Args:
+      extract, nco_i, nco_q: (..., N) float32.
+      h: (taps,) resampler filter at the rate ``fs * up``; zi: (..., 2,
+        taps-1) upsampled-domain carry.
+      rrc_h: (rtaps,) matched filter at the output rate; rrc_zi: (..., 2,
+        rtaps-1) the previous block's last resampler outputs.
+
+    Returns (rrc (..., 2, N*up/down), new_zi, new_rrc_zi).
+    """
+    if gain is None:
+        gain = float(up)
+    if not extract.is_cuda:
+        return resample_mul2_rrc_ref(extract, nco_i, nco_q, h, zi, rrc_h,
+                                     rrc_zi, up, down, gain)
+    if extract.dim() < 1:
+        raise ValueError(
+            f"extract: expected (..., N), got {tuple(extract.shape)}")
+    lead, n = tuple(extract.shape[:-1]), extract.shape[-1]
+    c = math.prod(lead)
+    if c < 1 or n < 1:
+        raise ValueError(f"extract: empty input {tuple(extract.shape)}")
+    if up < 1 or down < 1 or (n * up) % down:
+        raise ValueError(
+            f"resample_mul2_rrc: {n} samples x{up} do not divide by {down}")
+    dev = extract.device
+    taps, rtaps = len(h), len(rrc_h)
+    m = n * up // down
+    _cuda.check(extract, "extract", dtype=_F32)
+    if n * up < taps - 1 or m < rtaps - 1:
+        raise ValueError(
+            f"resample_mul2_rrc: a block of {n} samples is shorter than "
+            "the carried tails")
+    _cuda.check(nco_i, "nco_i", (*lead, n), _F32, dev)
+    _cuda.check(nco_q, "nco_q", (*lead, n), _F32, dev)
+    _cuda.check(zi, "zi", (*lead, 2, taps - 1), _F32, dev)
+    _cuda.check(rrc_zi, "rrc_zi", (*lead, 2, rtaps - 1), _F32, dev)
+    rrc = torch.empty((*lead, 2, m), dtype=_F32, device=dev)
+    new_rrc_zi = torch.empty_like(rrc_zi)
+    _cuda.launch(
+        "rtsdr_resample_rrc", "resample_rrc",
+        _cuda.ptr(extract), _cuda.ptr(nco_i), _cuda.ptr(nco_q),
+        _cuda.ptr(_taps_on([h], dev)), _cuda.ptr(zi),
+        _cuda.ptr(_taps_on([rrc_h], dev)), _cuda.ptr(rrc_zi),
+        _cuda.ptr(rrc), _cuda.ptr(new_rrc_zi),
+        c, n, m, taps, up, down, rtaps, _lane_stride(up, down), float(gain))
+    new_zi = resample_mul2_tail(extract, nco_i, nco_q, taps - 1, up)
+    return rrc, new_zi, new_rrc_zi

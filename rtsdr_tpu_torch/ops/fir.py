@@ -140,22 +140,61 @@ def fir_decimate(x: torch.Tensor, h, zi: torch.Tensor,
     return _conv1d_valid(xext, h, stride=decim), xext[..., -(taps - 1):]
 
 
+def _upsampled_tail_of(x: torch.Tensor, n_tail: int, up: int) -> torch.Tensor:
+    """Last ``n_tail`` samples of zero-stuff(x, up), without materializing."""
+    k = -(-n_tail // up)
+    xt = x[..., -k:]
+    u = torch.nn.functional.pad(xt[..., None], (0, up - 1))
+    return u.reshape(*xt.shape[:-1], xt.shape[-1] * up)[..., -n_tail:]
+
+
+def _resample_boundary_index(t1: int, up: int, down: int
+                             ) -> tuple[np.ndarray, np.ndarray]:
+    """Index math of the resampler's carried-state boundary.
+
+    The first ceil(t1/down) outputs also read the carried upsampled-domain
+    tail: output r takes tap kz = r*down + t1 - j from zi position j where
+    valid.  Returns (kz clipped to [0, t1], valid mask), both
+    (ceil(t1/down), t1) numpy arrays.
+    """
+    nb = -(-t1 // down)
+    rz = np.arange(nb)[:, None]
+    j = np.arange(t1)[None, :]
+    kz = rz * down + t1 - j
+    valid = (j >= rz * down) & (kz >= 0) & (kz <= t1)
+    return np.clip(kz, 0, t1), valid
+
+
 def fir_resample(x: torch.Tensor, h, zi: torch.Tensor, up: int, down: int,
                  gain: float | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused rational resampler: zero-stuff x``up``, FIR, keep every
     ``down``-th; ``gain`` defaults to ``up`` (Parseval compensation).
 
-    Only ``up == 1`` (mode 0: a decimating FIR) is ported; the polyphase
-    form is part of the mode-1 slice.
+    ``zi`` lives in the *upsampled* domain: shape (..., taps-1), the tail
+    of the zero-stuffed stream, so chained blocks equal one long block.
+
+    ``up == 1`` is a decimating FIR (the FIR-bank kernel on a CUDA tensor).
+    ``up > 1`` has no kernel of its own in either package (the reference
+    leaves it to the compiler): it is the explicit pipeline
+    ``y[m] = gain * sum_k h[k] * uext[m*down + taps-1-k]``, ``uext = [zi |
+    zero-stuff(x)]``, in stock tensor ops on the input's device — the plain
+    version the fused mixer + resampler + RRC kernel
+    (``ops/cuda_resample.py``) is held against.
     """
     if gain is None:
         gain = float(up)
-    if up != 1:
-        raise NotImplementedError(
-            "fir_resample with up > 1 (the mode-1 x24/125 polyphase "
-            "resampler) is not ported yet: it belongs to the mode-1 slice")
-    y, new_zi = fir_decimate(x, h, zi, down)
-    if gain == 1.0:
-        return y, new_zi
-    return y * gain, new_zi
+    if up == 1:
+        y, new_zi = fir_decimate(x, h, zi, down)
+        if gain == 1.0:
+            return y, new_zi
+        return y * gain, new_zi
+    n = x.shape[-1]
+    if (n * up) % down:
+        raise ValueError(
+            f"fir_resample: {n} samples x{up} do not divide by {down}")
+    taps = len(h)
+    u = torch.nn.functional.pad(x[..., None], (0, up - 1))
+    uext = torch.cat([zi, u.reshape(*x.shape[:-1], n * up)], dim=-1)
+    y = _conv1d_valid(uext, h, stride=down)
+    return y * gain, uext[..., -(taps - 1):].contiguous()

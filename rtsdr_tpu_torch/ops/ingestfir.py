@@ -1,10 +1,10 @@
 """Fused ingest + RF front end on the hand-written CUDA kernel
 ``csrc/ingest.cu``: uint8 interleaved IQ -> decimated IF -> FM
-discriminator -> audio low-pass.
+discriminator -> audio low-pass (-> IF band-pass bank).
 
 Counterpart of ``rtsdr_tpu/ops/ingestfir.py``: ``ingest_fir_decimate``,
-``ingest_fir_demod`` and ``ingest_fir_demod_audio`` are three entry points
-over one device routine that consumes the *raw interleaved uint8* stream
+``ingest_fir_demod`` and ``ingest_fir_demod_audio`` (with and without its
+``bank_h`` band-pass stage) are four entry points over one device routine that consumes the *raw interleaved uint8* stream
 directly — the (b-128)/128 conversion folds into the filter, and neither
 float copies of the RF-rate stream nor (with ``emit_fm=False``) the
 demodulated stream ever reach device memory.
@@ -63,13 +63,18 @@ def ingest_fir_demod_ref(raw_u8, h, zi_i, zi_q, prev_i, prev_q, decim: int):
 
 def ingest_fir_demod_audio_ref(raw_u8, h, zi_i, zi_q, prev_i, prev_q,
                                decim: int, audio_h, audio_zi,
-                               audio_down: int, emit_fm: bool = True):
+                               audio_down: int, emit_fm: bool = True,
+                               bank_h=None, bank_zi=None):
     """Plain PyTorch version of ``ingest_fir_demod_audio``."""
     fm, zi_i_n, zi_q_n, pi, pq = ingest_fir_demod_ref(
         raw_u8, h, zi_i, zi_q, prev_i, prev_q, decim)
     audio, audio_zi_n = _decimate_ref(fm, audio_h, audio_zi, audio_down)
-    return (fm if emit_fm else None, audio, zi_i_n, zi_q_n, pi, pq,
+    base = (fm if emit_fm else None, audio, zi_i_n, zi_q_n, pi, pq,
             audio_zi_n.contiguous())
+    if bank_h is None:
+        return base
+    bext = torch.cat([bank_zi, fm], dim=-1)
+    return (*base, tuple(_conv1d_valid(bext, bh) for bh in bank_h))
 
 
 def _check_common(raw_u8, h, zi_i, zi_q, decim):
@@ -153,18 +158,24 @@ def ingest_fir_demod_audio(raw_u8: torch.Tensor, h, zi_i, zi_q, prev_i,
     ``emit_fm=False`` (mono-only receiver) the demodulated stream is never
     written: the kernel emits only the audio and the carried fm tail.
 
+    ``bank_h`` (optional list of 1..3 stride-1 filters of one length, at
+    most the audio filter's): the IF band-pass bank (pilot / stereo channel
+    / RDS extract) as a further stage over the same in-kernel fm —
+    equivalent to ``fir_block_bank(fm, bank_h, bank_zi)``, ``bank_zi`` being
+    the shared (..., taps-1) carried fm tail.  With ``emit_fm=False`` the
+    demodulated stream then reaches all its consumers without touching
+    device memory; the new ``audio_zi`` (the last fm samples) is what they
+    take for their own carried tails.
+
     Returns (fm | None, audio, new_zi_i, new_zi_q, new_prev_i, new_prev_q,
-    new_audio_zi).
+    new_audio_zi[, bank outputs tuple]).
     """
-    if bank_h is not None or bank_zi is not None:
-        raise NotImplementedError(
-            "ingest_fir_demod_audio: the IF band-pass bank epilogue "
-            "(bank_h / bank_zi) is not ported yet: it belongs to the RDS "
-            "slice")
+    if (bank_h is None) != (bank_zi is None):
+        raise ValueError("bank_h and bank_zi go together")
     if not raw_u8.is_cuda:
         return ingest_fir_demod_audio_ref(
             raw_u8, h, zi_i, zi_q, prev_i, prev_q, decim, audio_h, audio_zi,
-            audio_down, emit_fm)
+            audio_down, emit_fm, bank_h, bank_zi)
     lead, c, n_pairs, dev = _check_common(raw_u8, h, zi_i, zi_q, decim)
     m = n_pairs // decim
     if m % audio_down:
@@ -180,6 +191,27 @@ def ingest_fir_demod_audio(raw_u8: torch.Tensor, h, zi_i, zi_q, prev_i,
     zi_i_n, zi_q_n = torch.empty_like(zi_i), torch.empty_like(zi_q)
     pi, pq = torch.empty_like(prev_i), torch.empty_like(prev_q)
     audio_zi_n = torch.empty_like(audio_zi)
+    if bank_h is not None:
+        n_bank, btaps = len(bank_h), len(bank_h[0])
+        if (not 1 <= n_bank <= 3 or btaps > ataps
+                or any(len(bh) != btaps for bh in bank_h)):
+            raise ValueError(
+                "bank_h takes 1..3 filters of one length, at most the audio "
+                f"filter's {ataps} taps")
+        _cuda.check(bank_zi, "bank_zi", (*lead, btaps - 1), _F32, dev)
+        bank = _new((n_bank, *lead, m), dev)
+        _cuda.launch(
+            "rtsdr_ingest_fm_audio_bank", "ingest.fm_audio_bank",
+            _cuda.ptr(raw_u8), _cuda.ptr(_taps_on([h], dev)),
+            _cuda.ptr(zi_i), _cuda.ptr(zi_q), _cuda.ptr(prev_i),
+            _cuda.ptr(prev_q), _cuda.ptr(_taps_on([audio_h], dev)),
+            _cuda.ptr(audio_zi), _cuda.ptr(_taps_on(bank_h, dev)),
+            _cuda.ptr(bank_zi), _cuda.ptr(fm), _cuda.ptr(audio),
+            _cuda.ptr(bank), _cuda.ptr(zi_i_n), _cuda.ptr(zi_q_n),
+            _cuda.ptr(pi), _cuda.ptr(pq), _cuda.ptr(audio_zi_n),
+            c, n_pairs, len(h), decim, ataps, audio_down, n_bank, btaps)
+        return (fm, audio, zi_i_n, zi_q_n, pi, pq, audio_zi_n,
+                tuple(bank.unbind(0)))
     _cuda.launch(
         "rtsdr_ingest_fm_audio", "ingest.fm_audio",
         _cuda.ptr(raw_u8), _cuda.ptr(_taps_on([h], dev)), _cuda.ptr(zi_i),

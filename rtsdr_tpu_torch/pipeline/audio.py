@@ -8,8 +8,9 @@ Counterpart of ``rtsdr_tpu/pipeline/audio.py``, following the golden model
           channel BPF 22-54 kHz -> mixer (x NCO x 2) -> LPF 16 kHz +
           decimate -> L = (mono+stereo)/2, R = (mono-stereo)/2
 
-Mode 1's x24/125 polyphase resampler is not ported yet
-(``ops.fir.fir_resample`` raises for ``up > 1``).
+Mode 1 (x24/125 audio resampler, ``ops.fir.fir_resample`` with ``up > 1``)
+is held against the reference and opened on the command line in a later
+slice.
 """
 
 from __future__ import annotations
@@ -133,15 +134,16 @@ def make_audio(cfg: ReceiverConfig, enable_stereo: bool = True,
         # pilot + channel band-passes filter the SAME input, so they share
         # one overlap-save tail and one kernel launch (the input tile is
         # read once).  The receiver may pass them precomputed (3-fused
-        # with the RDS extraction BPF in the RDS slice).
+        # with the RDS extraction BPF).
         if pilot is None or chan is None:
             (pilot, chan), if_tail = fir_block_bank(fm, [pilot_h, chan_h],
                                                     state.pilot_zi)
         elif fm_tail is not None:
-            if_tail = fm_tail[..., -(cfg.stereo.taps - 1):]
+            if_tail = fm_tail[..., -(cfg.stereo.taps - 1):].contiguous()
         else:
             if_tail = torch.cat(
-                [state.pilot_zi, fm], dim=-1)[..., -(cfg.stereo.taps - 1):]
+                [state.pilot_zi, fm],
+                dim=-1)[..., -(cfg.stereo.taps - 1):].contiguous()
 
         # stereo pilot -> 38 kHz NCO (the receiver may pass the NCO
         # precomputed, fused with the RDS carrier loop in one kernel)

@@ -16,10 +16,13 @@ import torch
 
 from rtsdr_tpu_torch.ops.pll import PLLState
 from rtsdr_tpu_torch.pipeline.audio import AudioState
+from rtsdr_tpu_torch.pipeline.frame import FrameState
 from rtsdr_tpu_torch.pipeline.frontend import FrontendState
+from rtsdr_tpu_torch.pipeline.rds import RDSState
 from rtsdr_tpu_torch.pipeline.receiver import ReceiverState
 
-_NESTED = {"frontend": FrontendState, "audio": AudioState, "pll": PLLState}
+_NESTED = {"frontend": FrontendState, "audio": AudioState, "pll": PLLState,
+           "rds": RDSState, "frame": FrameState}
 
 
 def _fields(tree) -> dict:
@@ -42,10 +45,6 @@ def _build(cls, tree, device):
             out[name] = None
         elif name in _NESTED:
             out[name] = _build(_NESTED[name], v, device)
-        elif name in ("rds", "frame"):
-            raise NotImplementedError(
-                f"state field {name!r} belongs to the RDS slice, which is "
-                "not ported yet")
         else:
             out[name] = torch.as_tensor(np.array(v, copy=True)).to(device)
     return cls(**out)

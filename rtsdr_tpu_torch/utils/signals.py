@@ -1,11 +1,14 @@
 """Test-signal generators (reference src/genfunc.cpp:13-41, used for kernel
 bring-up in the labs) plus an FM multiplex synthesizer for end-to-end
 self-test without recorded captures (own copy of
-``rtsdr_tpu/utils/signals.py``)."""
+``rtsdr_tpu/utils/signals.py``), and an RDS encoder + pulse shaper so the
+synthetic station can carry known groups."""
 
 from __future__ import annotations
 
 import numpy as np
+
+from rtsdr_tpu_torch.ops.coeffs import rrc_taps
 
 
 def generate_sin(fs: float, freq: float, n: int, amplitude: float = 1.0,
@@ -38,18 +41,105 @@ def fm_multiplex_iq(
     stereo_amp: float = 0.45,
     deviation: float = 75e3,
     pilot_phase: float = 0.0,
+    rds_wave: np.ndarray | None = None,
+    rds_amp: float = 0.25,
 ) -> np.ndarray:
-    """Interleaved uint8 IQ of a synthetic FM stereo station (no RDS).
+    """Interleaved uint8 IQ of a synthetic FM stereo station.
 
-    multiplex = mono tone + 19 kHz pilot + (L-R tone) DSB-SC on 38 kHz.
+    multiplex = mono tone + 19 kHz pilot + (L-R tone) DSB-SC on 38 kHz
+                + optional RDS wave DSB-SC on 57 kHz (3rd pilot harmonic).
+    ``rds_wave``: baseband at 57 kS/s (from ``rds_baseband``), resampled
+    here to the RF-rate grid.
     """
     t = np.arange(n_pairs) / rf_fs
     pilot_arg = 2 * np.pi * 19e3 * t + pilot_phase
     m = (mono_amp * np.sin(2 * np.pi * mono_hz * t)
          + pilot_amp * np.cos(pilot_arg)
          + stereo_amp * np.sin(2 * np.pi * stereo_hz * t) * np.cos(2 * pilot_arg))
+    if rds_wave is not None:
+        # linear interpolation is fine for a test signal: band limiting
+        # happens in the receiver
+        t57 = np.arange(len(rds_wave)) / 57e3
+        rds_rf = np.interp(t, t57, rds_wave, left=0.0, right=0.0)
+        m = m + rds_amp * rds_rf * np.cos(3 * pilot_arg)
     phase = 2 * np.pi * deviation * np.cumsum(m) / rf_fs
     iq = np.empty(2 * n_pairs)
     iq[0::2] = np.cos(phase)
     iq[1::2] = np.sin(phase)
     return np.clip(np.round(iq * 100.0 + 128.0), 0, 255).astype(np.uint8)
+
+
+# standard RDS CRC generator g(x) = x^10+x^8+x^7+x^5+x^4+x^3+1 and the
+# standard offset words (IEC 62106)
+RDS_CRC_POLY = 0b10110111001
+RDS_OFFSET_WORDS = {"A": 0b0011111100, "B": 0b0110011000,
+                    "C": 0b0101101000, "D": 0b0110110100,
+                    "C'": 0b1101010000}
+
+
+def rds_crc10(info: int) -> int:
+    """info(x) * x^10 mod g(x) over GF(2); info is a 16-bit MSB-first int."""
+    r = info << 10
+    for i in range(25, 9, -1):
+        if (r >> i) & 1:
+            r ^= RDS_CRC_POLY << (i - 10)
+    return r & 0x3FF
+
+
+def encode_rds_blocks(info_words, cprime: bool = True) -> np.ndarray:
+    """A standards-layout RDS bit stream: 26-bit blocks
+    [info(16, MSB first) | crc^offset(10)] with offsets cycling A,B,C,D.
+
+    With ``cprime`` (the real transmitter behaviour per IEC 62106), block 3
+    of a group whose block B carries version bit 1 is sent with offset word
+    C' instead of C.  ``info_words``: iterable of 16-bit values — ints or
+    16-element MSB-first bit vectors."""
+    names = ["A", "B", "C", "D"]
+    bits = []
+    version_b = False
+    for n, info in enumerate(info_words):
+        if np.ndim(info) > 0:
+            info = int("".join(str(int(b)) for b in np.asarray(info)), 2)
+        info = int(info) & 0xFFFF
+        name = names[n % 4]
+        if n % 4 == 1:
+            version_b = bool((info >> 11) & 1)
+        elif n % 4 == 2 and version_b and cprime:
+            name = "C'"
+        check = rds_crc10(info) ^ RDS_OFFSET_WORDS[name]
+        bits.extend((info >> (15 - k)) & 1 for k in range(16))
+        bits.extend((check >> (9 - k)) & 1 for k in range(10))
+    return np.array(bits, dtype=int)
+
+
+def rds_baseband(bits, sps: int = 24) -> np.ndarray:
+    """Differential-encode, Manchester map, RRC pulse-shape at 57 kS/s.
+
+    Returns samples such that the receiver's matched RRC + ``sps``-spaced
+    sampling recovers the symbols.
+    """
+    # differential encode: tx[t] = tx[t-1] ^ bits[t]
+    tx = np.bitwise_xor.accumulate(np.asarray(bits, dtype=int))
+    # Manchester: bit 1 -> (+,-), bit 0 -> (-,+)
+    symbols = np.empty(2 * len(tx))
+    symbols[0::2] = 2.0 * tx - 1.0
+    symbols[1::2] = -(2.0 * tx - 1.0)
+    # impulse train at symbol rate, RRC shaped
+    x = np.zeros(len(symbols) * sps)
+    x[::sps] = symbols
+    return np.convolve(x, rrc_taps(57e3, 151), mode="full")[: len(x)]
+
+
+def ps_station_words(n_groups: int, pi: int, ps: str, pty: int = 5) -> list:
+    """Info words of ``n_groups`` type-0A groups that spell the 8-character
+    program service name ``ps`` (two characters per group, segments
+    cycling) for station ``pi``: TP 1, TA 1, music, block C = filler AF
+    codes."""
+    ps = (ps + " " * 8)[:8]
+    words = []
+    for g in range(n_groups):
+        seg = g % 4
+        b = (0 << 12) | (1 << 10) | (pty << 5) | (1 << 4) | (1 << 3) | seg
+        d = (ord(ps[2 * seg]) << 8) | ord(ps[2 * seg + 1])
+        words.extend([pi, b, (205 << 8) | 205, d])
+    return words

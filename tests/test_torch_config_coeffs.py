@@ -51,3 +51,51 @@ def test_bandpass_taps_bitwise(lo, hi):
 def test_rrc_taps_bitwise(taps):
     a, b = jcoeffs.rrc_taps(57e3, taps), tcoeffs.rrc_taps(57e3, taps)
     assert np.array_equal(a, b)
+
+
+def test_signal_copies_equal(rng):
+    """The port's test-signal generators equal the JAX package's, and its
+    RDS encoder / pulse shaper / RDS-bearing multiplex equal the test
+    oracle's byte for byte."""
+    import oracles
+    from rtsdr_tpu.utils import signals as jsig
+    from rtsdr_tpu_torch.utils import signals as tsig
+
+    assert np.array_equal(tsig.fm_multiplex_iq(5000), jsig.fm_multiplex_iq(5000))
+    assert np.array_equal(tsig.generate_sin(48e3, 1e3, 100, 0.5, 0.1),
+                          jsig.generate_sin(48e3, 1e3, 100, 0.5, 0.1))
+    info = rng.integers(0, 2, (24, 16))
+    words = tsig.ps_station_words(12, 0x1B2C, "CPRIME 8")
+    words[5] |= 1 << 11                      # one version-B group: C'
+    for w in (info, words):
+        for cprime in (True, False):
+            assert np.array_equal(tsig.encode_rds_blocks(w, cprime=cprime),
+                                  oracles.encode_rds_blocks(w, cprime=cprime))
+    for v in (0, 1, 0x3A5C, 0xFFFF):
+        assert tsig.rds_crc10(v) == oracles.rds_crc10(v)
+    assert tsig.RDS_OFFSET_WORDS == oracles.RDS_OFFSET_WORDS
+    bits = tsig.encode_rds_blocks(info)
+    wave = tsig.rds_baseband(bits)
+    assert np.array_equal(wave, oracles.rds_baseband(bits))
+    n = 2 * 153600
+    assert np.array_equal(
+        tsig.fm_multiplex_iq(n, rds_wave=wave),
+        oracles.synth_multiplex_iq(n, rds_wave=wave))
+    assert np.array_equal(
+        tsig.fm_multiplex_iq(n, rds_wave=wave, rds_amp=0.1, pilot_phase=0.5),
+        oracles.synth_multiplex_iq(n, rds_wave=wave, rds_amp=0.1,
+                                   pilot_phase=0.5))
+
+
+def test_ps_station_words_decode_to_their_name():
+    from rtsdr_tpu.pipeline.groups import GroupDecoder
+    from rtsdr_tpu_torch.utils.signals import ps_station_words
+
+    from test_groups import _push_group
+
+    dec = GroupDecoder()
+    words = ps_station_words(8, 0x3A5C, "H100 FM ")
+    for g in range(8):
+        _push_group(dec, *words[4 * g:4 * g + 4], 104 * g)
+    assert dec.pi == 0x3A5C and dec.ps_name == "H100 FM "
+    assert dec.ta == 1 and dec.ms == 1

@@ -16,7 +16,14 @@ import torch
 
 from rtsdr_tpu_torch.config import MODE0
 from rtsdr_tpu_torch.device import require_kernel_dtype
-from rtsdr_tpu_torch.ops import _cuda, coeffs, cuda_fir, fir, ingestfir
+from rtsdr_tpu_torch.ops import (
+    _cuda,
+    coeffs,
+    cuda_fir,
+    cuda_resample,
+    fir,
+    ingestfir,
+)
 from rtsdr_tpu_torch.ops import pll as tpll
 from rtsdr_tpu_torch.pipeline.frontend import make_frontend
 from rtsdr_tpu_torch.pipeline.receiver import Receiver
@@ -134,6 +141,77 @@ def test_ingest_wrong_dtype_on_device_raises(launches, entry, what):
     with pytest.raises(TypeError):
         calls[entry]()
     assert launches == []
+
+
+RRC_H = coeffs.rrc_taps(57e3, 31)
+
+
+def _resample_call(dtype, n=160, on_device=True):
+    mk = ((lambda *s: on_card(s, dtype)) if on_device
+          else (lambda *s: torch.zeros(s, dtype=dtype)))
+    e = mk(2, n)
+    return lambda: cuda_resample.resample_mul2_rrc(
+        e, e, e, H, mk(2, 2, 30), RRC_H, mk(2, 2, 30), 19, 80)
+
+
+def test_resample_f32_device_tensor_reaches_the_kernel(launches, monkeypatch):
+    # the carried tail is made with stock ops after the launch
+    monkeypatch.setattr(cuda_resample, "resample_mul2_tail",
+                        lambda *a: torch.zeros(2, 2, 30))
+    rrc, new_zi, new_rrc_zi = _resample_call(torch.float32)()
+    assert launches == ["rtsdr_resample_rrc"]
+    assert rrc.shape == (2, 2, 38) and new_rrc_zi.shape == (2, 2, 30)
+
+
+def test_resample_f64_device_tensor_raises(launches):
+    with pytest.raises(TypeError, match="float32"):
+        _resample_call(torch.float64)()
+    assert launches == []
+
+
+def test_resample_empty_or_ragged_device_tensor_raises(launches):
+    with pytest.raises(ValueError, match="empty"):
+        _resample_call(torch.float32, n=0)()
+    with pytest.raises(ValueError, match="do not divide"):
+        _resample_call(torch.float32, n=161)()
+    assert launches == []
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_resample_cpu_tensor_runs_the_plain_version(launches, dtype):
+    rrc, _, _ = _resample_call(dtype, on_device=False)()
+    assert launches == [] and rrc.dtype == dtype
+
+
+def test_ingest_bank_on_device_reaches_its_own_entry(launches):
+    raw = on_card((2, 200), torch.uint8)
+    zi = torch.zeros((2, 30))
+    p = torch.zeros((2,))
+    out = ingestfir.ingest_fir_demod_audio(
+        raw, H, zi, zi, p, p, 10, H, zi, 5, emit_fm=False, bank_h=[H, H, H],
+        bank_zi=zi)
+    assert launches == ["rtsdr_ingest_fm_audio_bank"]
+    assert out[0] is None and len(out[7]) == 3
+    with pytest.raises(TypeError):
+        ingestfir.ingest_fir_demod_audio(
+            raw, H, zi, zi, p, p, 10, H, zi, 5, bank_h=[H],
+            bank_zi=zi.double())
+    assert launches == ["rtsdr_ingest_fm_audio_bank"]
+
+
+def test_no_wrapper_falls_back_from_its_kernel():
+    """Dispatch is by ``is_cuda`` alone and nothing catches a kernel's
+    failure: no ``try`` in any wrapper that launches."""
+    import inspect
+    import re
+
+    for fn, gate in ((cuda_resample.resample_mul2_rrc, "extract.is_cuda"),
+                     (ingestfir.ingest_fir_demod_audio, "raw_u8.is_cuda")):
+        src = inspect.getsource(fn)
+        assert f"if not {gate}:" in src
+        assert not re.search(r"\btry:|\bexcept\b", src)
+    assert not re.search(r"\btry:|\bexcept\b",
+                         inspect.getsource(_cuda.launch))
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float16,

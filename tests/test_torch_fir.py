@@ -101,9 +101,15 @@ def test_fir_resample_up1(rng, prec):
 
 
 def test_fir_resample_up_gt1_names_the_slice():
-    x = torch.zeros(1, 250)
-    with pytest.raises(NotImplementedError, match="mode-1"):
-        tfir.fir_resample(x, LP, torch.zeros(1, 150), 24, 125)
+    """``up > 1`` is the explicit zero-stuff / filter / keep-every-down-th
+    pipeline (tests/test_torch_resample.py holds it against the JAX one);
+    what it refuses is a block that does not divide."""
+    x = torch.ones(1, 250)
+    y, zi = tfir.fir_resample(x, LP, torch.zeros(1, 150), 24, 125)
+    assert y.shape == (1, 48) and zi.shape == (1, 150)
+    with pytest.raises(ValueError, match="do not divide"):
+        tfir.fir_resample(torch.zeros(1, 251), LP, torch.zeros(1, 150),
+                          24, 125)
 
 
 @pytest.mark.parametrize("prec", ["f32", "f64"])

@@ -32,7 +32,8 @@ def _imported_roots(path):
 def test_files_found():
     names = {p.name for p in FILES}
     assert {"chip_smoke.py", "receiver.py", "ingestfir.py", "cuda_fir.py",
-            "cuda_pll.py", "cli.py"} <= names
+            "cuda_pll.py", "cli.py", "cuda_resample.py", "rds.py", "frame.py",
+            "groups.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -44,7 +45,27 @@ def test_no_jax_import_in_source(path):
 
 def test_cuda_sources_present():
     names = {p.name for p in (PKG / "csrc").iterdir()}
-    assert {"ingest.cu", "fir_bank.cu", "pll.cu"} <= names
+    assert {"ingest.cu", "fir_bank.cu", "pll.cu", "resample_rrc.cu"} <= names
+
+
+def test_every_cuda_source_is_built_and_packaged():
+    """What lies in csrc/ is what ``_cuda.build`` compiles, each entry point
+    a source defines has its argument types declared, and the package data
+    covers the sources."""
+    import re
+
+    from rtsdr_tpu_torch.ops import _cuda
+
+    on_disk = {p.name for p in (PKG / "csrc").glob("*.cu")}
+    assert on_disk == set(_cuda.SOURCES)
+    entries = set()
+    for name in on_disk:
+        entries |= set(re.findall(r'extern "C" int (rtsdr_\w+)\(',
+                                  (PKG / "csrc" / name).read_text()))
+    assert entries == set(_cuda._ARGTYPES)
+    assert {"rtsdr_resample_rrc", "rtsdr_ingest_fm_audio_bank"} <= entries
+    assert '"rtsdr_tpu_torch.csrc" = ["*.cu"' in \
+        (ROOT / "pyproject.toml").read_text()
 
 
 def test_import_leaves_jax_package_out_and_builds_nothing(tmp_path):
@@ -54,8 +75,10 @@ sys.modules['triton'] = None          # importing it would raise
 import rtsdr_tpu_torch
 for m in ('config', 'device', 'cli', 'ops', 'ops.coeffs', 'ops.fir',
           'ops.demod', 'ops.iir', 'ops.pll', 'ops._cuda', 'ops.cuda_fir',
-          'ops.cuda_pll', 'ops.ingestfir', 'pipeline', 'pipeline.frontend',
-          'pipeline.audio', 'pipeline.receiver', 'io', 'io.stream',
+          'ops.cuda_pll', 'ops.cuda_resample', 'ops.ingestfir', 'pipeline',
+          'pipeline.frontend', 'pipeline.audio', 'pipeline.rds',
+          'pipeline.frame', 'pipeline.groups', 'pipeline.receiver', 'io',
+          'io.stream',
           'io.batch', 'io.staging', 'io.wav', 'io.binio', 'runtime', 'utils',
           'utils.signals', 'utils.convert'):
     importlib.import_module('rtsdr_tpu_torch.' + m)

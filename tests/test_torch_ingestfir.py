@@ -161,13 +161,109 @@ def test_decimate_matches_pallas_interpret(rng):
         _cmp(a, b, tol)
 
 
+BANK_H = [np.asarray(coeffs.bandpass_taps(240e3, lo, hi, 151), np.float64)
+          for lo, hi in ((18.5e3, 19.5e3), (22e3, 54e3), (54e3, 60e3))]
+
+
+@pytest.mark.parametrize("emit_fm", [True, False])
+@pytest.mark.parametrize("n_bank", [3, 1])
+def test_bank_stage_matches_jax_two_blocks(rng, emit_fm, n_bank):
+    """``bank_h``: the F band-passes over the same fm, against the JAX
+    function's CPU route, over a block seam with the carried ``bank_zi``
+    (= the carried fm tail, as the receiver feeds it).  fm 5e-6 rad, bank
+    outputs 2e-6 * max|ref| plus what the fm difference itself can cause."""
+    c, n_pairs = 3, 2500
+    raw = _fm_bytes(rng, c, 2 * n_pairs)
+    s = _state(rng, c)
+    keys = ("zi_i", "zi_q", "prev_i", "prev_q", "azi")
+    ts = [_t(s[k]) for k in keys]
+    js = [jnp.asarray(s[k]) for k in keys]
+    bzi = (rng.standard_normal((c, 150)) * 0.1).astype(np.float32)
+    t_bzi, j_bzi = _t(bzi), jnp.asarray(bzi)
+    hs = BANK_H[:n_bank]
+    for b in range(2):
+        blk = raw[:, b * 2 * n_pairs:(b + 1) * 2 * n_pairs]
+        t = ting.ingest_fir_demod_audio(
+            _t(blk), RF_H, *ts[:4], DECIM, MONO_H, ts[4], DOWN,
+            emit_fm=emit_fm, bank_h=hs, bank_zi=t_bzi)
+        j = jing.ingest_fir_demod_audio(
+            jnp.asarray(blk), RF_H, *js[:4], DECIM, MONO_H, js[4], DOWN,
+            emit_fm=emit_fm, bank_h=hs, bank_zi=j_bzi)
+        assert len(t) == len(j) == 8
+        assert isinstance(t[7], tuple) and len(t[7]) == n_bank
+        if emit_fm:
+            _cmp(t[0], j[0], 5e-6)
+        else:
+            assert t[0] is None
+        _cmp(t[1], j[1], 2e-6 * float(np.max(np.abs(np.asarray(j[1])))))
+        for a, bb in zip(t[2:6], j[2:6]):
+            _cmp(a, bb, 1e-6)
+        _cmp(t[6], j[6], 5e-6)
+        # the two packages' fm differ (two atan2 libraries, <= 5e-6 rad);
+        # a filter passes that on scaled by at most sum|h|, which for the
+        # narrow pilot band-pass is not small beside its own output
+        t_fm = ting.ingest_fir_demod_audio(
+            _t(blk), RF_H, *ts[:4], DECIM, MONO_H, ts[4], DOWN)[0]
+        dfm = float(np.max(np.abs(t_fm.numpy() - np.asarray(j[0]))))
+        assert dfm <= 5e-6
+        for a, bb, h in zip(t[7], j[7], hs):
+            assert a.shape == (c, n_pairs // DECIM)
+            _cmp(a, bb, 2e-6 * float(np.max(np.abs(np.asarray(bb))))
+                 + dfm * float(np.sum(np.abs(h))))
+        ts, js = list(t[2:7]), list(j[2:7])
+        t_bzi, j_bzi = t[6], j[6]          # the next bank_zi is the fm tail
+
+
+def test_bank_stage_equals_fir_block_bank(rng):
+    """The stage is ``fir_block_bank(fm, bank_h, bank_zi)`` by definition."""
+    from rtsdr_tpu_torch.ops.fir import fir_block_bank
+
+    raw = _fm_bytes(rng, 2, 2000)
+    s = _state(rng, 2)
+    bzi = _t((rng.standard_normal((2, 150)) * 0.1).astype(np.float32))
+    out = ting.ingest_fir_demod_audio(
+        _t(raw), RF_H, *(_t(s[k]) for k in ("zi_i", "zi_q", "prev_i",
+                                            "prev_q")),
+        DECIM, MONO_H, _t(s["azi"]), DOWN, bank_h=BANK_H, bank_zi=bzi)
+    ys, _ = fir_block_bank(out[0], BANK_H, bzi)
+    for a, b in zip(out[7], ys):
+        assert torch.equal(a, b)
+
+
 def test_bank_epilogue_names_the_rds_slice():
+    """The bank stage's arguments go together, and the kernel route refuses
+    what the kernel cannot take (more than 3 filters, unequal or longer
+    taps than the audio filter's) before any launch."""
+    from rtsdr_tpu_torch.ops import _cuda
+
     raw = torch.zeros(1, 200, dtype=torch.uint8)
     z = torch.zeros(1, 150)
-    with pytest.raises(NotImplementedError, match="RDS slice"):
-        ting.ingest_fir_demod_audio(raw, RF_H, z, z, torch.ones(1),
-                                    torch.zeros(1), DECIM, MONO_H, z, DOWN,
-                                    bank_h=[MONO_H], bank_zi=z)
+    args = (raw, RF_H, z, z, torch.ones(1), torch.zeros(1), DECIM, MONO_H,
+            z, DOWN)
+    with pytest.raises(ValueError, match="go together"):
+        ting.ingest_fir_demod_audio(*args, bank_h=[MONO_H])
+    with pytest.raises(ValueError, match="go together"):
+        ting.ingest_fir_demod_audio(*args, bank_zi=z)
+
+    class OnCard(torch.Tensor):
+        is_cuda = property(lambda self: True)
+
+    card_args = (raw.as_subclass(OnCard),) + args[1:]
+    launched = []
+    orig = _cuda.launch
+    _cuda.launch = lambda entry, count_as, *a: launched.append(entry)
+    try:
+        for bad in ([MONO_H] * 4, [MONO_H, MONO_H[:-2]],
+                    [np.zeros(153)]):
+            with pytest.raises(ValueError, match="bank_h takes"):
+                ting.ingest_fir_demod_audio(
+                    *card_args, bank_h=bad,
+                    bank_zi=torch.zeros(1, len(bad[0]) - 1))
+        assert launched == []
+        ting.ingest_fir_demod_audio(*card_args, bank_h=BANK_H, bank_zi=z)
+        assert launched == ["rtsdr_ingest_fm_audio_bank"]
+    finally:
+        _cuda.launch = orig
 
 
 def test_cuda_wrappers_never_run_plain_on_a_cuda_tensor():

@@ -1,10 +1,13 @@
 """Host I/O and the command line of the port against the JAX package's:
 the runtime copies bitwise, the CLI's int16 audio within 1 LSB of
 ``rtsdr_tpu.io.stream.StreamRunner`` on the same bytes (float32 audio
-differing by 2e-5 can straddle a rounding step of 1/16384)."""
+differing by 2e-5 can straddle a rounding step of 1/16384), and with RDS on
+the same stderr lines (sync events, decoded groups, summary) as
+``python -m rtsdr_tpu.cli``."""
 
 import os
 import pathlib
+import re
 import subprocess
 import sys
 import wave
@@ -19,7 +22,10 @@ from rtsdr_tpu.io.stream import StreamRunner as JStreamRunner
 from rtsdr_tpu_torch import runtime as trt
 from rtsdr_tpu_torch.config import MODE0
 from rtsdr_tpu_torch.io.batch import BatchRunner
-from rtsdr_tpu_torch.io.stream import StreamRunner
+from rtsdr_tpu_torch.io.stream import StreamRunner, format_rds_events
+from rtsdr_tpu_torch.pipeline.frame import FrameOutputs
+from rtsdr_tpu_torch.pipeline.groups import GroupDecoder
+from rtsdr_tpu_torch.utils import signals
 from rtsdr_tpu_torch.utils.signals import fm_multiplex_iq
 
 torch.set_num_threads(1)
@@ -38,12 +44,38 @@ def capture(tmp_path_factory):
     return path
 
 
-def _cli(args, stdin_path=None, timeout=600):
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+N_RDS_BLOCKS = 6
+PS_NAME, PI_CODE = "H100 FM ", 0x3A5C
+
+
+@pytest.fixture(scope="module")
+def rds_capture(tmp_path_factory):
+    """A station that spells PS_NAME over 0A groups, N_RDS_BLOCKS blocks."""
+    path = tmp_path_factory.mktemp("iq") / "rds_station.iq"
+    words = signals.ps_station_words(30, PI_CODE, PS_NAME)
+    wave = signals.rds_baseband(signals.encode_rds_blocks(words))
+    fm_multiplex_iq(N_RDS_BLOCKS * MODE0.iq_len, rds_wave=wave).tofile(path)
+    return path
+
+
+def _ps_consistent(ps: str) -> bool:
+    """Six blocks air about four groups: every PS segment that arrived
+    must be right, and at least one must have arrived."""
+    return (len(ps) == 8 and ps.strip() != ""
+            and all(a in (" ", b) for a, b in zip(ps, PS_NAME)))
+
+
+# a line of XLA's own logging ("E1016 18:11:44.842461   16123 file.cc:210] ..."),
+# which the JAX runtime may write to stderr beside the CLI's lines
+_XLA_LOG = re.compile(r"^[IWEF]\d{4} \d\d:\d\d:\d\d\.\d+\s+\d+ \S+:\d+\] ")
+
+
+def _cli(args, stdin_path=None, timeout=600, module="rtsdr_tpu_torch.cli"):
+    env = dict(os.environ, PYTHONPATH=str(ROOT), JAX_PLATFORMS="cpu")
     stdin = open(stdin_path, "rb") if stdin_path else subprocess.DEVNULL
     try:
         return subprocess.run(
-            [sys.executable, "-m", "rtsdr_tpu_torch.cli", *args], stdin=stdin,
+            [sys.executable, "-m", module, *args], stdin=stdin,
             capture_output=True, cwd=ROOT, env=env, timeout=timeout)
     finally:
         if stdin_path:
@@ -131,11 +163,51 @@ def test_cli_runs_to_eof_and_drops_partial_block(capture):
     assert np.array_equal(pcm[:, 0], pcm[:, 1])      # mono on both channels
 
 
-def test_cli_without_no_rds_exits_2():
-    res = _cli(["0", "--device", "cpu"])
-    assert res.returncode == 2
-    assert b"RDS" in res.stderr and b"--no-rds" in res.stderr
-    assert res.stdout == b""
+def test_cli_without_no_rds_exits_2(rds_capture):
+    """Without ``--no-rds`` the CLI decodes RDS: its stderr lines (sync
+    events, decoded groups, block summary, station summary) are those of
+    the JAX package's CLI on the same capture, its audio within 1 LSB."""
+    args = ["0", "--rds-groups"]
+    ours = _cli(args + ["--device", "cpu"], rds_capture)
+    assert ours.returncode == 0, ours.stderr.decode()
+    theirs = _cli(args, rds_capture, module="rtsdr_tpu.cli")
+    assert theirs.returncode == 0, theirs.stderr.decode()
+    our_lines = ours.stderr.decode().splitlines()
+    their_lines = [ln for ln in theirs.stderr.decode().splitlines()
+                   if not ln.startswith("compiling receiver")
+                   and not _XLA_LOG.match(ln)]
+    assert our_lines == their_lines
+    assert sum(ln.startswith("Syndrome ") for ln in our_lines) >= 10
+    assert any(ln.startswith("Group 0A PI=0x3A5C") for ln in our_lines)
+    (summary,) = [ln for ln in our_lines if ln.startswith("RDS: PI=")]
+    assert summary.startswith(f"RDS: PI=0x{PI_CODE:04X} PTY=Rock PS='")
+    assert _ps_consistent(summary.split("PS='")[1][:8])
+    assert any(ln.startswith(f"processed {N_RDS_BLOCKS} blocks, ")
+               and "RDS syncs" in ln for ln in our_lines)
+    a = np.frombuffer(ours.stdout, np.int16).astype(np.int32)
+    b = np.frombuffer(theirs.stdout, np.int16).astype(np.int32)
+    assert a.shape == b.shape == (N_RDS_BLOCKS * MODE0.audio_len * 2,)
+    assert int(np.max(np.abs(a - b))) <= 1
+
+
+def test_cli_rds_flags_parse_and_run(rds_capture):
+    res = _cli(["0", "--device", "cpu", "--blocks", "2", "--clock", "gardner",
+                "--rds-ec", "--derotate", "--no-resync", "--pty-table", "rds",
+                "--rds-groups", "--pll-div", "4"], rds_capture)
+    assert res.returncode == 0, res.stderr.decode()
+    assert len(res.stdout) == 2 * MODE0.audio_len * 4
+    assert b"processed 2 blocks, " in res.stderr
+    assert b"Re-Sync" not in res.stderr
+    bad = _cli(["0", "--device", "cpu", "--clock", "nearest"])
+    assert bad.returncode == 2
+
+
+def test_cli_no_rds_prints_no_events(rds_capture):
+    res = _cli(["0", "--no-rds", "--rds-groups", "--device", "cpu",
+                "--blocks", "2"], rds_capture)
+    assert res.returncode == 0, res.stderr.decode()
+    assert res.stderr.decode().splitlines() == [
+        "processed 2 blocks, 0 RDS syncs (0 false positives)"]
 
 
 def test_cli_default_device_without_gpu_names_the_gpu():
@@ -147,12 +219,24 @@ def test_cli_default_device_without_gpu_names_the_gpu():
     assert res.stdout == b""
 
 
+PORTED_FLAGS = {"--rds-groups": [], "--clock": ["hold"], "--derotate": []}
+
+
 @pytest.mark.parametrize("flag", ["--rds-groups", "--wideband", "--clock",
                                   "--scan", "--derotate", "--rds"])
 def test_cli_unported_flags_are_absent(flag):
-    res = _cli(["0", "--no-rds", "--device", "cpu", flag])
-    assert res.returncode == 2                       # argparse usage error
-    assert b"unrecognized arguments" in res.stderr or b"usage" in res.stderr
+    """Flags of later slices (wideband, scan, mode-1 RDS) are a usage
+    error; the RDS flags of this slice are accepted (empty stdin: 0
+    blocks)."""
+    res = _cli(["0", "--no-rds", "--device", "cpu", flag,
+                *PORTED_FLAGS.get(flag, [])])
+    if flag in PORTED_FLAGS:
+        assert res.returncode == 0, res.stderr.decode()
+        assert b"processed 0 blocks" in res.stderr
+    else:
+        assert res.returncode == 2                   # argparse usage error
+        assert (b"unrecognized arguments" in res.stderr
+                or b"usage" in res.stderr)
 
 
 def test_cli_mode_1_is_rejected():
@@ -199,3 +283,101 @@ def test_wav_and_binio_copies(tmp_path, rng):
     write_wav(str(tmp_path / "c.wav"), x * 0.1, x * 0.2)
     with wave.open(str(tmp_path / "c.wav"), "rb") as w:
         assert w.getnchannels() == 2 and w.getnframes() == 1000
+
+
+def test_stream_runner_rds_hooks_and_stats(rds_capture):
+    """``rds_log`` gets the event lines, ``frame_hook`` host-array
+    FrameOutputs that a GroupDecoder decodes, the stats count what was
+    logged — and equal the JAX runner's on the same capture."""
+    lines, frames = [], []
+    dec = GroupDecoder()
+    runner = StreamRunner(MODE0, device="cpu", resync=True)
+    with open(rds_capture, "rb") as f:
+        stats = runner.run(
+            f.fileno(), rds_log=lines.append,
+            frame_hook=lambda fo: (frames.append(fo), dec.feed(fo)))
+    assert stats["blocks"] == N_RDS_BLOCKS == len(frames)
+    assert all(isinstance(fo, FrameOutputs)
+               and isinstance(fo.is_sync, np.ndarray) for fo in frames)
+    assert stats["rds_events"] == sum(
+        ln.startswith("Syndrome ") for ln in lines) >= 10
+    assert stats["rds_false_positives"] == sum(
+        ln.startswith("False positive") for ln in lines)
+    assert stats["rds_corrected"] == 0
+    assert dec.pi == PI_CODE and _ps_consistent(dec.ps_name)
+
+    j_lines = []
+    with open(rds_capture, "rb") as f:
+        j_stats = JStreamRunner(JMODE0, jit=False, resync=True).run(
+            f.fileno(), rds_log=j_lines.append)
+    assert j_lines == lines
+    assert j_stats == stats
+
+
+def test_format_rds_events_equals_jax():
+    from rtsdr_tpu.io.stream import format_rds_events as j_format
+
+    rng = np.random.default_rng(5)
+    w = 77
+    sid = (rng.random(w) < 0.3) * rng.integers(1, 6, w)
+    sync = (sid > 0) & (rng.random(w) < 0.5)
+    fo = FrameOutputs(
+        n_sym=np.int32(152), symbols_i=np.zeros(152), symbols_q=np.zeros(152),
+        n_windows=np.int32(60), syndrome_id=sid.astype(np.int32),
+        is_sync=sync, is_false_pos=(sid > 0) & ~sync,
+        positions=(1000 + np.arange(w)).astype(np.int32),
+        is_resync=rng.random(w) < 0.05, info_word=np.zeros(w, np.int32),
+        corrected=sync & (rng.random(w) < 0.3))
+    lines = format_rds_events(fo)
+    assert lines == j_format(fo)
+    assert any("(corrected)" in ln for ln in lines)
+    assert any(ln.startswith("False positive") for ln in lines)
+    assert "~~~~~Re-Sync~~~~~" in lines
+
+
+def test_batch_runner_rds_hook_per_station(rds_capture, capture):
+    """``rds_hook(channel, FrameOutputs)``: per-station host arrays, equal
+    to what a single-station run of the same capture yields; a station
+    without RDS yields no syncs."""
+    single = []
+    with open(rds_capture, "rb") as f:
+        StreamRunner(MODE0, device="cpu").run(
+            f.fileno(), frame_hook=single.append, max_blocks=3)
+    got = {0: [], 1: []}
+    with open(rds_capture, "rb") as f0, open(capture, "rb") as f1:
+        with BatchRunner(MODE0, [f0.fileno(), f1.fileno()],
+                         device="cpu") as runner:
+            stats = runner.run(rds_hook=lambda c, fo: got[c].append(fo))
+    assert stats == {"blocks": 3, "stations": 2}
+    assert len(got[0]) == len(got[1]) == 3
+    for fo_b, fo_1 in zip(got[0], single):
+        for name in fo_1._fields:
+            a, b = getattr(fo_b, name), getattr(fo_1, name)
+            assert a.shape == b.shape, name
+            if b.dtype.kind == "f":
+                np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+            else:
+                assert np.array_equal(a, b), name
+    assert sum(int(fo.is_sync.sum()) for fo in got[0]) >= 3
+    dec = GroupDecoder()
+    for fo in got[0]:
+        dec.feed(fo)
+    assert dec.pi == PI_CODE
+
+
+def test_cli_stations_with_rds(rds_capture, tmp_path):
+    a, b = tmp_path / "a.iq", tmp_path / "b.iq"
+    data = pathlib.Path(rds_capture).read_bytes()[:4 * MODE0.block_size]
+    a.write_bytes(data)
+    b.write_bytes(data)
+    res = _cli(["0", "--device", "cpu", "--rds-groups", "--stations",
+                str(a), str(b)])
+    assert res.returncode == 0, res.stderr.decode()
+    err = res.stderr.decode().splitlines()
+    assert any(ln.startswith(f"[{a}] Syndrome ") for ln in err)
+    assert any(ln.startswith(f"[{b}] Syndrome ") for ln in err)
+    assert any(ln.startswith("processed 4 blocks x 2 stations, ")
+               and ln.endswith(" RDS events") for ln in err)
+    assert f"[{a}] RDS: PI=0x{PI_CODE:04X} PTY=Rock" in "\n".join(err)
+    with wave.open(str(a) + ".wav", "rb") as w:
+        assert w.getnframes() == 4 * MODE0.audio_len

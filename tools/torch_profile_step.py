@@ -2,9 +2,15 @@
 """Where one step of the port's receiver spends its device time.
 
     python3 tools/torch_profile_step.py [--channels 1024] [--steps 4]
+        [--no-rds] [--no-frame] [--resync] [--fuse-if-bank]
 
-Runs ``rtsdr_tpu_torch``'s ``Receiver(MODE0, (C,), enable_rds=False)`` on
-the GPU over noisy synthetic FM stations and traces ``--steps`` steady steps
+Runs ``rtsdr_tpu_torch``'s ``Receiver(MODE0, (C,))`` (the full mode-0 step:
+audio + RDS DSP + bit layer; ``--no-rds`` the audio step alone,
+``--no-frame`` without the bit layer, ``--resync`` with the bit layer's
+window-by-window sync walk, ``--fuse-if-bank`` with the band-pass bank
+inside the ingest kernel) on
+the GPU over noisy synthetic FM stations that carry RDS and traces
+``--steps`` steady steps
 with ``torch.profiler`` (CPU + CUDA activities), after timing as many
 untraced steps on the host clock.  Prints one JSON line: the card's name
 and power limit, the host-clock time per step, and device time per step by
@@ -27,7 +33,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from rtsdr_tpu_torch.config import MODE0  # noqa: E402
 from rtsdr_tpu_torch.pipeline.receiver import Receiver  # noqa: E402
-from rtsdr_tpu_torch.utils.signals import fm_multiplex_iq  # noqa: E402
+from rtsdr_tpu_torch.utils.signals import (  # noqa: E402
+    encode_rds_blocks,
+    fm_multiplex_iq,
+    ps_station_words,
+    rds_baseband,
+)
 
 
 def main() -> int:
@@ -35,6 +46,10 @@ def main() -> int:
     ap.add_argument("--channels", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--no-rds", action="store_true")
+    ap.add_argument("--no-frame", action="store_true")
+    ap.add_argument("--resync", action="store_true")
+    ap.add_argument("--fuse-if-bank", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -51,7 +66,10 @@ def main() -> int:
     n_blocks = 2 + 2 * args.steps
     rows = np.stack([
         fm_multiplex_iq(n_blocks * cfg.iq_len, mono_hz=700.0 + 130.0 * k,
-                        stereo_hz=1500.0 + 210.0 * k, pilot_phase=0.37 * k
+                        stereo_hz=1500.0 + 210.0 * k, pilot_phase=0.37 * k,
+                        rds_wave=rds_baseband(encode_rds_blocks(
+                            ps_station_words(n_blocks + 4, 0x3A5C + k,
+                                             f"STN {k:02d}  ")))
                         ).reshape(n_blocks, cfg.block_size)
         for k in range(min(c, 8))], axis=1)                # (blocks, 8, B)
     rows = torch.as_tensor(rows).to(dev)
@@ -63,7 +81,9 @@ def main() -> int:
                            dtype=torch.int16)
         return x.clamp_(0, 255).to(torch.uint8)
 
-    rx = Receiver(cfg, (c,), enable_rds=False)
+    kwargs = dict(enable_rds=not args.no_rds, enable_frame=not args.no_frame,
+                  resync=args.resync, fuse_if_bank=args.fuse_if_bank)
+    rx = Receiver(cfg, (c,), **kwargs)
     state = rx.init()
     for b in range(2):                                     # warm-up
         state, _ = rx.step(state, block(b))
@@ -97,18 +117,24 @@ def main() -> int:
             kernels[e.key] = {"ms_per_step": us / 1e3 / args.steps,
                               "calls_per_step": e.count / args.steps}
     busy_ms = sum(k["ms_per_step"] for k in kernels.values())
+    launches = sum(k["calls_per_step"] for k in kernels.values())
     result = {"card": card, "channels": c, "steps": args.steps,
-              "wall_ms_per_step": wall_ms / args.steps}
+              "receiver": kwargs, "wall_ms_per_step": wall_ms / args.steps,
+              "device_launches_per_step": launches}
     if not kernels:
         result["device_time"] = "not measured (profiler saw no device time)"
     else:
         top = dict(sorted(kernels.items(),
-                          key=lambda kv: -kv[1]["ms_per_step"])[:16])
+                          key=lambda kv: -kv[1]["ms_per_step"])[:12])
+        small = [k for name, k in kernels.items() if name not in top]
         result.update({
             "device_busy_ms_per_step": busy_ms,
             "device_idle_share_of_wall": max(
                 0.0, 1.0 - busy_ms / (wall_ms / args.steps)),
-            "by_kernel": top})
+            "by_kernel": top,
+            "all_other_kernels": {
+                "ms_per_step": sum(k["ms_per_step"] for k in small),
+                "calls_per_step": sum(k["calls_per_step"] for k in small)}})
     print(json.dumps(result))
     return 0
 
