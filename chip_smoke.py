@@ -8,9 +8,14 @@ git-ignored ``rtsdr_tpu_torch/build``), then
 
   1. ``kernel_cases`` — calls every kernel wrapper on CUDA tensors at the
      shapes the receiver gives it (MODE0: 307,200-byte blocks, 151-tap
-     filters, the 3,001-tap composed resampler, C = 1 and C = 1024) and
-     holds the result against its plain PyTorch version on the same inputs,
-     within the stated tolerance; times the kernel (CUDA events, median),
+     filters, the 3,001-tap composed resampler, C = 1 and C = 1024; the
+     composed channelizer at K = 16 with 1 and 8 captures; every wrapper
+     call of the third step of the MODE1 / MODE1_RDS receivers (320,000-byte
+     blocks, 16,000 IF samples, the x57/250 resampler with its 9,003 taps),
+     of the wideband receiver at 8 captures x 16 slots, and of the band
+     scanner, with the receiver's own arguments) and holds the result
+     against its plain PyTorch version on the same inputs, within the
+     stated tolerance; times the kernel (CUDA events, median),
      the plain version, and for the FIR bank one
      ``torch.nn.functional.conv1d`` call as a yardstick that the port itself
      never uses; computes the least time the card could need;
@@ -32,7 +37,24 @@ git-ignored ``rtsdr_tpu_torch/build``), then
   4. ``fuse_if_bank`` — the same receiver with the band-pass bank inside
      the ingest kernel, counted on its own: outputs against the unfused
      run, ms per step of both at C = 1024 and C = 2048;
-  5. for each counted window the launch counts, set to 0 just before, must
+  5. ``wideband`` — one capture at 16 x 2.4 MS/s -> 16 stations, 8 captures
+     per step (128 stations), stereo + RDS + frame sync, counted on its
+     own: ``make_wideband_receiver(MODE0, 16, (8,))`` on captures of the
+     wideband synthesizer (five live slots, one 150 kHz off its slot's
+     center through ``channel_offsets_hz``, one carrying a PS name): tones
+     right in the live slots and apart from them in the empty ones, PI / PS
+     decoded, nothing decoded in an empty slot, the composed channelizer
+     against the two-stage 'pfb' route; once more through ``python -m
+     rtsdr_tpu_torch.cli 0 --wideband 16`` (channel<k>.wav files with the
+     in-process run's bytes);
+  6. ``scan`` — ``make_band_scanner(MODE0, 16)`` over 3 blocks, verdicts
+     equal to what was synthesized, and ``--wideband 16 --auto`` through
+     the CLI, counted on its own;
+  7. ``mode1`` — ``StreamRunner(MODE1)`` at C = 1 and the CLI's mode 1
+     (identical bytes, tones right), then MODE1_RDS: a stream at C = 1 that
+     must decode its PI / PS, and 1024 channels with row 0 equal to its
+     C = 1 twin; each counted on its own;
+  8. for each counted window the launch counts, set to 0 just before, must
      equal steps x launches per step.
 
 Every line printed is one JSON object, except the line with the card's name
@@ -43,6 +65,7 @@ launch or agree, the exit code is not 0 and no result is printed.
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import statistics
@@ -77,6 +100,39 @@ N_RUNNER_STATIONS = 16
 N_RUNNER_BLOCKS = 4
 N_FUSE_STEPS = 4
 FUSE_CHANNELS = (1024, 2048)
+WB_K = 16                 # slots of the wideband capture
+WB_CAPTURES = 8           # captures per step: 128 stations
+WB_BLOCKS = 14
+N_SCAN_BLOCKS = 3
+N_MODE1_STREAM_BLOCKS = 4
+N_MODE1_RDS_STREAM_BLOCKS = 16
+N_MODE1_BATCH_STEPS = 3
+
+TOL_K5_REL = 8e-6     # x max over stations of sum|g|: two float32 sums of
+#                       2 x 2,656 products of |x| < 1 values in different
+#                       orders (the plain version is a blocked matrix product)
+TOL_WB_AUDIO = 2e-4   # composed against the two-stage route, live slots
+
+# the wideband band plan: slot -> (station, RDS (PI, PS) or None).  Slot 4's
+# station sits 150 kHz above its slot's center; slot 13 is a mono-only
+# carrier (no pilot, no stereo, no RDS).  Every stereo station carries RDS:
+# a clean synthetic stereo multiplex without it still shows a 19 + 38 kHz
+# product at 57 kHz some 20 dB over its (quantization-only) floor, which
+# the scanner rightly cannot tell from a weak RDS carrier.
+WB_OFFSET_SLOT, WB_OFFSET_HZ = 4, 150e3
+WB_RDS_SLOT = 1
+WB_BAND = {
+    1: (dict(mono_hz=1.1e3, stereo_hz=2.3e3), (0x4D58, "WIDEBAND")),
+    4: (dict(mono_hz=700.0, stereo_hz=1.7e3), (0x4D59, "OFFSET 4")),
+    7: (dict(mono_hz=900.0, stereo_hz=1.9e3, pilot_phase=0.4),
+        (0x4D5A, "SLOT  7 ")),
+    10: (dict(mono_hz=1.3e3, stereo_hz=2.9e3, pilot_phase=1.1),
+         (0x4D5B, "SLOT 10 ")),
+    13: (dict(mono_hz=1.5e3, stereo_hz=3.1e3, pilot_amp=0.0,
+              stereo_amp=0.0, mono_amp=0.9), None)}
+WB_STATIONS = {slot: kw for slot, (kw, _) in WB_BAND.items()}
+WB_PI, WB_PS = WB_BAND[WB_RDS_SLOT][1]
+MODE1_PI, MODE1_PS = 0x1B2C, "MODE ONE"
 
 # what the stream phase must decode (24 blocks air ~17 groups of ~70
 # 26-bit blocks; the first two blocks go to carrier and clock acquisition;
@@ -110,19 +166,26 @@ def main() -> int:
     import torch.nn.functional as F
 
     from rtsdr_tpu_torch import runtime
-    from rtsdr_tpu_torch.config import MODE0
+    from rtsdr_tpu_torch.config import MODE0, MODE1, MODE1_RDS
     from rtsdr_tpu_torch.io.batch import BatchRunner
     from rtsdr_tpu_torch.io.stream import StreamRunner
     from rtsdr_tpu_torch.ops import (
-        _cuda, coeffs, cuda_fir, cuda_pll, cuda_resample, fir, ingestfir)
+        _cuda, channelizer, coeffs, cuda_fir, cuda_pll, cuda_resample, fir,
+        ingestfir)
     from rtsdr_tpu_torch.ops.pll import PLLState, pll, pll_init, pll_loop
+    from rtsdr_tpu_torch.pipeline import audio as audio_mod
     from rtsdr_tpu_torch.pipeline.audio import audio_lpf_taps
+    from rtsdr_tpu_torch.pipeline import frontend as frontend_mod
+    from rtsdr_tpu_torch.pipeline import rds as rds_mod
     from rtsdr_tpu_torch.pipeline.frontend import rf_lpf_taps
     from rtsdr_tpu_torch.pipeline.groups import GroupDecoder, format_group
     from rtsdr_tpu_torch.pipeline.rds import composed_resampler_taps
     from rtsdr_tpu_torch.pipeline.receiver import Receiver
+    from rtsdr_tpu_torch.pipeline.scan import classify, make_band_scanner
+    from rtsdr_tpu_torch.pipeline.wideband import make_wideband_receiver
     from rtsdr_tpu_torch.utils.signals import (
-        encode_rds_blocks, fm_multiplex_iq, ps_station_words, rds_baseband)
+        encode_rds_blocks, fm_multiplex_iq, ps_station_words, rds_baseband,
+        wideband_capture_iq)
 
     # the plain versions are explicit float32 sums, but state it anyway:
     # no TF32 anywhere in a reference or a yardstick
@@ -192,6 +255,93 @@ def main() -> int:
             raise SystemExit(f"chip_smoke: {name} {shape} disagrees with its "
                              f"plain version: {bad}")
         return row
+
+    def shape_of(x):
+        return "(" + ", ".join(str(n) for n in x.shape) + ")"
+
+    def bank_case(pre, hl, s, x, x2, zi, **extra):
+        """One FIR-bank call on the kernel and on its plain version, with
+        one conv1d call as the yardstick."""
+        n_taps = len(hl[0])
+        lanes = x.numel() // x.shape[-1]
+        if zi is None:
+            zi = torch.zeros((*x.shape[:-1], n_taps - 1), device=dev)
+        k_ys, k_t = cuda_fir.fir_bank_carried(x, hl, zi, s, x2=x2, pre=pre)
+        r_ys, r_t = cuda_fir.fir_bank_carried_ref(x, hl, zi, s, x2=x2,
+                                                  pre=pre)
+        errs = {f"y{f}": max_err(a, b)
+                for f, (a, b) in enumerate(zip(k_ys, r_ys))}
+        tols = {f"y{f}": TOL_FIR_REL * float(b.abs().max())
+                for f, b in enumerate(r_ys)}
+        errs["new_zi"] = max_err(k_t, r_t)
+        tols["new_zi"] = TOL_STATE
+        # yardstick: one conv1d call over the already extended (and, for a
+        # pre-op, already mixed / squared) input
+        xp = x if pre == "none" else (x * x if pre == "square"
+                                      else 2.0 * x * x2)
+        xext = torch.cat([zi, xp], dim=-1).reshape(lanes, 1, -1)
+        del xp
+        w = torch.as_tensor(np.stack(hl)[:, None, ::-1].copy(),
+                            dtype=torch.float32, device=dev)
+        lib = F.conv1d(xext, w, stride=s)
+        lib_err = max(max_err(lib[:, f], r_ys[f].reshape(lanes, -1)) /
+                      float(r_ys[f].abs().max()) for f in range(len(hl)))
+        del lib
+        n_out = k_ys[0].shape[-1]
+        check(f"fir_bank.{pre}", f"f32 {shape_of(x)}", errs, tols,
+              filters=len(hl), stride=s,
+              kernel_ms=time_ms(lambda: cuda_fir.fir_bank_carried(
+                  x, hl, zi, s, x2=x2, pre=pre)),
+              plain_ms=time_ms(lambda: cuda_fir.fir_bank_carried_ref(
+                  x, hl, zi, s, x2=x2, pre=pre), reps=2, warm=0),
+              library_ms=time_ms(lambda: F.conv1d(xext, w, stride=s)),
+              library="torch.nn.functional.conv1d (cudnn.allow_tf32="
+                      "False) on the extended, pre-mixed input",
+              library_rel_err_vs_plain=lib_err,
+              **bound(nbytes(x, x2, zi, k_t, *k_ys),
+                      len(hl) * lanes * n_out * 2 * n_taps
+                      + (0 if pre == "none" else
+                         x.numel() * (1 if pre == "square" else 2))),
+              **extra)
+
+    def pll_case(label, x, st, div, gate=None, extra=None, **kw):
+        """One PLL call on the kernel and on its plain version.  ``gate``:
+        boolean mask over the lanes that are held to the tolerance (the
+        lanes that have a carrier to lock to); the others are reported."""
+        xs = torch.stack(x, 0) if isinstance(x, tuple) else x
+        lanes = xs.numel() // xs.shape[-1]
+        k = cuda_pll.pll_cuda(x, st, loop_div=div, **kw)
+        t_plain = time.perf_counter()
+        r = pll_loop(xs, st, loop_div=div, **kw)
+        torch.cuda.synchronize()
+        t_plain = (time.perf_counter() - t_plain) * 1e3
+        if gate is None:
+            gate = torch.ones(xs.shape[:-1], dtype=torch.bool, device=dev)
+        errs = {"nco_i": max_err(k[0][gate], r[0][gate]),
+                "nco_q": max_err(k[1][gate], r[1][gate])}
+        tols = {"nco_i": TOL_NCO, "nco_q": TOL_NCO}
+        for name, a, b in zip(PLLState._fields, k[2], r[2]):
+            d = (a.double() - b.double()).abs()[gate]
+            if name in ("phase_est", "theta"):      # angles mod 4 pi
+                d = torch.minimum(d % (4 * np.pi),
+                                  4 * np.pi - d % (4 * np.pi))
+            # the state has leaves called nco_i / nco_q too
+            errs[f"state.{name}"] = float(d.max())
+            tols[f"state.{name}"] = (TOL_PLL_INTEG if name == "integrator"
+                                     else TOL_PLL_STATE)
+        n = xs.shape[-1]
+        check("pll", f"f32 {label} = {lanes} lanes x {n}", errs, tols,
+              loop_div=div, lanes_held_to_tolerance=int(gate.sum()),
+              nco_max_abs_err_all_lanes=max(max_err(k[0], r[0]),
+                                            max_err(k[1], r[1])),
+              integrator_max_abs=float(r[2].integrator.abs().max()),
+              kernel_ms=time_ms(lambda: cuda_pll.pll_cuda(
+                  x, st, loop_div=div, **kw)),
+              plain_ms=t_plain, library_ms=None,
+              **bound(nbytes(xs, k[0], k[1]) + 2 * 7 * 4 * lanes
+                      + 5 * 4 * lanes,
+                      lanes * n * (12 // div + 8)),
+              **(extra or {}))
 
     # ------------------------------------------------------------- inputs
     rf_h = rf_lpf_taps(cfg)
@@ -367,74 +517,10 @@ def main() -> int:
         if c != 1:
             bank_cases.append(("square", [sq_h], 1, extract, None, sq_zi))
             bank_cases.append(("none", bank_hs, 1, fm, None, if_zi))
-        for pre, hl, s, x, x2, zi in bank_cases:
-            k_ys, k_t = cuda_fir.fir_bank_carried(x, hl, zi, s, x2=x2,
-                                                  pre=pre)
-            r_ys, r_t = cuda_fir.fir_bank_carried_ref(x, hl, zi, s, x2=x2,
-                                                      pre=pre)
-            errs = {f"y{f}": max_err(a, b)
-                    for f, (a, b) in enumerate(zip(k_ys, r_ys))}
-            tols = {f"y{f}": TOL_FIR_REL * float(b.abs().max())
-                    for f, b in enumerate(r_ys)}
-            errs["new_zi"] = max_err(k_t, r_t)
-            tols["new_zi"] = TOL_STATE
-            # yardstick: one conv1d call over the already extended (and,
-            # for a pre-op, already mixed / squared) input
-            xp = x if pre == "none" else (x * x if pre == "square"
-                                          else 2.0 * x * x2)
-            xext = torch.cat([zi, xp], dim=-1)[:, None, :]
-            w = torch.as_tensor(np.stack(hl)[:, None, ::-1].copy(),
-                                dtype=torch.float32, device=dev)
-            lib = F.conv1d(xext, w, stride=s)
-            lib_err = max(max_err(lib[:, f], r_ys[f]) /
-                          float(r_ys[f].abs().max()) for f in range(len(hl)))
-            n_out = k_ys[0].shape[-1]
-            check(f"fir_bank.{pre}", f"f32 ({c}, {x.shape[-1]})", errs, tols,
-                  filters=len(hl), stride=s,
-                  kernel_ms=time_ms(lambda: cuda_fir.fir_bank_carried(
-                      x, hl, zi, s, x2=x2, pre=pre)),
-                  plain_ms=time_ms(lambda: cuda_fir.fir_bank_carried_ref(
-                      x, hl, zi, s, x2=x2, pre=pre), reps=2, warm=0),
-                  library_ms=time_ms(lambda: F.conv1d(xext, w, stride=s)),
-                  library="torch.nn.functional.conv1d (cudnn.allow_tf32="
-                          "False) on the extended, pre-mixed input",
-                  library_rel_err_vs_plain=lib_err,
-                  **bound(nbytes(x, x2, zi, k_t, *k_ys),
-                          len(hl) * c * n_out * 2 * taps
-                          + (0 if pre == "none" else
-                             x.numel() * (1 if pre == "square" else 2))))
+        for case in bank_cases:
+            bank_case(*case)
 
         # PLL: the band-passed pilot of this block from the locked state
-        def pll_case(label, x, st, div, **kw):
-            xs = torch.stack(x, 0) if isinstance(x, tuple) else x
-            lanes = xs.numel() // xs.shape[-1]
-            k = cuda_pll.pll_cuda(x, st, loop_div=div, **kw)
-            t_plain = time.perf_counter()
-            r = pll_loop(xs, st, loop_div=div, **kw)
-            torch.cuda.synchronize()
-            t_plain = (time.perf_counter() - t_plain) * 1e3
-            errs = {"nco_i": max_err(k[0], r[0]), "nco_q": max_err(k[1], r[1])}
-            tols = {"nco_i": TOL_NCO, "nco_q": TOL_NCO}
-            for name, a, b in zip(PLLState._fields, k[2], r[2]):
-                d = (a.double() - b.double()).abs()
-                if name in ("phase_est", "theta"):      # angles mod 4 pi
-                    d = torch.minimum(d % (4 * np.pi),
-                                      4 * np.pi - d % (4 * np.pi))
-                # the state has leaves called nco_i / nco_q too
-                errs[f"state.{name}"] = float(d.max())
-                tols[f"state.{name}"] = (TOL_PLL_INTEG if name == "integrator"
-                                         else TOL_PLL_STATE)
-            n = xs.shape[-1]
-            check("pll", f"f32 {label} = {lanes} lanes x {n}", errs, tols,
-                  loop_div=div,
-                  integrator_max_abs=float(r[2].integrator.abs().max()),
-                  kernel_ms=time_ms(lambda: cuda_pll.pll_cuda(
-                      x, st, loop_div=div, **kw)),
-                  plain_ms=t_plain, library_ms=None,
-                  **bound(nbytes(xs, k[0], k[1]) + 2 * 7 * 4 * lanes
-                          + 5 * 4 * lanes,
-                          lanes * n * (12 // div + 8)))
-
         b1 = (2, 1)
         sp, rp = cfg.stereo.pll, cfg.rds.pll
         kw2 = dict(
@@ -507,6 +593,279 @@ def main() -> int:
              nco_prev, raw, pre0, pre1, ni0, nq0, ni1, nq1, r_zi, r_rzi, k, r)
         torch.cuda.empty_cache()
 
+    # ---- 1b. kernel cases of the wideband and the mode-1 shapes
+    # One wideband capture from the synthesizer (host, once): five live
+    # slots of 16; capture 0 of a step is it, captures 1..7 the same band
+    # under their own +-2 LSB of uniform noise.
+    t_syn = time.perf_counter()
+    wb_stations = {slot: dict(kw) for slot, kw in WB_STATIONS.items()}
+    for slot, (_, rds) in WB_BAND.items():
+        if rds is not None:
+            wb_stations[slot]["rds_wave"] = rds_baseband(encode_rds_blocks(
+                ps_station_words(WB_BLOCKS + 4, *rds)))
+    wb_offsets = np.zeros(WB_K)
+    wb_offsets[WB_OFFSET_SLOT] = WB_OFFSET_HZ
+    wbs = WB_K * cfg.block_size
+    wb_host = wideband_capture_iq(
+        WB_BLOCKS * cfg.iq_len, WB_K, wb_stations, cfg.rf.fs, wb_offsets
+    ).reshape(WB_BLOCKS, wbs)
+    wb_dev = torch.as_tensor(wb_host).to(dev)
+    wb_blocks = []
+    for b in range(WB_BLOCKS):
+        rows = wb_dev[b].expand(WB_CAPTURES, -1).to(torch.int16)
+        noise = torch.randint(-2, 3, rows.shape, generator=gen, device=dev,
+                              dtype=torch.int16)
+        noise[0] = 0
+        wb_blocks.append((rows + noise).clamp_(0, 255).to(torch.uint8))
+    del rows, noise
+    emit({"wideband_synthesis": {
+        "seconds": round(time.perf_counter() - t_syn, 3), "slots": WB_K,
+        "blocks": WB_BLOCKS, "live_slots": sorted(WB_STATIONS),
+        "bytes_per_capture_block": wbs}})
+
+    h_proto = np.asarray(channelizer.channelizer_taps(WB_K, 16))
+    for offs in (None, wb_offsets):
+        g = channelizer.composed_rf_taps(WB_K, h_proto, rf_h, cfg.rf.decim,
+                                         offsets_hz=offs, fs_ch=cfg.rf.fs)
+        g_len = g.shape[1]
+        g_l1 = float(np.abs(g).sum(axis=1).max())
+        # yardstick: one conv1d over the normalized, de-interleaved input
+        w = np.empty((WB_K, 2, 2, g_len))
+        w[:, 0, 0], w[:, 0, 1] = g.real[:, ::-1], -g.imag[:, ::-1]
+        w[:, 1, 0], w[:, 1, 1] = g.imag[:, ::-1], g.real[:, ::-1]
+        w = torch.as_tensor(w.reshape(2 * WB_K, 2, g_len),
+                            dtype=torch.float32, device=dev)
+        d = cfg.rf.decim * WB_K
+        for ncap in (WB_CAPTURES, 1):
+            zi = channelizer.composed_zi_u8(g_len, (ncap,), dev)
+            for blk in range(2):        # block 1 reads block 0's byte tail
+                raw = wb_blocks[blk][:ncap].contiguous()
+                k_y, k_zi = channelizer.composed_channelize_u8(
+                    raw, g, zi, cfg.rf.decim)
+                r_y, r_zi = channelizer.composed_channelize_u8_ref(
+                    raw, g, zi, cfg.rf.decim, block=32)
+                errs = {"y": max_err(k_y, r_y),
+                        "new_zi_bytes_differing":
+                            float((k_zi != r_zi).sum())}
+                tols = {"y": TOL_K5_REL * g_l1, "new_zi_bytes_differing": 0.0}
+                timing = {}
+                if blk == 1:
+                    xn = ingestfir.normalize_deinterleave(
+                        torch.cat([zi, raw], dim=-1)).contiguous()
+                    lib = F.conv1d(xn, w, stride=d).reshape(k_y.shape)
+                    timing = dict(
+                        kernel_ms=time_ms(
+                            lambda: channelizer.composed_channelize_u8(
+                                raw, g, zi, cfg.rf.decim)),
+                        plain_ms=time_ms(
+                            lambda: channelizer.composed_channelize_u8_ref(
+                                raw, g, zi, cfg.rf.decim, block=32),
+                            reps=2, warm=0),
+                        library_ms=time_ms(
+                            lambda: F.conv1d(xn, w, stride=d)),
+                        library="torch.nn.functional.conv1d (cudnn."
+                                "allow_tf32=False), stride 10 K, weight "
+                                "(2 K, 2, L), on the normalized "
+                                "de-interleaved float input",
+                        library_rel_err_vs_plain=max_err(lib, r_y)
+                        / float(r_y.abs().max()),
+                        # 8 FLOP per tap and complex output
+                        **bound(nbytes(raw, zi, k_y, k_zi)
+                                + g.size * 8,
+                                8 * g_len * k_y.numel() // 2))
+                    del xn, lib
+                check("channelizer.composed",
+                      f"u8 ({ncap}, {raw.shape[-1]}), K = {WB_K}, "
+                      f"L = {g_len}", errs, tols, captures=ncap,
+                      offsets_in_taps=offs is not None, block=blk,
+                      sum_abs_g=g_l1, y_max_abs=float(r_y.abs().max()),
+                      **timing)
+                zi = k_zi
+        del w, k_y, r_y, k_zi, r_zi, raw
+        torch.cuda.empty_cache()
+
+    # MODE1 / MODE1_RDS: the receiver's own calls of the fm ingest entry
+    # (320,000-byte blocks) and of the mixer + resampler + RRC kernel
+    # (x57/250, 9,003 taps, 16,000 -> 3,648) in its second step, i.e. with
+    # real mid-stream states, repeated on the plain versions
+    m1_station = fm_multiplex_iq(
+        N_MODE1_RDS_STREAM_BLOCKS * MODE1.iq_len, MODE1.rf.fs,
+        rds_wave=rds_baseband(encode_rds_blocks(ps_station_words(
+            N_MODE1_RDS_STREAM_BLOCKS + 4, MODE1_PI, MODE1_PS)))
+    ).reshape(N_MODE1_RDS_STREAM_BLOCKS, MODE1.block_size)
+    m1_dev = torch.as_tensor(m1_station[:N_MODE1_BATCH_STEPS]).to(dev)
+
+    def m1_block(b: int, c: int = N_BATCH_CHANNELS) -> torch.Tensor:
+        """(c, 320000) u8: row 0 the station, the others under +-8 LSB."""
+        rows = m1_dev[b].expand(c, -1).to(torch.int16)
+        noise = torch.randint(-8, 9, rows.shape, generator=gen, device=dev,
+                              dtype=torch.int16)
+        noise[0] = 0
+        return (rows + noise).clamp_(0, 255).to(torch.uint8)
+
+    def calls_of(targets, run):
+        """Run ``run()`` with each (module, name) of ``targets`` wrapped so
+        that the arguments of every call are kept, by parameter name and
+        with the defaults filled in: name -> [arguments, ...]."""
+        seen = {}
+        saved = [(m, n, getattr(m, n)) for m, n in targets]
+
+        def keeping(n, f):
+            sig = inspect.signature(f)
+
+            def call(*a, **k):
+                args = sig.bind(*a, **k)
+                args.apply_defaults()
+                seen.setdefault(n, []).append(dict(args.arguments))
+                return f(*a, **k)
+            return call
+
+        try:
+            for m, n, f in saved:
+                setattr(m, n, keeping(n, f))
+            run()
+        finally:
+            for m, n, f in saved:
+                setattr(m, n, f)
+        return seen
+
+    # every place a receiver step reaches a kernel wrapper from
+    WRAPPERS = [(frontend_mod, "ingest_fir_demod"),
+                (cuda_fir, "fir_bank_carried"),
+                (audio_mod, "fir_bank_carried"),
+                (cuda_pll, "pll_cuda"),
+                (rds_mod, "resample_mul2_rrc")]
+
+    def third_step_calls(init, step, block):
+        """The wrappers' calls in the third step of a receiver: every
+        carried state is a mid-stream one, the loops are past acquiring."""
+        st = init()
+        for b in range(2):
+            st, _ = step(st, block(b))
+        return calls_of(WRAPPERS, lambda: step(st, block(2)))
+
+    def resample_case(a, n_rds_out, **extra):
+        k = cuda_resample.resample_mul2_rrc(**a)
+        r = cuda_resample.resample_mul2_rrc_ref(**a)
+        scale = float(r[0].abs().max())
+        x = a["extract"]
+        lanes = x.numel() // x.shape[-1]
+        check("resample_rrc", f"3 x f32 {shape_of(x)}",
+              {n: max_err(p, q) for n, p, q in
+               zip(("rrc", "new_zi", "new_rrc_zi"), k, r)},
+              {"rrc": TOL_RRC_REL * scale, "new_zi": TOL_STATE,
+               "new_rrc_zi": TOL_RRC_REL * scale},
+              block=2, up=a["up"], down=a["down"], taps=len(a["h"]),
+              rrc_max_abs=scale,
+              carried_zi_max_abs=float(a["zi"].abs().max()),
+              kernel_ms=time_ms(
+                  lambda: cuda_resample.resample_mul2_rrc(**a)),
+              plain_ms=time_ms(
+                  lambda: cuda_resample.resample_mul2_rrc_ref(**a),
+                  reps=2, warm=0),
+              library_ms=None,
+              **bound(nbytes(x, a["nco_i"], a["nco_q"], a["zi"],
+                             a["rrc_zi"], *k),
+                      lanes * 2 * n_rds_out * 2
+                      * (-(-len(a["h"]) // a["up"]) + len(a["rrc_h"]))
+                      + lanes * 2 * x.shape[-1] * 2),
+              **extra)
+
+    replayed = set()
+
+    def replay(seen, gate=None, **extra):
+        """Each distinct FIR-bank, PLL and resampler call among ``seen``
+        once more on the kernel and on its plain version."""
+        for a in seen.get("fir_bank_carried", []):
+            key = ("fir_bank", a["pre"], len(a["h_list"]), a["stride"],
+                   tuple(a["x"].shape))
+            if key not in replayed:
+                replayed.add(key)
+                bank_case(a["pre"], a["h_list"], a["stride"], a["x"],
+                          a["x2"], a["zi"], **extra)
+        for a in seen.get("pll_cuda", []):
+            a = dict(a)
+            x, st, div = a.pop("x"), a.pop("state"), a.pop("loop_div")
+            x0 = x[0] if isinstance(x, tuple) else x
+            label = "(" + ", ".join(map(str, x0.shape[:-1])) + ", N)"
+            if isinstance(x, tuple):
+                label = f"{len(x)} parts of {label}"
+            key = ("pll", label, x0.shape[-1], div)
+            if key not in replayed:
+                replayed.add(key)
+                pll_case(label, x, st, div, gate=gate, extra=extra, **a)
+        for a in seen.get("resample_mul2_rrc", []):
+            key = ("resample_rrc", tuple(a["extract"].shape), a["up"])
+            if key not in replayed:
+                replayed.add(key)
+                resample_case(
+                    a, a["extract"].shape[-1] * a["up"] // a["down"],
+                    **extra)
+
+    cfg1 = MODE1_RDS
+    comb1_h = composed_resampler_taps(cfg1)
+    for c in (N_BATCH_CHANNELS, 1):
+        rx = Receiver(cfg1, (c,), enable_frame=False)
+        seen = third_step_calls(rx.init, rx.step, lambda b: m1_block(b, c))
+        (fa,) = seen["ingest_fir_demod"]
+        fargs = tuple(fa.values())
+        k = ingestfir.ingest_fir_demod(*fargs)
+        r = ingestfir.ingest_fir_demod_ref(*fargs)
+        names = ("fm", "zi_i", "zi_q", "prev_i", "prev_q")
+        raw = fargs[0]
+        check("ingest.fm", f"u8 ({c}, {cfg1.block_size})",
+              {n: max_err(a, b) for n, a, b in zip(names, k, r)},
+              dict(zip(names, (TOL_FM,) + (TOL_STATE,) * 4)), mode=1,
+              kernel_ms=time_ms(lambda: ingestfir.ingest_fir_demod(*fargs)),
+              plain_ms=time_ms(lambda: ingestfir.ingest_fir_demod_ref(*fargs),
+                               reps=2, warm=0),
+              library_ms=None,
+              **bound(nbytes(raw, *fargs[2:6], *k),
+                      c * cfg1.if_len * (2 * 2 * taps + 8)))
+        (ra,) = seen["resample_mul2_rrc"]
+        assert (len(ra["h"]) == len(comb1_h) == 9003
+                and (ra["up"], ra["down"]) == (57, 250))
+        # the band-pass bank (3 filters) and the squared band-pass over
+        # 16,000 samples (a ragged last tile of the kernel's 1,024), the
+        # pilot + carrier loop pair, the x57/250 resampler
+        replay(seen, mode=1)
+        # the audio-only receiver: pilot + stereo band-passes (2 filters),
+        # the pilot loop alone
+        rx = Receiver(MODE1, (c,), enable_rds=False)
+        replay(third_step_calls(rx.init, rx.step, lambda b: m1_block(b, c)),
+               mode=1)
+        del rx, seen, fa, ra, fargs, k, r, raw
+        torch.cuda.empty_cache()
+
+    # the wideband receiver's own calls at 8 captures x 16 slots: after the
+    # composed channelizer (band-pass bank, mono low-pass at stride 5, the
+    # squared band-pass, the stereo mixer + low-pass, the loop pair, the
+    # resampler), and the RF low-pass at stride 10 that follows the
+    # two-stage channelizer.  A loop with no carrier to lock to wanders
+    # across its detector's +-pi seam, where two roundings of one angle
+    # legitimately part: the loop pair is held to its tolerance in the
+    # lanes that have a carrier (a pilot; an RDS subcarrier).
+    wb_gate = torch.zeros((2, WB_CAPTURES, WB_K), dtype=torch.bool,
+                          device=dev)
+    for slot, (kw, rds) in WB_BAND.items():
+        wb_gate[0, :, slot] = bool(kw.get("pilot_amp", 0.1))
+        wb_gate[1, :, slot] = rds is not None
+    for impl in ("composed", "pfb"):
+        w_init, w_step = make_wideband_receiver(
+            cfg, WB_K, (WB_CAPTURES,), channelizer_impl=impl,
+            channel_offsets_hz=wb_offsets, resync=True)
+        replay(third_step_calls(w_init, w_step, lambda b: wb_blocks[b]),
+               gate=wb_gate, path=f"wideband, {impl}")
+        del w_init, w_step
+        torch.cuda.empty_cache()
+    # the band scanner's own call: the RF low-pass at stride 10 over the
+    # two-stage channelizer's (16, 2, 153600) output of one capture
+    sc_init, sc_step = make_band_scanner(cfg, WB_K)
+    _, st = sc_step(sc_init(), wb_dev[0])
+    replay(calls_of(WRAPPERS, lambda: sc_step(st, wb_dev[1])), path="scan")
+    del st
+    torch.cuda.empty_cache()
+
     emit({"kernel_cases": cases, "card": card})
     torch.cuda.empty_cache()
 
@@ -540,11 +899,13 @@ def main() -> int:
     # ------------------------------------------------------- shared checks
     here = os.path.dirname(os.path.abspath(__file__))
 
-    def run_cli(iq_path, *flags):
+    def run_cli(iq_path, *flags, mode="0", cwd=here):
+        env = dict(os.environ)
+        env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
         with open(iq_path, "rb") as f:
             return subprocess.run(
-                [sys.executable, "-m", "rtsdr_tpu_torch.cli", "0", *flags],
-                stdin=f, capture_output=True, timeout=600, cwd=here)
+                [sys.executable, "-m", "rtsdr_tpu_torch.cli", mode, *flags],
+                stdin=f, capture_output=True, timeout=600, cwd=cwd, env=env)
 
     def tone_amplitudes(pcm):
         """Tone fits over all but the first block of int16 stereo bytes."""
@@ -568,7 +929,8 @@ def main() -> int:
     TONES_EXPECTED = {"mono": 0.88, "stereo": 0.83, "leak_below": 0.02,
                       "within": "10%"}
 
-    def stream_phase(n_blocks, rds: bool):
+    def stream_phase(n_blocks, rds: bool, cfg=cfg, station=station,
+                     mode="0", pi=STATION_PI, ps=STATION_PS):
         """``n_blocks`` of ``station`` through StreamRunner at C = 1 and
         through the CLI as a subprocess; returns the phase's report."""
         lines, chunks = [], []
@@ -589,8 +951,10 @@ def main() -> int:
                 stats = runner.run(f.fileno(), emit=chunks.append,
                                    rds_log=lines.append, frame_hook=hook)
                 stream_s = time.perf_counter() - t0
-            cli = run_cli(iq_path, *(("--rds-groups",) if rds
-                                     else ("--no-rds",)))
+            flags = ("--rds-groups",) if rds else ("--no-rds",)
+            if rds and mode == "1":
+                flags += ("--rds",)
+            cli = run_cli(iq_path, *flags, mode=mode)
         pcm = b"".join(chunks)
         expect_bytes = n_blocks * n_audio * 4
         if stats["blocks"] != n_blocks or len(pcm) != expect_bytes:
@@ -622,19 +986,20 @@ def main() -> int:
                 "groups": len(dec.groups),
                 "decoded_pi": None if dec.pi is None else f"0x{dec.pi:04X}",
                 "decoded_ps": dec.ps_name,
-                "encoded_pi": f"0x{STATION_PI:04X}",
-                "encoded_ps": STATION_PS,
+                "encoded_pi": f"0x{pi:04X}",
+                "encoded_ps": ps,
                 "cli_stderr_lines_identical": summary_at,
                 "cli_summary": cli_lines[summary_at:]})
         return report
 
-    def batch_phase(rxb, rx1, n_steps):
+    def batch_phase(rxb, rx1, n_steps, block_fn=batch_block):
         """Step ``rxb`` (1024 channels) and its C = 1 twin on row 0."""
+        cfg = rxb.cfg
         st_b, st_1 = rxb.init(), rx1.init()
         step_ms, row0_err, finite, peak, twin = [], 0.0, True, 0, []
         frames_equal = True
         for b in range(n_steps):
-            raw = batch_block(b)
+            raw = block_fn(b)
             torch.cuda.synchronize()
             # peak while stepping: state, this block's input and outputs,
             # the step's intermediates (not the scratch the input was made
@@ -875,12 +1240,290 @@ def main() -> int:
     # ============================== end of the fuse_if_bank path
     emit({"fuse_if_bank": fuse_rows, "card": card})
 
+    # ======================= 5. wideband: 16 slots x 8 captures per step
+    import wave as wave_mod
+
+    def tone(x, hz):
+        t = np.arange(x.shape[-1]) / cfg.audio_fs
+        return 2.0 * float(np.hypot(np.mean(x * np.sin(2 * np.pi * hz * t)),
+                                    np.mean(x * np.cos(2 * np.pi * hz * t))))
+
+    wb_kw = dict(channel_offsets_hz=wb_offsets, resync=True)
+    live = sorted(WB_STATIONS)
+    empty = [c for c in range(WB_K) if c not in live]
+
+    # outside the counted window: the composed front door against the
+    # two-stage one on the same bytes, two blocks from the zero state
+    def first_blocks(impl):
+        init, step = make_wideband_receiver(
+            cfg, WB_K, (WB_CAPTURES,), channelizer_impl=impl, **wb_kw)
+        st, outs = init(), []
+        for b in range(2):
+            st, out = step(st, wb_blocks[b])
+            outs.append(torch.stack([out.left, out.right, out.mono]))
+        torch.cuda.synchronize()
+        return outs
+
+    _cuda.reset_launch_counts()
+    pfb_outs = first_blocks("pfb")
+    pfb_counts = _cuda.launch_counts()
+    comp_outs = first_blocks("composed")
+    # (block, L/R/mono, capture, slot): the largest |difference| over time.
+    # Gated: mono in both blocks, and L / R in block 1 of the slots that
+    # carry a pilot.  A pilot loop whose phase error passes the detector's
+    # +-pi seam takes either side on a difference of one rounding: while it
+    # acquires from the zero state (block 0) and for ever where there is no
+    # pilot to lock to (the mono-only carrier); those L / R are reported.
+    wb_diff = torch.stack([(a - b).abs().amax(dim=-1)
+                           for a, b in zip(comp_outs, pfb_outs)])
+    piloted = [c for c in live if WB_STATIONS[c].get("pilot_amp", 0.1)]
+    wb_vs_pfb = max(float(wb_diff[:, 2][:, :, live].max()),
+                    float(wb_diff[1, :2][:, :, piloted].max()))
+    wb_vs_pfb_block0_lr = float(wb_diff[0, :2][:, :, live].max())
+    wb_vs_pfb_empty = float(wb_diff[:, :, :, empty].max())
+    wb_vs_pfb_by_slot = [float(x) for x in wb_diff.amax(dim=(0, 1, 2))]
+    del pfb_outs, comp_outs
+    torch.cuda.empty_cache()
+
+    wb_init, wb_step = make_wideband_receiver(cfg, WB_K, (WB_CAPTURES,),
+                                              **wb_kw)
+    wb1_init, wb1_step = make_wideband_receiver(cfg, WB_K, **wb_kw)
+    # ==================== the wideband path: counts from 0 here
+    _cuda.reset_launch_counts()
+    st_b, st_1 = wb_init(), wb1_init()
+    wb_ms, wb_peak, wb_row0, wb_finite = [], 0, 0.0, True
+    wb_left, wb_right = [], []
+    decs = [GroupDecoder() for _ in range(WB_K)]
+    for b in range(WB_BLOCKS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        st_b, out_b = wb_step(st_b, wb_blocks[b])
+        torch.cuda.synchronize()
+        wb_ms.append((time.perf_counter() - t0) * 1e3)
+        wb_peak = max(wb_peak, torch.cuda.max_memory_allocated())
+        st_1, out_1 = wb1_step(st_1, wb_dev[b])
+        for a, r in ((out_b.left, out_1.left), (out_b.right, out_1.right)):
+            if tuple(a.shape) != (WB_CAPTURES, WB_K, n_audio):
+                raise SystemExit(f"chip_smoke: wideband output {a.shape}")
+            wb_finite = wb_finite and bool(torch.isfinite(a).all())
+            wb_row0 = max(wb_row0, max_err(a[0], r))
+        for name, a, r in zip(out_b.rds._fields, out_b.rds, out_1.rds):
+            if not a.dtype.is_floating_point and not torch.equal(a[0], r):
+                raise SystemExit(f"chip_smoke: wideband frame output {name} "
+                                 "of capture 0 differs from its twin's")
+        wb_left.append(out_1.left.cpu().numpy())
+        wb_right.append(out_1.right.cpu().numpy())
+        fo = type(out_1.rds)(*(x.cpu().numpy() for x in out_1.rds))
+        for c in range(WB_K):
+            decs[c].feed(type(fo)(*(leaf[c] for leaf in fo)))
+    wb_counts = expect_counts(
+        "wideband", 2 * WB_BLOCKS,
+        {"channelizer.composed": 1, "fir_bank.none": 2, "fir_bank.square": 1,
+         "fir_bank.mul2": 1, "pll": 1, "resample_rrc": 1})
+    # ============================== end of the wideband path
+    left = np.concatenate(wb_left, axis=-1)[:, n_audio:]      # (K, T)
+    right = np.concatenate(wb_right, axis=-1)[:, n_audio:]
+    tones, tones_ok = {}, True
+    for c in live:
+        kw = WB_STATIONS[c]
+        got = {"mono_in_L+R": tone(left[c] + right[c], kw["mono_hz"]),
+               "stereo_in_L-R": tone(left[c] - right[c], kw["stereo_hz"])}
+        # the default station's amplitudes, scaled by this station's
+        want = {"mono_in_L+R": 0.88 * kw.get("mono_amp", 0.45) / 0.45,
+                "stereo_in_L-R": 0.83 * kw.get("stereo_amp", 0.45) / 0.45}
+        tones[c] = {"measured": got, "expected": want}
+        tones_ok = tones_ok and all(
+            abs(got[n] - want[n]) < (0.1 * want[n] or 0.02) for n in got)
+    # an empty slot is not silent (FM demodulation is amplitude-blind and
+    # it demodulates noise), but no live station's tone stands in it
+    stray = max(tone(left[c], WB_STATIONS[s]["mono_hz"])
+                for c in empty for s in live)
+    wb_steady = statistics.median(wb_ms[1:])
+    dec = decs[WB_RDS_SLOT]
+    rep_wb = {
+        "slots": WB_K, "captures": WB_CAPTURES, "blocks": WB_BLOCKS,
+        "stations_per_step": WB_K * WB_CAPTURES, "live_slots": live,
+        "offset_slot": WB_OFFSET_SLOT, "offset_hz": WB_OFFSET_HZ,
+        "finite": wb_finite, "tone_amplitudes": tones,
+        "tones_within": "10% of expected (0.02 where none is expected)",
+        "max_live_tone_in_an_empty_slot_left": stray,
+        "empty_slot_limit": 0.15,
+        "capture0_max_abs_err_vs_single_capture": wb_row0,
+        "capture0_tolerance": TOL_ROW0,
+        "composed_vs_pfb_audio_max_abs_err_live_slots": wb_vs_pfb,
+        "composed_vs_pfb_compared": "mono of blocks 0 and 1 in the live "
+                                    "slots, left / right of block 1 in "
+                                    f"slots {piloted} (pilot loops locked)",
+        "composed_vs_pfb_tolerance": TOL_WB_AUDIO,
+        "composed_vs_pfb_audio_max_abs_err_empty_slots": wb_vs_pfb_empty,
+        "composed_vs_pfb_by_slot": wb_vs_pfb_by_slot,
+        "composed_vs_pfb_block0_left_right_live_slots": wb_vs_pfb_block0_lr,
+        "pfb_launches_two_steps": pfb_counts,
+        "decoded_pi": None if dec.pi is None else f"0x{dec.pi:04X}",
+        "decoded_ps": dec.ps_name, "encoded_pi": f"0x{WB_PI:04X}",
+        "encoded_ps": WB_PS, "groups_in_rds_slot": len(dec.groups),
+        "groups_in_empty_slots": sum(len(decs[c].groups) for c in empty),
+        "decoded_pi_by_slot": {
+            c: None if decs[c].pi is None else f"0x{decs[c].pi:04X}"
+            for c in live},
+        "step_ms": wb_ms, "ms_per_step_median": wb_steady,
+        "stations_x_realtime": WB_K * WB_CAPTURES * 64.0 / wb_steady,
+        "max_memory_allocated_bytes": wb_peak, "launches": wb_counts}
+    if (not wb_finite or not tones_ok or stray >= 0.15
+            or not wb_row0 <= TOL_ROW0 or not wb_vs_pfb <= TOL_WB_AUDIO
+            or dec.pi != WB_PI or dec.ps_name != WB_PS
+            or any(decs[c].pi != (rds[0] if rds else None)
+                   for c, (_, rds) in WB_BAND.items())
+            or rep_wb["groups_in_empty_slots"]
+            or pfb_counts != {"fir_bank.none": 6, "fir_bank.square": 2,
+                              "fir_bank.mul2": 2, "pll": 2,
+                              "resample_rrc": 2}):
+        raise SystemExit(f"chip_smoke: wideband outputs wrong: {rep_wb}")
+
+    # the same capture through the CLI: channel<k>.wav per slot, the bytes
+    # of the single-capture run above
+    center = (f"{(WB_OFFSET_SLOT * cfg.rf.fs + WB_OFFSET_HZ) / 1e6:.2f}M")
+    with tempfile.TemporaryDirectory() as tmp:
+        iq_path = os.path.join(tmp, "band.iq")
+        wb_host.tofile(iq_path)
+        cli = run_cli(iq_path, "--wideband", str(WB_K),
+                      f"--wideband-centers={center}", "--rds-groups", cwd=tmp)
+        cli_err = cli.stderr.decode().splitlines()
+        wavs_equal = cli.returncode == 0
+        for c in range(WB_K):
+            want = runtime.emit_int16_interleave(
+                np.concatenate(wb_left, axis=-1)[c],
+                np.concatenate(wb_right, axis=-1)[c], 32767.0).tobytes()
+            path = os.path.join(tmp, f"channel{c}.wav")
+            if not wavs_equal or not os.path.exists(path):
+                wavs_equal = False
+                break
+            with wave_mod.open(path, "rb") as wv:
+                wavs_equal = wavs_equal and wv.readframes(
+                    wv.getnframes()) == want
+    rep_wb["cli"] = {
+        "returncode": cli.returncode, "wav_files": WB_K,
+        "wav_bytes_identical": wavs_equal, "wideband_centers": center,
+        "summary": [ln for ln in cli_err
+                    if ln.startswith((f"[ch{WB_RDS_SLOT}] RDS: PI=",
+                                      "processed ", "wideband channel"))]}
+    if (not wavs_equal or not any(
+            ln.startswith(f"[ch{WB_RDS_SLOT}] RDS: PI=0x{WB_PI:04X}")
+            and f"PS='{WB_PS}'" in ln for ln in cli_err)):
+        raise SystemExit("chip_smoke: the wideband CLI run failed or its wav "
+                         f"files differ: {rep_wb['cli']} "
+                         f"{cli.stderr.decode()[-2000:]}")
+    emit({"wideband": rep_wb, "card": card})
+    del wb_step, wb1_step, st_b, st_1, out_b, out_1
+    torch.cuda.empty_cache()
+
+    # ================================== 6. the band scanner
+    sc_init, sc_step = make_band_scanner(cfg, WB_K)
+    sc_step(sc_init(), wb_dev[0])                        # warm-up
+    torch.cuda.synchronize()
+    # ==================== the scan path: counts from 0 here
+    _cuda.reset_launch_counts()
+    st, acc, sc_ms = sc_init(), [], []
+    for b in range(N_SCAN_BLOCKS):
+        t0 = time.perf_counter()
+        m, st = sc_step(st, wb_dev[b])
+        torch.cuda.synchronize()
+        sc_ms.append((time.perf_counter() - t0) * 1e3)
+        if b > 0:
+            acc.append([x.cpu().numpy() for x in m])
+    scan_counts = expect_counts("scan", N_SCAN_BLOCKS, {"fir_bank.none": 1})
+    # ============================== end of the scan path
+    mean = type(m)(*(np.mean(np.stack(xs), axis=0) for xs in zip(*acc)))
+    verdicts = classify(mean)
+    want_verdicts = ["empty"] * WB_K
+    for c, (_, rds) in WB_BAND.items():
+        want_verdicts[c] = "station+stereo+rds" if rds else "station"
+    # the scanner mixes no offset out: the station 150 kHz off its slot's
+    # center is found, whatever of its pilot survives the RF low-pass
+    verdicts_ok = all(
+        v.startswith("station") if c == WB_OFFSET_SLOT else v == w
+        for c, (v, w) in enumerate(zip(verdicts, want_verdicts)))
+    with tempfile.TemporaryDirectory() as tmp:
+        iq_path = os.path.join(tmp, "band.iq")
+        wb_host[:N_SCAN_BLOCKS + 2].tofile(iq_path)
+        cli = run_cli(iq_path, "--wideband", str(WB_K), "--auto", "--no-rds",
+                      cwd=tmp)
+        table = cli.stdout.decode().splitlines()
+        cli_err = cli.stderr.decode().splitlines()
+        wavs = sorted(f for f in os.listdir(tmp) if f.endswith(".wav"))
+    rep_scan = {
+        "slots": WB_K, "blocks": N_SCAN_BLOCKS, "verdicts": verdicts,
+        "synthesized": want_verdicts,
+        "rssi_db": [float(x) for x in mean.rssi_db],
+        "pilot_snr_db": [float(x) for x in mean.pilot_snr_db],
+        "rds_snr_db": [float(x) for x in mean.rds_snr_db],
+        "step_ms": sc_ms, "launches": scan_counts,
+        "cli_auto": {"returncode": cli.returncode,
+                     "verdicts": [ln.split()[-1] for ln in table[1:]],
+                     "stderr": cli_err, "wav_files": wavs}}
+    if (not verdicts_ok or cli.returncode != 0
+            or rep_scan["cli_auto"]["verdicts"] != verdicts
+            or wavs != sorted(f"channel{c}.wav" for c in live)
+            or cli_err[:1] != [f"auto: {len(live)}/{WB_K} slots active after "
+                               "3-block scan; decoding those"]):
+        raise SystemExit(f"chip_smoke: band scan wrong: {rep_scan}")
+    emit({"scan": rep_scan, "card": card})
+    del wb_blocks, wb_dev
+    torch.cuda.empty_cache()
+
+    # ================================== 7. mode 1 and MODE1_RDS
+    rx1m = Receiver(MODE1, ())
+    st = rx1m.init()
+    for b in range(2):                                   # warm-up
+        st, _ = rx1m.step(st, torch.as_tensor(m1_station[b]).to(dev))
+    torch.cuda.synchronize()
+    # ==================== the mode-1 audio path: counts from 0 here
+    _cuda.reset_launch_counts()
+    rep_m1 = stream_phase(N_MODE1_STREAM_BLOCKS, rds=False, cfg=MODE1,
+                          station=m1_station, mode="1")
+    m1_counts = expect_counts(
+        "mode 1", N_MODE1_STREAM_BLOCKS,
+        {"ingest.fm": 1, "fir_bank.none": 1, "pll": 1})
+    # ============================== end of the mode-1 audio path
+    rep_m1["launches"] = m1_counts
+    emit({"mode1_stream": rep_m1, "card": card})
+
+    rx1r = Receiver(cfg1, ())
+    rxbr = Receiver(cfg1, (N_BATCH_CHANNELS,))
+    rxbr.step(rxbr.init(), m1_block(0))                  # warm-up
+    torch.cuda.synchronize()
+    # ==================== the MODE1_RDS path: counts from 0 here
+    _cuda.reset_launch_counts()
+    rep_m1r = stream_phase(N_MODE1_RDS_STREAM_BLOCKS, rds=True, cfg=cfg1,
+                           station=m1_station, mode="1", pi=MODE1_PI,
+                           ps=MODE1_PS)
+    rep_m1b, _, _ = batch_phase(rxbr, rx1r, N_MODE1_BATCH_STEPS,
+                                block_fn=m1_block)
+    m1r_counts = expect_counts(
+        "MODE1_RDS", N_MODE1_RDS_STREAM_BLOCKS + 2 * N_MODE1_BATCH_STEPS,
+        {"ingest.fm": 1, "fir_bank.none": 1, "fir_bank.square": 1, "pll": 1,
+         "resample_rrc": 1})
+    # ============================== end of the MODE1_RDS path
+    rep_m1r["launches"] = m1r_counts
+    emit({"mode1_rds_stream": rep_m1r, "card": card})
+    if (rep_m1r["rds_syncs"] < 24
+            or rep_m1r["rds_false_positives"] > MAX_STREAM_FALSE_POSITIVES
+            or rep_m1r["decoded_pi"] != rep_m1r["encoded_pi"]
+            or rep_m1r["decoded_ps"] != MODE1_PS):
+        raise SystemExit(f"chip_smoke: the mode-1 stream's RDS decode is "
+                         f"off: {rep_m1r}")
+    emit({"mode1_rds_batch": rep_m1b, "card": card})
+    del rxbr, rx1r
+
     # -------------------------------------------------- the kernels line
     # name -> (source, the TPU kernel it replaces, launches in the window
     # of the main path that runs it)
     meta = {
         "ingest.fm_audio": ("rtsdr_tpu_torch/csrc/ingest.cu",
                             "rtsdr_tpu/ops/ingestfir.py:257", rds_counts),
+        "ingest.fm": ("rtsdr_tpu_torch/csrc/ingest.cu",
+                      "rtsdr_tpu/ops/ingestfir.py:190", m1r_counts),
         "ingest.fm_audio_bank": ("rtsdr_tpu_torch/csrc/ingest.cu",
                                  "rtsdr_tpu/ops/ingestfir.py:257",
                                  fuse_counts),
@@ -894,24 +1537,38 @@ def main() -> int:
                 "rtsdr_tpu/ops/pallas_pll.py:82", rds_counts),
         "resample_rrc": ("rtsdr_tpu_torch/csrc/resample_rrc.cu",
                          "rtsdr_tpu/ops/pallas_fir.py:479", rds_counts),
+        "channelizer.composed": ("rtsdr_tpu_torch/csrc/channelizer.cu",
+                                 "rtsdr_tpu/ops/channelizer.py:304",
+                                 wb_counts),
     }
     # the case that has the receiver's own configuration of the kernel at
     # the batch path's shape (C = 1024)
     pick = {
         "ingest.fm_audio": lambda r: r["emit_fm"],
+        # the mode-1 receivers' front end: 320,000-byte blocks
+        "ingest.fm": lambda r: r.get("mode") == 1,
         "ingest.fm_audio_bank": lambda r: not r["emit_fm"],
         "fir_bank.none": lambda r: r["filters"] == 3,
         "pll": lambda r: r["shape"].startswith("f32 2 parts"),
         "resample_rrc": lambda r: r["block"] == 1,
+        # the wideband receiver's own call: 8 captures, the offset folded
+        # into the taps, mid-stream byte tail
+        "channelizer.composed": lambda r: (
+            r["captures"] == WB_CAPTURES and r["offsets_in_taps"]
+            and r["block"] == 1),
     }
+    at_width = {"channelizer.composed": f"u8 ({WB_CAPTURES},"}
     rows = []
     for name, (source, replaces, counts) in meta.items():
         case = next(r for r in cases if r["name"] == name
-                    and f"({N_BATCH_CHANNELS}," in r["shape"]
+                    and at_width.get(name, f"({N_BATCH_CHANNELS},")
+                    in r["shape"]
                     and pick.get(name, lambda r: True)(r))
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": counts[name],
                      "launches_audio_path": audio_counts.get(name, 0),
+                     "launches_wideband_path": wb_counts.get(name, 0),
+                     "launches_mode1_rds_path": m1r_counts.get(name, 0),
                      "shape": case["shape"],
                      "max_abs_err": case["max_abs_err"],
                      "ms": case["kernel_ms"], "plain_ms": case["plain_ms"],

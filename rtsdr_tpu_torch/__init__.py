@@ -4,11 +4,13 @@ Same layout and function names as the JAX package, which stays in the
 repository as the reference; this package imports ``torch`` and ``numpy``
 and nothing of ``jax`` or ``rtsdr_tpu``.
 
-Ported so far: the full mode-0 receiver (uint8 I/Q -> front end -> mono +
-stereo -> int16; RDS DSP -> bit layer -> decoded groups), with four
-hand-written CUDA kernels (``csrc/ingest.cu``, ``csrc/fir_bank.cu``,
-``csrc/pll.cu``, ``csrc/resample_rrc.cu``) built at first use and bound
-through ``ctypes`` (``ops/_cuda.py``).
+Ported so far: the receiver in modes 0 and 1 (uint8 I/Q -> front end ->
+mono + stereo -> int16; RDS DSP -> bit layer -> decoded groups), the
+wideband receiver (one capture at K x the RF rate -> K stations) and the
+band scanner, with five hand-written CUDA kernels (``csrc/ingest.cu``,
+``csrc/fir_bank.cu``, ``csrc/pll.cu``, ``csrc/resample_rrc.cu``,
+``csrc/channelizer.cu``) built at first use and bound through ``ctypes``
+(``ops/_cuda.py``).
 
 Every ``*_init``, ``make_*`` and ``Receiver`` takes an explicit ``device``
 whose default is ``"cuda"``; nothing falls back to the CPU by itself.  A
@@ -17,9 +19,10 @@ CPU tests exercise); given a CUDA tensor it launches the kernel or raises.
 
 Package layout:
   config    — frozen mode tables
-  ops       — coeffs, FIR, discriminator, IIR, PLL + the CUDA kernel wrappers
-  pipeline  — frontend, audio, rds, frame, groups, receiver (NamedTuple
-              states, JAX field names)
+  ops       — coeffs, FIR, discriminator, IIR, PLL, channelizer, PSD + the
+              CUDA kernel wrappers
+  pipeline  — frontend, audio, rds, frame, groups, receiver, wideband, scan
+              (NamedTuple states, JAX field names)
   io        — host streaming loops, wav / raw file I/O
   runtime   — native prefetching block reader + int16 emitter (ctypes)
   utils     — signal generators, state conversion

@@ -27,7 +27,8 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("ingest.cu", "fir_bank.cu", "pll.cu", "resample_rrc.cu")
+SOURCES = ("ingest.cu", "fir_bank.cu", "pll.cu", "resample_rrc.cu",
+           "channelizer.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -58,6 +59,8 @@ _ARGTYPES = {
     # e, nco_i, nco_q, h, zi, rrc_h, rrc_zi, y, rrc_zi_out, C, N, M, taps,
     # up, down, rrc_taps, lane_stride, gain, stream
     "rtsdr_resample_rrc": [_P] * 9 + [_I] * 8 + [_F, _P],
+    # raw, zi, g (taps, K, 2), y, zi_out, B, n_pairs, K, taps, d, stream
+    "rtsdr_channelize_composed": [_P] * 5 + [_I] * 5 + [_P],
 }
 
 #: launches per kernel entry since the last ``reset_launch_counts``

@@ -165,6 +165,43 @@ def _resample_boundary_index(t1: int, up: int, down: int
     return np.clip(kz, 0, t1), valid
 
 
+_derived: dict = {}
+
+
+def derived_from(taps, key, build):
+    """What ``build()`` derives from the host tap array ``taps`` (matrices
+    on a device, say), made once per (array, key).  Entries go by the
+    array's identity and hold the array, so its id cannot pass to another
+    array while the entry lives; tap arrays are not modified once used."""
+    entry = _derived.get(id(taps))
+    if entry is None or entry[0] is not taps:
+        if len(_derived) > 16:
+            _derived.clear()
+        entry = _derived[id(taps)] = (taps, {})
+    hit = entry[1].get(key)
+    if hit is None:
+        hit = entry[1][key] = build()
+    return hit
+
+
+def _resample_matrices(h: np.ndarray, up: int, down: int, dtype, device):
+    """(block outputs b, window stride, window lead g, phase-banded matrix
+    (span, b), boundary matrix (taps-1, nb)) of the x-domain resampler."""
+    t1 = len(h) - 1
+    b = up * max(1, 192 // up)   # a multiple of up: blocks start at phase 0
+    g = -(-t1 // up)
+    span = (b - 1) * down // up + g + 1
+    # output r of a block reads window sample t with tap r*down + (g-t)*up
+    k = (np.arange(b)[None, :] * down
+         + (g - np.arange(span)[:, None]) * up)
+    h_mat = np.where((k >= 0) & (k <= t1), h[np.clip(k, 0, t1)], 0.0)
+    kz, valid = _resample_boundary_index(t1, up, down)
+    hz = np.where(valid, h[kz], 0.0).T
+    return (b, b * down // up, g,
+            torch.as_tensor(h_mat, dtype=dtype).to(device),
+            torch.as_tensor(hz, dtype=dtype).to(device))
+
+
 def fir_resample(x: torch.Tensor, h, zi: torch.Tensor, up: int, down: int,
                  gain: float | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -176,10 +213,17 @@ def fir_resample(x: torch.Tensor, h, zi: torch.Tensor, up: int, down: int,
 
     ``up == 1`` is a decimating FIR (the FIR-bank kernel on a CUDA tensor).
     ``up > 1`` has no kernel of its own in either package (the reference
-    leaves it to the compiler): it is the explicit pipeline
-    ``y[m] = gain * sum_k h[k] * uext[m*down + taps-1-k]``, ``uext = [zi |
-    zero-stuff(x)]``, in stock tensor ops on the input's device — the plain
-    version the fused mixer + resampler + RRC kernel
+    leaves it to its compiler): stock tensor ops on the input's device, in
+    the x domain, so that nothing upsampled is ever made.  With
+    ``uext = [zi | zero-stuff(x)]``,
+
+        y[m] = gain * sum_k h[k] * uext[m*down + taps-1-k]
+             = gain * (sum_i h[m*down - i*up] * x[i]  +  zi boundary terms):
+
+    windows of x against a phase-banded matrix (only the ~taps/up taps that
+    meet a sample), plus a small dense product for the first
+    ceil((taps-1)/down) outputs, which also read the carried ``zi``.  It is
+    the plain version the fused mixer + resampler + RRC kernel
     (``ops/cuda_resample.py``) is held against.
     """
     if gain is None:
@@ -193,8 +237,24 @@ def fir_resample(x: torch.Tensor, h, zi: torch.Tensor, up: int, down: int,
     if (n * up) % down:
         raise ValueError(
             f"fir_resample: {n} samples x{up} do not divide by {down}")
-    taps = len(h)
-    u = torch.nn.functional.pad(x[..., None], (0, up - 1))
-    uext = torch.cat([zi, u.reshape(*x.shape[:-1], n * up)], dim=-1)
-    y = _conv1d_valid(uext, h, stride=down)
-    return y * gain, uext[..., -(taps - 1):].contiguous()
+    t1 = len(h) - 1
+    m_total = n * up // down
+    b, stride_x, g, h_mat, hz = derived_from(
+        h, ("resample", up, down, x.dtype, str(x.device)),
+        lambda: _resample_matrices(_h64(h), up, down, x.dtype, x.device))
+    nblk = -(-m_total // b)
+    span = h_mat.shape[0]
+    right = max(0, (nblk - 1) * stride_x + span - g - n)
+    windows = torch.nn.functional.pad(x, (g, right)).unfold(
+        -1, span, stride_x)[..., :nblk, :]
+    y = torch.matmul(windows, h_mat).reshape(*x.shape[:-1], nblk * b)
+    y = y[..., :m_total].contiguous()
+    nb = min(hz.shape[1], m_total)
+    y[..., :nb] += torch.matmul(zi, hz[:, :nb])
+    if n * up >= t1:
+        new_zi = _upsampled_tail_of(x, t1, up)
+    else:   # a block shorter than the tail keeps part of the old one
+        u = torch.nn.functional.pad(x[..., None], (0, up - 1))
+        new_zi = torch.cat([zi, u.reshape(*x.shape[:-1], n * up)],
+                           dim=-1)[..., -t1:]
+    return y * gain, new_zi.contiguous()

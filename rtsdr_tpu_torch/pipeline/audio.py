@@ -8,9 +8,9 @@ Counterpart of ``rtsdr_tpu/pipeline/audio.py``, following the golden model
           channel BPF 22-54 kHz -> mixer (x NCO x 2) -> LPF 16 kHz +
           decimate -> L = (mono+stereo)/2, R = (mono-stereo)/2
 
-Mode 1 (x24/125 audio resampler, ``ops.fir.fir_resample`` with ``up > 1``)
-is held against the reference and opened on the command line in a later
-slice.
+  mode 1: mono and the mixed stereo channel go through one stacked x24/125
+          rational resampler (``ops.fir.fir_resample`` with ``up > 1``:
+          stock tensor ops, as the reference leaves it to its compiler).
 """
 
 from __future__ import annotations

@@ -106,7 +106,11 @@ def make_receiver(
     multi-station use case).
 
     ``step_fn(state, raw_u8)``: raw_u8 is (..., block_size) interleaved
-    uint8 IQ on ``device``.
+    uint8 IQ on ``device`` — or, with ``frontend_impl='iq'``, float
+    (..., 2, iq_len) stacked I/Q (the wideband channelizer's per-channel
+    output), with ``'if'`` float (..., 2, if_len) already filtered and
+    decimated (the composed channelizer's).  Both take the unfused audio
+    route: front end, then the stages below as separate launches.
 
     ``pll_loop_div``: run the PLL loop-filter recurrence every N-th sample
     with bandwidth-preserving gains (NCO still full-rate); not

@@ -2,11 +2,12 @@
 
 The system has no learned weights; what a running receiver holds is its
 carried state.  A state exported from the JAX package (its
-``ReceiverState`` mapped with ``np.asarray``: a nested NamedTuple / None
-tree of numpy arrays) becomes the port's ``ReceiverState`` field by field,
-dtype kept, and back — so both receivers can continue one stream from the
-same mid-stream state.  Matching is by field NAME, so the source tree may
-be any NamedTuple (or mapping) with the same fields.
+``ReceiverState``, ``WidebandState`` or ``ScanState`` mapped with
+``np.asarray``: a nested NamedTuple / None tree of numpy arrays) becomes
+the port's state of the same name field by field, dtype kept, and back — so
+both packages can continue one stream from the same mid-stream state.
+Matching is by field NAME, so the source tree may be any NamedTuple (or
+mapping) with the same fields.
 """
 
 from __future__ import annotations
@@ -20,9 +21,12 @@ from rtsdr_tpu_torch.pipeline.frame import FrameState
 from rtsdr_tpu_torch.pipeline.frontend import FrontendState
 from rtsdr_tpu_torch.pipeline.rds import RDSState
 from rtsdr_tpu_torch.pipeline.receiver import ReceiverState
+from rtsdr_tpu_torch.pipeline.scan import ScanState
+from rtsdr_tpu_torch.pipeline.wideband import WidebandState
 
 _NESTED = {"frontend": FrontendState, "audio": AudioState, "pll": PLLState,
-           "rds": RDSState, "frame": FrameState}
+           "rds": RDSState, "frame": FrameState, "rx": ReceiverState,
+           "fe": FrontendState}
 
 
 def _fields(tree) -> dict:
@@ -50,10 +54,16 @@ def _build(cls, tree, device):
     return cls(**out)
 
 
-def state_from_numpy(tree, device="cuda") -> ReceiverState:
-    """A ``ReceiverState``-shaped tree of numpy arrays -> the port's
-    ``ReceiverState`` on ``device`` (dtypes kept, data copied)."""
-    return _build(ReceiverState, tree, torch.device(device))
+def state_from_numpy(tree, device="cuda"):
+    """A tree of numpy arrays shaped like a ``ReceiverState``, a
+    ``WidebandState`` or a ``ScanState`` -> the port's state of that kind
+    on ``device`` (dtypes kept, data copied).  The kind is told by the
+    tree's top-level field names."""
+    names = set(_fields(tree))
+    for cls in (WidebandState, ScanState, ReceiverState):
+        if names == set(cls._fields):
+            return _build(cls, tree, torch.device(device))
+    raise ValueError(f"state_from_numpy: no state has fields {sorted(names)}")
 
 
 def state_to_numpy(state):

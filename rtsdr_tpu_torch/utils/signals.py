@@ -1,8 +1,10 @@
 """Test-signal generators (reference src/genfunc.cpp:13-41, used for kernel
 bring-up in the labs) plus an FM multiplex synthesizer for end-to-end
 self-test without recorded captures (own copy of
-``rtsdr_tpu/utils/signals.py``), and an RDS encoder + pulse shaper so the
-synthetic station can carry known groups."""
+``rtsdr_tpu/utils/signals.py``), an RDS encoder + pulse shaper so the
+synthetic station can carry known groups, and a wideband-capture
+synthesizer (K such stations side by side in one capture at K x the RF
+rate) for the channelizer, the wideband receiver and the band scanner."""
 
 from __future__ import annotations
 
@@ -31,9 +33,9 @@ def random_samples(n: int, max_value: float = 10.0, seed: int = 0) -> np.ndarray
     return rng.uniform(-max_value, max_value, n)
 
 
-def fm_multiplex_iq(
+def _multiplex_phase(
     n_pairs: int,
-    rf_fs: float = 2.4e6,
+    rf_fs: float,
     mono_hz: float = 1.1e3,
     stereo_hz: float = 2.3e3,
     pilot_amp: float = 0.1,
@@ -43,16 +45,13 @@ def fm_multiplex_iq(
     pilot_phase: float = 0.0,
     rds_wave: np.ndarray | None = None,
     rds_amp: float = 0.25,
+    pilot_hz: float = 19e3,
 ) -> np.ndarray:
-    """Interleaved uint8 IQ of a synthetic FM stereo station.
-
-    multiplex = mono tone + 19 kHz pilot + (L-R tone) DSB-SC on 38 kHz
-                + optional RDS wave DSB-SC on 57 kHz (3rd pilot harmonic).
-    ``rds_wave``: baseband at 57 kS/s (from ``rds_baseband``), resampled
-    here to the RF-rate grid.
-    """
+    """Carrier phase (radians, float64) of a synthetic FM stereo station
+    sampled at ``rf_fs``: the integral of the multiplex times the
+    deviation."""
     t = np.arange(n_pairs) / rf_fs
-    pilot_arg = 2 * np.pi * 19e3 * t + pilot_phase
+    pilot_arg = 2 * np.pi * pilot_hz * t + pilot_phase
     m = (mono_amp * np.sin(2 * np.pi * mono_hz * t)
          + pilot_amp * np.cos(pilot_arg)
          + stereo_amp * np.sin(2 * np.pi * stereo_hz * t) * np.cos(2 * pilot_arg))
@@ -62,11 +61,71 @@ def fm_multiplex_iq(
         t57 = np.arange(len(rds_wave)) / 57e3
         rds_rf = np.interp(t, t57, rds_wave, left=0.0, right=0.0)
         m = m + rds_amp * rds_rf * np.cos(3 * pilot_arg)
-    phase = 2 * np.pi * deviation * np.cumsum(m) / rf_fs
+    return 2 * np.pi * deviation * np.cumsum(m) / rf_fs
+
+
+def fm_multiplex_iq(n_pairs: int, rf_fs: float = 2.4e6, **station
+                    ) -> np.ndarray:
+    """Interleaved uint8 IQ of a synthetic FM stereo station.
+
+    multiplex = mono tone + 19 kHz pilot + (L-R tone) DSB-SC on 38 kHz
+                + optional RDS wave DSB-SC on 57 kHz (3rd pilot harmonic).
+    ``station``: ``mono_hz`` (1.1e3), ``stereo_hz`` (2.3e3), ``pilot_amp``
+    (0.1), ``mono_amp`` (0.45), ``stereo_amp`` (0.45), ``deviation`` (75e3),
+    ``pilot_phase`` (0), ``pilot_hz`` (19e3), ``rds_wave`` (baseband at
+    57 kS/s from ``rds_baseband``, resampled here to the RF-rate grid) and
+    ``rds_amp`` (0.25).
+    """
+    phase = _multiplex_phase(n_pairs, rf_fs, **station)
     iq = np.empty(2 * n_pairs)
     iq[0::2] = np.cos(phase)
     iq[1::2] = np.sin(phase)
     return np.clip(np.round(iq * 100.0 + 128.0), 0, 255).astype(np.uint8)
+
+
+def wideband_multiplex(n_pairs: int, n_channels: int, stations: dict,
+                       rf_fs: float = 2.4e6, offsets_hz=None) -> np.ndarray:
+    """Complex baseband (complex128, ``n_channels * n_pairs`` samples at
+    ``fs_w = n_channels * rf_fs``) of one wideband capture: the sum of
+    unit-amplitude FM stations, each synthesized directly at the wide rate
+    with its carrier at its slot's center ``slot * fs_w / n_channels`` plus
+    ``offsets_hz[slot]`` (a station off its slot's center, as on a real
+    100 kHz raster).
+
+    ``stations``: {slot: keyword arguments of ``fm_multiplex_iq``};
+    ``n_pairs``: IQ pairs per station-rate stream (``blocks * cfg.iq_len``).
+    """
+    k = n_channels
+    fs_w = k * rf_fs
+    n = np.arange(k * n_pairs)
+    wide = np.zeros(k * n_pairs, np.complex128)
+    for slot, station in stations.items():
+        off = 0.0 if offsets_hz is None else float(offsets_hz[slot])
+        # the slot centers are whole cycles per K samples: reduce the
+        # carrier's sample index mod K before scaling, so that its angle
+        # keeps full precision over long captures
+        carrier = (2 * np.pi * slot / k) * (n % k) + (2 * np.pi * off / fs_w) * n
+        wide += np.exp(1j * (_multiplex_phase(k * n_pairs, fs_w, **station)
+                             + carrier))
+    return wide
+
+
+def quantize_iq_u8(x: np.ndarray) -> np.ndarray:
+    """Complex samples -> interleaved uint8 IQ: scaled down (never up) to a
+    peak of 0.95 of full scale, then round(128 * x + 128)."""
+    x = x / max(1.0, np.abs(x).max() / 0.95)
+    raw = np.empty(2 * len(x))
+    raw[0::2] = x.real
+    raw[1::2] = x.imag
+    return np.clip(np.round(raw * 128 + 128), 0, 255).astype(np.uint8)
+
+
+def wideband_capture_iq(n_pairs: int, n_channels: int, stations: dict,
+                        rf_fs: float = 2.4e6, offsets_hz=None) -> np.ndarray:
+    """Interleaved uint8 IQ of a wideband capture (``2 * n_channels *
+    n_pairs`` bytes): ``quantize_iq_u8(wideband_multiplex(...))``."""
+    return quantize_iq_u8(wideband_multiplex(n_pairs, n_channels, stations,
+                                             rf_fs, offsets_hz))
 
 
 # standard RDS CRC generator g(x) = x^10+x^8+x^7+x^5+x^4+x^3+1 and the

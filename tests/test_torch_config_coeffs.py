@@ -99,3 +99,44 @@ def test_ps_station_words_decode_to_their_name():
         _push_group(dec, *words[4 * g:4 * g + 4], 104 * g)
     assert dec.pi == 0x3A5C and dec.ps_name == "H100 FM "
     assert dec.ta == 1 and dec.ms == 1
+
+
+def test_wideband_synthesizer_places_stations(rng):
+    """``wideband_multiplex``: each station is its narrow-band multiplex at
+    its slot's center plus its offset.  Mixed back down and decimated by K,
+    slot 1's stream equals the station synthesized alone at the station
+    rate (same formula sampled K times finer: equal where the grids meet,
+    up to the finer rectangle rule of the phase integral)."""
+    from rtsdr_tpu_torch.utils import signals as tsig
+
+    k, n = 4, 6000
+    off = [0.0, 150e3, 0.0, 0.0]
+    wide = tsig.wideband_multiplex(n, k, {1: dict(mono_hz=900.0)}, 2.4e6, off)
+    assert wide.shape == (k * n,) and wide.dtype == np.complex128
+    np.testing.assert_allclose(np.abs(wide), 1.0, atol=1e-12)
+    idx = np.arange(k * n)
+    base = wide * np.exp(-2j * np.pi * (2.4e6 + 150e3) * idx / (k * 2.4e6))
+    alone = tsig._multiplex_phase(n, 2.4e6, mono_hz=900.0)
+    err = np.angle(base[::k] * np.exp(-1j * alone))
+    # a constant lag of part of a sample, no drift
+    assert np.ptp(err) < 0.2 and abs(err[-1] - err[n // 2]) < 0.2
+    two = tsig.wideband_multiplex(n, k, {1: {}, 3: dict(mono_hz=700.0)})
+    assert 1.5 < np.abs(two).max() <= 2.0
+    raw = tsig.quantize_iq_u8(two)
+    assert raw.dtype == np.uint8 and raw.shape == (2 * k * n,)
+    assert 0.9 * 128 < raw.astype(int).max() - 128 <= 0.95 * 128 + 1
+    assert np.array_equal(raw, tsig.wideband_capture_iq(
+        n, k, {1: {}, 3: dict(mono_hz=700.0)}))
+    # scaled down only, never up
+    quiet = tsig.quantize_iq_u8(0.25 * two[:100] / np.abs(two[:100]).max())
+    assert np.abs(quiet.astype(int) - 128).max() <= 33
+
+
+def test_multiplex_pilot_hz_equals_oracle():
+    import oracles
+    from rtsdr_tpu_torch.utils import signals as tsig
+
+    assert np.array_equal(
+        tsig.fm_multiplex_iq(4000, 2.5e6, pilot_hz=19.3e3, mono_amp=0.9),
+        oracles.synth_multiplex_iq(4000, rf_fs=2.5e6, pilot_hz=19.3e3,
+                                   mono_amp=0.9))

@@ -271,3 +271,54 @@ def test_frontend_auto_is_fused_in_any_dtype(monkeypatch):
         fm, _ = fe(tfrontend.frontend_init(MODE0, (), dtype, "cpu"), raw)
         assert fm.dtype == dtype
     assert seen == [torch.float32, torch.float64]
+
+
+# --------------------------------------- the wideband receiver's routes
+
+def test_frontend_iq_on_a_device_tensor_reaches_the_fir_kernel(launches):
+    """'iq' (float I/Q from the channelizer): the RF low-pass is the
+    FIR-bank kernel at stride 10 for a CUDA tensor, float64 raises; 'if'
+    has no FIR at all."""
+    from rtsdr_tpu_torch.pipeline import frontend as tfrontend
+
+    fe = make_frontend(MODE0, impl="iq", device="cpu")
+    st = tfrontend.frontend_init(MODE0, (3,), device="cpu")
+    fm, _ = fe(st, on_card((3, 2, 400), torch.float32))
+    assert launches == ["rtsdr_fir_bank"] and tuple(fm.shape) == (3, 40)
+    with pytest.raises(TypeError, match="float32"):
+        fe(st, on_card((3, 2, 400), torch.float64))
+    assert launches == ["rtsdr_fir_bank"]
+    fe = make_frontend(MODE0, impl="if", device="cpu")
+    fm, new = fe(st, torch.ones((3, 2, 40)))
+    assert launches == ["rtsdr_fir_bank"] and tuple(fm.shape) == (3, 40)
+    assert new.zi_i is st.zi_i
+
+
+@pytest.mark.parametrize("impl,first", [("composed", "composed"),
+                                        ("pfb", "pfb")])
+def test_wideband_route_is_chosen_by_arguments_alone(monkeypatch, impl,
+                                                     first):
+    """``channelizer_impl`` decides the front door and ``frontend_impl``
+    follows it ('if' behind the composed kernel, 'iq' behind the two-stage
+    channelizer); the dtype or the channel count decide nothing."""
+    from rtsdr_tpu_torch.pipeline import wideband as twb
+
+    seen = []
+    for name in ("composed_channelize_u8", "pfb_channelize_u8"):
+        inner = getattr(twb, name)
+        monkeypatch.setattr(
+            twb, name, lambda *a, _n=name, _f=inner, **k: (
+                seen.append(_n.split("_")[0]), _f(*a, **k))[1])
+    made = []
+    inner_rx = twb.make_receiver
+    monkeypatch.setattr(
+        twb, "make_receiver", lambda *a, **k: (
+            made.append(k["frontend_impl"]), inner_rx(*a, **k))[1])
+    init, step = twb.make_wideband_receiver(
+        MODE0, 2, enable_rds=False, enable_stereo=False,
+        channelizer_impl=impl, device="cpu")
+    raw = torch.full((2 * MODE0.block_size,), 128, dtype=torch.uint8)
+    _, out = step(init(), raw)
+    assert seen == [first]
+    assert made == ["if" if impl == "composed" else "iq"]
+    assert tuple(out.mono.shape) == (2, MODE0.audio_len)

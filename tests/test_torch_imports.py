@@ -33,7 +33,8 @@ def test_files_found():
     names = {p.name for p in FILES}
     assert {"chip_smoke.py", "receiver.py", "ingestfir.py", "cuda_fir.py",
             "cuda_pll.py", "cli.py", "cuda_resample.py", "rds.py", "frame.py",
-            "groups.py"} <= names
+            "groups.py", "channelizer.py", "psd.py", "wideband.py",
+            "scan.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -45,7 +46,8 @@ def test_no_jax_import_in_source(path):
 
 def test_cuda_sources_present():
     names = {p.name for p in (PKG / "csrc").iterdir()}
-    assert {"ingest.cu", "fir_bank.cu", "pll.cu", "resample_rrc.cu"} <= names
+    assert {"ingest.cu", "fir_bank.cu", "pll.cu", "resample_rrc.cu",
+            "channelizer.cu"} <= names
 
 
 def test_every_cuda_source_is_built_and_packaged():
@@ -63,7 +65,8 @@ def test_every_cuda_source_is_built_and_packaged():
         entries |= set(re.findall(r'extern "C" int (rtsdr_\w+)\(',
                                   (PKG / "csrc" / name).read_text()))
     assert entries == set(_cuda._ARGTYPES)
-    assert {"rtsdr_resample_rrc", "rtsdr_ingest_fm_audio_bank"} <= entries
+    assert {"rtsdr_resample_rrc", "rtsdr_ingest_fm_audio_bank",
+            "rtsdr_channelize_composed"} <= entries
     assert '"rtsdr_tpu_torch.csrc" = ["*.cu"' in \
         (ROOT / "pyproject.toml").read_text()
 
@@ -75,9 +78,11 @@ sys.modules['triton'] = None          # importing it would raise
 import rtsdr_tpu_torch
 for m in ('config', 'device', 'cli', 'ops', 'ops.coeffs', 'ops.fir',
           'ops.demod', 'ops.iir', 'ops.pll', 'ops._cuda', 'ops.cuda_fir',
-          'ops.cuda_pll', 'ops.cuda_resample', 'ops.ingestfir', 'pipeline',
+          'ops.cuda_pll', 'ops.cuda_resample', 'ops.ingestfir',
+          'ops.channelizer', 'ops.psd', 'pipeline',
           'pipeline.frontend', 'pipeline.audio', 'pipeline.rds',
-          'pipeline.frame', 'pipeline.groups', 'pipeline.receiver', 'io',
+          'pipeline.frame', 'pipeline.groups', 'pipeline.receiver',
+          'pipeline.wideband', 'pipeline.scan', 'io',
           'io.stream',
           'io.batch', 'io.staging', 'io.wav', 'io.binio', 'runtime', 'utils',
           'utils.signals', 'utils.convert'):
@@ -92,3 +97,21 @@ print('OK')
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("OK")
+
+
+def test_profile_tool_imports_nothing_of_jax():
+    path = ROOT / "tools" / "torch_profile_step.py"
+    bad = [(mod, line) for mod, line in _imported_roots(path)
+           if mod in FORBIDDEN]
+    assert not bad, f"{path}: forbidden imports {bad}"
+
+
+def test_kernel_notes_name_what_they_replace():
+    """Each CUDA source says which TPU kernel it replaces and what bounds
+    it on the card."""
+    for name in (PKG / "csrc").glob("*.cu"):
+        text = name.read_text()
+        assert "Replaces the Pallas kernel" in text, name
+        assert "Bound on an H100" in text, name
+    assert "rtsdr_tpu/ops/channelizer.py::_composed_kernel" in \
+        (PKG / "csrc" / "channelizer.cu").read_text()

@@ -219,20 +219,27 @@ def test_cli_default_device_without_gpu_names_the_gpu():
     assert res.stdout == b""
 
 
-PORTED_FLAGS = {"--rds-groups": [], "--clock": ["hold"], "--derotate": []}
+PORTED_FLAGS = {"--rds-groups": [], "--clock": ["hold"], "--derotate": [],
+                "--rds": []}
 
 
 @pytest.mark.parametrize("flag", ["--rds-groups", "--wideband", "--clock",
-                                  "--scan", "--derotate", "--rds"])
+                                  "--scan", "--derotate", "--rds",
+                                  "--channels", "--time-shards"])
 def test_cli_unported_flags_are_absent(flag):
-    """Flags of later slices (wideband, scan, mode-1 RDS) are a usage
-    error; the RDS flags of this slice are accepted (empty stdin: 0
-    blocks)."""
+    """Every flag of the reference's CLI is accepted (empty stdin: 0
+    blocks); ``--wideband`` without its K and flags the reference does not
+    have are a usage error; ``--scan`` without ``--wideband`` is refused
+    with the reference's words."""
     res = _cli(["0", "--no-rds", "--device", "cpu", flag,
                 *PORTED_FLAGS.get(flag, [])])
     if flag in PORTED_FLAGS:
         assert res.returncode == 0, res.stderr.decode()
         assert b"processed 0 blocks" in res.stderr
+    elif flag == "--scan":
+        assert res.returncode == 1
+        assert res.stderr.decode().splitlines() == [
+            "error: --scan requires --wideband K"]
     else:
         assert res.returncode == 2                   # argparse usage error
         assert (b"unrecognized arguments" in res.stderr
@@ -240,7 +247,12 @@ def test_cli_unported_flags_are_absent(flag):
 
 
 def test_cli_mode_1_is_rejected():
+    """Modes 0 and 1 exist (mode 1 on an empty stdin: 0 blocks); any other
+    mode is a usage error."""
     res = _cli(["1", "--no-rds", "--device", "cpu"])
+    assert res.returncode == 0, res.stderr.decode()
+    assert b"processed 0 blocks" in res.stderr
+    res = _cli(["2", "--no-rds", "--device", "cpu"])
     assert res.returncode == 2
 
 
@@ -381,3 +393,108 @@ def test_cli_stations_with_rds(rds_capture, tmp_path):
     assert f"[{a}] RDS: PI=0x{PI_CODE:04X} PTY=Rock" in "\n".join(err)
     with wave.open(str(a) + ".wav", "rb") as w:
         assert w.getnframes() == 4 * MODE0.audio_len
+
+
+# --------------------------------------------------------------- wideband
+
+WB_K, WB_BLOCKS = 2, 5
+
+
+@pytest.fixture(scope="module")
+def wideband_capture(tmp_path_factory):
+    """K = 2: slot 0 empty, slot 1 an RDS station 150 kHz off its center."""
+    path = tmp_path_factory.mktemp("iq") / "band.iq"
+    words = signals.ps_station_words(30, PI_CODE, PS_NAME)
+    wave = signals.rds_baseband(signals.encode_rds_blocks(words))
+    signals.wideband_capture_iq(
+        WB_BLOCKS * MODE0.iq_len, WB_K, {1: dict(rds_wave=wave)},
+        MODE0.rf.fs, [0.0, 150e3]).tofile(path)
+    return path
+
+
+def _cli_in(cwd, args, stdin_path, module):
+    env = dict(os.environ, PYTHONPATH=str(ROOT), JAX_PLATFORMS="cpu")
+    with open(stdin_path, "rb") as f:
+        return subprocess.run(
+            [sys.executable, "-m", module, *args], stdin=f,
+            capture_output=True, cwd=cwd, env=env, timeout=900)
+
+
+def _wav_pcm(path):
+    with wave.open(str(path), "rb") as w:
+        assert (w.getnchannels(), w.getframerate()) == (2, 48000)
+        return np.frombuffer(w.readframes(w.getnframes()),
+                             np.int16).astype(np.int32)
+
+
+def test_cli_wideband_decode_equals_jax_cli(wideband_capture, tmp_path):
+    """``--wideband 2 --wideband-centers ... --rds-groups``: one
+    channel<k>.wav per slot within 1 LSB of the JAX CLI's, and the same
+    stderr lines ([chN]-tagged events and groups, the block summary, the
+    per-station summaries)."""
+    args = ["0", "--wideband", str(WB_K), "--wideband-centers=-2.25M",
+            "--rds-groups"]
+    dirs = {}
+    for name, module, extra in (("ours", "rtsdr_tpu_torch.cli",
+                                 ["--device", "cpu"]),
+                                ("theirs", "rtsdr_tpu.cli", [])):
+        cwd = tmp_path / name
+        cwd.mkdir()
+        res = _cli_in(cwd, args + extra, wideband_capture, module)
+        assert res.returncode == 0, res.stderr.decode()
+        assert res.stdout == b""
+        dirs[name] = (cwd, [ln for ln in res.stderr.decode().splitlines()
+                            if not _XLA_LOG.match(ln)])
+    (ours_dir, ours), (theirs_dir, theirs) = dirs["ours"], dirs["theirs"]
+    # slot 1 sits at -2.4M (wrapped): -2.25M is 150 kHz above its center
+    assert ours[0] == "wideband channel centers (Hz): +0M -2.25M"
+    # the empty slot demodulates noise, where two float32 routes part and
+    # chance syndromes differ: the station's slot and the untagged lines
+    # are compared
+    keep = lambda lines: [ln for ln in lines if not ln.startswith("[ch0]")
+                          and not ln.startswith("processed ")]
+    assert keep(ours) == keep(theirs)
+    assert sum(ln.startswith("[ch1] Syndrome ") for ln in ours) >= 8
+    assert any(ln.startswith(f"[ch1] Group 0A PI=0x{PI_CODE:04X}")
+               for ln in ours)
+    assert any(ln.startswith(f"processed {WB_BLOCKS} wideband blocks x "
+                             f"{WB_K} channels, ") for ln in ours)
+    assert any(ln.startswith(f"[ch1] RDS: PI=0x{PI_CODE:04X}")
+               for ln in ours)
+    for c in range(WB_K):
+        a = _wav_pcm(ours_dir / f"channel{c}.wav")
+        b = _wav_pcm(theirs_dir / f"channel{c}.wav")
+        assert a.shape == b.shape == (WB_BLOCKS * MODE0.audio_len * 2,)
+        if c == 1:      # the empty slot demodulates noise: not compared
+            # (wavs are written at full scale 32767: 2e-4 is 7 LSB)
+            assert int(np.max(np.abs(a - b))) <= 8
+            assert int(np.max(np.abs(a))) > 8000
+
+
+def test_cli_wideband_auto_scans_then_decodes_active_slots(wideband_capture,
+                                                           tmp_path):
+    res = _cli_in(tmp_path, ["0", "--wideband", str(WB_K), "--auto",
+                             "--no-rds", "--device", "cpu"],
+                  wideband_capture, "rtsdr_tpu_torch.cli")
+    assert res.returncode == 0, res.stderr.decode()
+    table = res.stdout.decode().splitlines()
+    assert len(table) == 1 + WB_K
+    assert table[1].split()[-1] == "empty"
+    # 150 kHz off its center and not mixed out: the scanner still sees it
+    assert table[2].split()[-1].startswith("station")
+    err = res.stderr.decode().splitlines()
+    assert err[0] == (f"auto: 1/{WB_K} slots active after 3-block scan; "
+                      "decoding those")
+    assert err[-1] == (f"processed {WB_BLOCKS - 3} wideband blocks x {WB_K} "
+                       "channels, 0 RDS events")
+    assert not (tmp_path / "channel0.wav").exists()
+    assert _wav_pcm(tmp_path / "channel1.wav").size == \
+        (WB_BLOCKS - 3) * MODE0.audio_len * 2
+
+
+def test_cli_wideband_centers_errors_exit_1(tmp_path):
+    res = _cli(["0", "--wideband", "4", "--wideband-centers", "2.3M,2.5M",
+                "--device", "cpu"])
+    assert res.returncode == 1
+    assert res.stderr.decode().startswith("error: 2.5M and 2.3M both map to "
+                                          "channel 1 (+2.4M)")

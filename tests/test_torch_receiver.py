@@ -365,6 +365,15 @@ def test_default_device_needs_a_gpu():
 
 
 def test_unported_frontends_name_their_slice():
-    with pytest.raises(NotImplementedError, match="wideband"):
-        trx.make_receiver(MODE0, enable_rds=False, frontend_impl="iq",
+    """Every front end of the reference is ported: 'iq' and 'if' (float
+    I/Q from the channelizer) build and take the unfused audio route; a
+    name that is none of them raises."""
+    for impl, n in (("iq", MODE0.iq_len), ("if", MODE0.if_len)):
+        init, step = trx.make_receiver(MODE0, enable_rds=False,
+                                       frontend_impl=impl, pll_loop_div=8,
+                                       device="cpu")
+        _, out = step(init(), torch.zeros((2, n)))
+        assert tuple(out.left.shape) == (MODE0.audio_len,)
+    with pytest.raises(ValueError, match="unknown frontend impl"):
+        trx.make_receiver(MODE0, enable_rds=False, frontend_impl="wide",
                           device="cpu")

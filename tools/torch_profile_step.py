@@ -2,13 +2,18 @@
 """Where one step of the port's receiver spends its device time.
 
     python3 tools/torch_profile_step.py [--channels 1024] [--steps 4]
+        [--mode {0,1,1rds}] [--wideband K --captures B]
         [--no-rds] [--no-frame] [--resync] [--fuse-if-bank]
 
-Runs ``rtsdr_tpu_torch``'s ``Receiver(MODE0, (C,))`` (the full mode-0 step:
-audio + RDS DSP + bit layer; ``--no-rds`` the audio step alone,
-``--no-frame`` without the bit layer, ``--resync`` with the bit layer's
-window-by-window sync walk, ``--fuse-if-bank`` with the band-pass bank
-inside the ingest kernel) on
+Runs ``rtsdr_tpu_torch``'s ``Receiver(cfg, (C,))`` (``--mode 0``, the
+default: the full mode-0 step, audio + RDS DSP + bit layer; ``--mode 1``:
+MODE1, audio through the x24/125 resampler; ``--mode 1rds``: MODE1_RDS;
+``--no-rds`` the audio step alone, ``--no-frame`` without the bit layer,
+``--resync`` with the bit layer's window-by-window sync walk,
+``--fuse-if-bank`` with the band-pass bank inside the ingest kernel) — or,
+with ``--wideband K --captures B``, ``make_wideband_receiver(cfg, K, (B,))``
+(B captures at K x the RF rate per step, K x B stations; five live slots in
+16, the rest empty) — on
 the GPU over noisy synthetic FM stations that carry RDS and traces
 ``--steps`` steady steps
 with ``torch.profiler`` (CPU + CUDA activities), after timing as many
@@ -31,13 +36,17 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from rtsdr_tpu_torch.config import MODE0  # noqa: E402
+from rtsdr_tpu_torch.config import MODE0, MODE1, MODE1_RDS  # noqa: E402
 from rtsdr_tpu_torch.pipeline.receiver import Receiver  # noqa: E402
+from rtsdr_tpu_torch.pipeline.wideband import (  # noqa: E402
+    make_wideband_receiver,
+)
 from rtsdr_tpu_torch.utils.signals import (  # noqa: E402
     encode_rds_blocks,
     fm_multiplex_iq,
     ps_station_words,
     rds_baseband,
+    wideband_capture_iq,
 )
 
 
@@ -46,6 +55,10 @@ def main() -> int:
     ap.add_argument("--channels", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mode", choices=("0", "1", "1rds"), default="0")
+    ap.add_argument("--wideband", type=int, default=None, metavar="K")
+    ap.add_argument("--captures", type=int, default=8, metavar="B",
+                    help="with --wideband: captures per step")
     ap.add_argument("--no-rds", action="store_true")
     ap.add_argument("--no-frame", action="store_true")
     ap.add_argument("--resync", action="store_true")
@@ -61,46 +74,67 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip()
-    cfg = MODE0
-    c = args.channels
+    cfg = {"0": MODE0, "1": MODE1, "1rds": MODE1_RDS}[args.mode]
     n_blocks = 2 + 2 * args.steps
-    rows = np.stack([
-        fm_multiplex_iq(n_blocks * cfg.iq_len, mono_hz=700.0 + 130.0 * k,
-                        stereo_hz=1500.0 + 210.0 * k, pilot_phase=0.37 * k,
-                        rds_wave=rds_baseband(encode_rds_blocks(
-                            ps_station_words(n_blocks + 4, 0x3A5C + k,
-                                             f"STN {k:02d}  ")))
-                        ).reshape(n_blocks, cfg.block_size)
-        for k in range(min(c, 8))], axis=1)                # (blocks, 8, B)
+
+    def station(k):
+        """Keyword arguments of station number k's multiplex."""
+        return dict(mono_hz=700.0 + 130.0 * k, stereo_hz=1500.0 + 210.0 * k,
+                    pilot_phase=0.37 * k,
+                    rds_wave=rds_baseband(encode_rds_blocks(ps_station_words(
+                        n_blocks + 4, 0x3A5C + k, f"STN {k:02d}  "))))
+
+    kwargs = dict(enable_frame=not args.no_frame, resync=args.resync,
+                  fuse_if_bank=args.fuse_if_bank)
+    if args.no_rds or cfg.rds is None:
+        kwargs["enable_rds"] = False
+    if args.wideband:
+        # every K-th-of-three slot live, the rest empty; captures after the
+        # first are the same band under their own noise
+        k_w, c = args.wideband, args.captures
+        rows = wideband_capture_iq(
+            n_blocks * cfg.iq_len, k_w,
+            {slot: station(slot) for slot in range(1, k_w, 3)}, cfg.rf.fs
+        ).reshape(n_blocks, 1, k_w * cfg.block_size)
+        amp = 2
+        init_fn, step_fn = make_wideband_receiver(cfg, k_w, (c,), **kwargs)
+        shape = {"wideband_slots": k_w, "captures": c, "channels": k_w * c}
+    else:
+        c = args.channels
+        rows = np.stack([
+            fm_multiplex_iq(n_blocks * cfg.iq_len, cfg.rf.fs, **station(k)
+                            ).reshape(n_blocks, cfg.block_size)
+            for k in range(min(c, 8))], axis=1)            # (blocks, 8, B)
+        amp = 8
+        rx = Receiver(cfg, (c,), **kwargs)
+        init_fn, step_fn = rx.init, rx.step
+        shape = {"channels": c}
     rows = torch.as_tensor(rows).to(dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
 
     def block(b):
         x = rows[b].repeat(-(-c // rows.shape[1]), 1)[:c].to(torch.int16)
-        x += torch.randint(-8, 9, x.shape, generator=gen, device=dev,
+        x += torch.randint(-amp, amp + 1, x.shape, generator=gen, device=dev,
                            dtype=torch.int16)
         return x.clamp_(0, 255).to(torch.uint8)
 
-    kwargs = dict(enable_rds=not args.no_rds, enable_frame=not args.no_frame,
-                  resync=args.resync, fuse_if_bank=args.fuse_if_bank)
-    rx = Receiver(cfg, (c,), **kwargs)
-    state = rx.init()
+    state = init_fn()
     for b in range(2):                                     # warm-up
-        state, _ = rx.step(state, block(b))
+        state, _ = step_fn(state, block(b))
     blocks = [block(2 + b) for b in range(2 * args.steps)]
     torch.cuda.synchronize()
 
     # host clock over steady steps, without the profiler ...
     t0 = time.perf_counter()
     for raw in blocks[:args.steps]:
-        state, out = rx.step(state, raw)
+        state, out = step_fn(state, raw)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     # ... then the same number of steps traced
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for raw in blocks[args.steps:]:
-            state, out = rx.step(state, raw)
+            state, out = step_fn(state, raw)
         torch.cuda.synchronize()
 
     def dev_us(e):
@@ -118,7 +152,7 @@ def main() -> int:
                               "calls_per_step": e.count / args.steps}
     busy_ms = sum(k["ms_per_step"] for k in kernels.values())
     launches = sum(k["calls_per_step"] for k in kernels.values())
-    result = {"card": card, "channels": c, "steps": args.steps,
+    result = {"card": card, "mode": args.mode, **shape, "steps": args.steps,
               "receiver": kwargs, "wall_ms_per_step": wall_ms / args.steps,
               "device_launches_per_step": launches}
     if not kernels:
