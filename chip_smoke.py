@@ -13,12 +13,16 @@ git-ignored ``rtsdr_tpu_torch/build``), then
      call of the third step of the MODE1 / MODE1_RDS receivers (320,000-byte
      blocks, 16,000 IF samples, the x57/250 resampler with its 9,003 taps),
      of the wideband receiver at 8 captures x 16 slots, and of the band
-     scanner, with the receiver's own arguments) and holds the result
+     scanner, with the receiver's own arguments; the time-sharded
+     receiver's calls of the mixer + resampler kernel K6 in its third step
+     at T = 1 (1,024 x 15,360) and T = 4 (4 x 1,024 stacked rows of 3,840,
+     both instances; MODE1_RDS: 4 x 1,024 x 4,000 at x57/250) and of the
+     ingest kernel's iq entry in its segmented form) and holds the result
      against its plain PyTorch version on the same inputs, within the
      stated tolerance; times the kernel (CUDA events, median),
-     the plain version, and for the FIR bank one
-     ``torch.nn.functional.conv1d`` call as a yardstick that the port itself
-     never uses; computes the least time the card could need;
+     the plain version, and for the FIR bank and the ingest kernel's iq
+     entry one ``torch.nn.functional.conv1d`` call as a yardstick that the
+     port itself never uses; computes the least time the card could need;
   2. the audio path (``enable_rds=False``), counted on its own:
      ``stream_audio`` (4 blocks through ``StreamRunner`` at C = 1 and once
      more through ``python -m rtsdr_tpu_torch.cli 0 --no-rds``, identical
@@ -50,11 +54,34 @@ git-ignored ``rtsdr_tpu_torch/build``), then
   6. ``scan`` — ``make_band_scanner(MODE0, 16)`` over 3 blocks, verdicts
      equal to what was synthesized, and ``--wideband 16 --auto`` through
      the CLI, counted on its own;
-  7. ``mode1`` — ``StreamRunner(MODE1)`` at C = 1 and the CLI's mode 1
+  7. ``channels`` — ``make_channel_sharded_receiver`` (1,024 stations) and
+     ``make_wideband_sharded_receiver`` (16 slots) on a one-card mesh, each
+     equal to its unsharded receiver bit for bit over 2 steps (outputs and
+     state), counted on its own; then ``measure_scaling(device_counts=[1])``;
+  8. ``mode1`` — ``StreamRunner(MODE1)`` at C = 1 and the CLI's mode 1
      (identical bytes, tones right), then MODE1_RDS: a stream at C = 1 that
      must decode its PI / PS, and 1024 channels with row 0 equal to its
      C = 1 twin; each counted on its own;
-  8. for each counted window the launch counts, set to 0 just before, must
+  9. ``timeshard`` — ``make_time_sharded_receiver(MODE0, make_mesh(1, T),
+     C)``, stereo + RDS + frame, counted on its own: C = 1 with the
+     ``exact`` handoff at T = 1, 2, 4, 8 (6 blocks of the RDS station;
+     audio and frame outputs against the serial receiver's on the card),
+     ``stale`` and ``iterate`` at T = 4 (left-channel SNR against the serial
+     receiver from block 1 on above 38 / 60 dB, syncs in the last two
+     blocks), ``iterate`` with ``pll_loop_div=4`` on a pilot 60 Hz off
+     (SNR above 60 dB against the serial receiver with the same
+     ``pll_loop_div``), and 1,024 channels at T = 1 and 2 (4 steps, against
+     the serial receiver: audio in all rows and symbols in the noiseless
+     row 0 at the exact tolerances; symbols in the rows under noise within
+     twice what a witness parts by, the serial receiver with its
+     discriminator in stock ops, and T = 2 against T = 1 in every row at
+     the exact tolerance); ms per block of each beside the serial
+     receiver's;
+     ``timeshard_mode1_rds`` — MODE1_RDS at T = 4 over 16 blocks with
+     ``resync``: the encoded PI decoded; ``timeshard_routes`` (not counted)
+     — the ``split`` ingest against ``fused`` at T = 2, MODE1 at T = 4
+     against the serial MODE1 receiver;
+ 10. for each counted window the launch counts, set to 0 just before, must
      equal steps x launches per step.
 
 Every line printed is one JSON object, except the line with the card's name
@@ -107,6 +134,19 @@ N_SCAN_BLOCKS = 3
 N_MODE1_STREAM_BLOCKS = 4
 N_MODE1_RDS_STREAM_BLOCKS = 16
 N_MODE1_BATCH_STEPS = 3
+
+# the time-sharded receiver (MODE0 / MODE1_RDS at full width, stereo + RDS
+# + frame) and the channel / wideband sharded receivers on a one-card mesh
+TS_SHARDS = (1, 2, 4, 8)      # exact handoff at C = 1
+N_TS_BLOCKS = 6
+N_TS_DETUNED_BLOCKS = 4
+TS_BATCH_T = 2                # exact handoff at C = 1024
+N_TS_BATCH_STEPS = 4
+N_TS_M1_BLOCKS = 16
+TS_SNR_FLOOR_DB = {"stale": 38.0, "iterate": 60.0}   # tests/test_timeshard.py
+N_CHANNELS_STEPS = 2
+TOL_RESAMP_REL = 5e-6  # x max|ref|: float32 sums of 158 (x57/250: 158) taps
+#                        and of the dense zi terms, FMA vs multiply-then-add
 
 TOL_K5_REL = 8e-6     # x max over stations of sum|g|: two float32 sums of
 #                       2 x 2,656 products of |x| < 1 values in different
@@ -173,6 +213,12 @@ def main() -> int:
         _cuda, channelizer, coeffs, cuda_fir, cuda_pll, cuda_resample, fir,
         ingestfir)
     from rtsdr_tpu_torch.ops.pll import PLLState, pll, pll_init, pll_loop
+    from rtsdr_tpu_torch.parallel import timeshard as timeshard_mod
+    from rtsdr_tpu_torch.parallel.channels import (
+        make_channel_sharded_receiver, make_wideband_sharded_receiver)
+    from rtsdr_tpu_torch.parallel.mesh import make_mesh
+    from rtsdr_tpu_torch.parallel.scaling import measure_scaling
+    from rtsdr_tpu_torch.parallel.timeshard import make_time_sharded_receiver
     from rtsdr_tpu_torch.pipeline import audio as audio_mod
     from rtsdr_tpu_torch.pipeline.audio import audio_lpf_taps
     from rtsdr_tpu_torch.pipeline import frontend as frontend_mod
@@ -407,26 +453,61 @@ def main() -> int:
             st[4], cfg.mono.down)
         return raws[1], out[2:], out[0]
 
+    # B1's yardstick: one grouped conv1d (stride decim) over the normalized
+    # (.., 2, taps-1 + N) I/Q extended by the carried zi (+ the left
+    # neighbour's tail, segmented form)
+    w_rf = torch.as_tensor(np.stack([rf_h[::-1]] * 2)[:, None].copy(),
+                           dtype=torch.float32, device=dev)
+
+    def ingest_iq_case(raw, zi_i, zi_q, segments=None, **extra):
+        """One ``ingest_fir_decimate`` call (K1's iq entry) on the kernel,
+        on its plain version and as one ``F.conv1d`` call."""
+        args = (raw, rf_h, zi_i, zi_q, cfg.rf.decim)
+        k = ingestfir.ingest_fir_decimate(*args, segments=segments)
+        r = ingestfir.ingest_fir_decimate_ref(*args, segments=segments)
+        names = ("i", "q", "zi_i", "zi_q")
+        rows = zi_i.numel() // zi_i.shape[-1]
+        t1 = taps - 1
+        zi2 = torch.stack([zi_i, zi_q], dim=-2).reshape(rows, 2, t1)
+        if segments:
+            # rows (S, C): each segment behind its left neighbour's tail
+            seg = raw.reshape(raw.shape[0], segments, -1).transpose(0, 1)
+            xn = ingestfir.normalize_deinterleave(seg).reshape(rows, 2, -1)
+            zi2 = zi2.clone()
+            zi2[raw.shape[0]:] += xn[:-raw.shape[0], :, -t1:]
+        else:
+            xn = ingestfir.normalize_deinterleave(raw).reshape(rows, 2, -1)
+        xn = torch.cat([zi2, xn], dim=-1)
+        del zi2
+        lib = F.conv1d(xn, w_rf, stride=cfg.rf.decim, groups=2)
+        lib_err = max(max_err(lib[:, 0], r[0].reshape(rows, -1)),
+                      max_err(lib[:, 1], r[1].reshape(rows, -1)))
+        del lib
+        check("ingest.iq", f"u8 {shape_of(raw)}",
+              {n: max_err(a, b) for n, a, b in zip(names, k, r)},
+              dict(zip(names, (TOL_IQ, TOL_IQ, TOL_STATE, TOL_STATE))),
+              segments=segments,
+              kernel_ms=time_ms(lambda: ingestfir.ingest_fir_decimate(
+                  *args, segments=segments)),
+              plain_ms=time_ms(lambda: ingestfir.ingest_fir_decimate_ref(
+                  *args, segments=segments), reps=2, warm=0),
+              library_ms=time_ms(lambda: F.conv1d(
+                  xn, w_rf, stride=cfg.rf.decim, groups=2)),
+              library="torch.nn.functional.conv1d (cudnn.allow_tf32=False),"
+                      " stride 10, groups 2, on the normalized I/Q extended "
+                      "by zi",
+              library_max_abs_err_vs_plain=lib_err,
+              **bound(nbytes(raw, zi_i, zi_q, *k),
+                      rows * k[0].shape[-1] * 2 * 2 * taps), **extra)
+        del xn
+
     for c in (N_BATCH_CHANNELS, 1):
         raw, (zi_i, zi_q, pi, pq, azi), fm_prev = ingest_inputs(c)
         shape = f"u8 ({c}, {cfg.block_size})"
         rf_flop = c * n_if * 2 * 2 * taps
         au_flop = c * n_audio * 2 * len(mono_h)
         if c != 1:
-            k = ingestfir.ingest_fir_decimate(raw, rf_h, zi_i, zi_q,
-                                              cfg.rf.decim)
-            r = ingestfir.ingest_fir_decimate_ref(raw, rf_h, zi_i, zi_q,
-                                                  cfg.rf.decim)
-            names = ("i", "q", "zi_i", "zi_q")
-            check("ingest.iq", shape,
-                  {n: max_err(a, b) for n, a, b in zip(names, k, r)},
-                  dict(zip(names, (TOL_IQ, TOL_IQ, TOL_STATE, TOL_STATE))),
-                  kernel_ms=time_ms(lambda: ingestfir.ingest_fir_decimate(
-                      raw, rf_h, zi_i, zi_q, cfg.rf.decim)),
-                  plain_ms=time_ms(lambda: ingestfir.ingest_fir_decimate_ref(
-                      raw, rf_h, zi_i, zi_q, cfg.rf.decim), reps=2, warm=0),
-                  library_ms=None,
-                  **bound(nbytes(raw, zi_i, zi_q, *k), rf_flop))
+            ingest_iq_case(raw, zi_i, zi_q)
             k = ingestfir.ingest_fir_demod(raw, rf_h, zi_i, zi_q, pi, pq,
                                            cfg.rf.decim)
             r = ingestfir.ingest_fir_demod_ref(raw, rf_h, zi_i, zi_q, pi, pq,
@@ -866,6 +947,70 @@ def main() -> int:
     del st
     torch.cuda.empty_cache()
 
+    # ---- 1c. the time-sharded receiver's own calls of K6 (mixers +
+    # resampler, B7) and of K1's iq entry in its segmented form, in its
+    # third step (real mid-stream states; shards >= 1 carry their left
+    # neighbour's tail as zi): MODE0 at T = 1 (1,024 x 15,360) and at
+    # T = 4 (4 x 1,024 stacked rows of 3,840; both instances of K6, and K1
+    # over 1,024 rows of 4 segments of 76,800 bytes, read in place),
+    # MODE1_RDS at T = 4
+    # (x57/250, 9,003 taps, 4 x 1,024 x 4,000)
+    TS_WRAPPERS = [(timeshard_mod, "resample_mul2"),
+                   (timeshard_mod, "ingest_fir_decimate")]
+    mix_names = ("extract", "nco_i", "nco_q", "h", "zi", "up", "down",
+                 "gain")
+
+    def mix_case(a, impl="auto", **extra):
+        a = {n: a[n] for n in mix_names}
+        k = cuda_resample.resample_mul2(**a, impl=impl)
+        r = cuda_resample.resample_mul2_ref(**a)
+        scale = float(r[0].abs().max())
+        x, taps_ = a["extract"], len(a["h"])
+        lanes, n = x.numel() // x.shape[-1], x.shape[-1]
+        check("resample_mix" if impl == "auto" else "resample_mix.pair",
+              f"3 x f32 {shape_of(x)}",
+              {"y": max_err(k[0], r[0]), "new_zi": max_err(k[1], r[1])},
+              {"y": TOL_RESAMP_REL * scale, "new_zi": 0.0},
+              up=a["up"], down=a["down"], taps=taps_, y_max_abs=scale,
+              carried_zi_max_abs=float(a["zi"].abs().max()),
+              kernel_ms=time_ms(
+                  lambda: cuda_resample.resample_mul2(**a, impl=impl)),
+              plain_ms=time_ms(lambda: cuda_resample.resample_mul2_ref(**a),
+                               reps=2, warm=0),
+              library_ms=None,
+              # per output and branch the taps that meet a sample; 2
+              # multiplies per mixed sample
+              **bound(nbytes(x, a["nco_i"], a["nco_q"], a["zi"], *k),
+                      lanes * 2 * k[0].shape[-1] * 2 * -(-taps_ // a["up"])
+                      + lanes * 2 * n * 2), **extra)
+
+    def ts_third_step_calls(cfg_, t_shards, block, **kw):
+        init, step = make_time_sharded_receiver(
+            cfg_, make_mesh(1, t_shards), N_BATCH_CHANNELS, **kw)
+        st = init()
+        for b in range(2):
+            st, _ = step(st, block(b))
+        return calls_of(TS_WRAPPERS, lambda: step(st, block(2)))
+
+    for t_shards in (1, 4):
+        seen = ts_third_step_calls(cfg, t_shards, batch_block)
+        (ma,) = seen["resample_mul2"]
+        mix_case(ma, time_shards=t_shards)
+        if t_shards == 4:
+            mix_case(ma, impl="pair", time_shards=t_shards)
+            (ia,) = seen["ingest_fir_decimate"]
+            assert ia["segments"] == t_shards
+            ingest_iq_case(ia["raw_u8"], ia["zi_i"], ia["zi_q"], t_shards,
+                           time_shards=t_shards)
+        del seen, ma
+        torch.cuda.empty_cache()
+    seen = ts_third_step_calls(cfg1, 4, m1_block, enable_frame=False)
+    (ma,) = seen["resample_mul2"]
+    assert len(ma["h"]) == 9003 and (ma["up"], ma["down"]) == (57, 250)
+    mix_case(ma, time_shards=4, mode=1)
+    del seen, ma
+    torch.cuda.empty_cache()
+
     emit({"kernel_cases": cases, "card": card})
     torch.cuda.empty_cache()
 
@@ -882,7 +1027,11 @@ def main() -> int:
         "resample_mul2_rrc": lambda: cuda_resample.resample_mul2_rrc(
             x64, x64, x64, mono_h, torch.stack([zi64, zi64], 1), mono_h,
             torch.stack([zi64, zi64], 1), 1, 2),
+        "resample_mul2": lambda: cuda_resample.resample_mul2(
+            x64, x64, x64, mono_h, torch.stack([zi64, zi64], 1), 1, 2),
         "Receiver": lambda: Receiver(cfg, (), torch.float64),
+        "make_time_sharded_receiver": lambda: make_time_sharded_receiver(
+            cfg, make_mesh(1, 2), 1, torch.float64),
     }
     before = _cuda.launch_counts()
     for name, call in refusals.items():
@@ -1469,10 +1618,82 @@ def main() -> int:
                                "3-block scan; decoding those"]):
         raise SystemExit(f"chip_smoke: band scan wrong: {rep_scan}")
     emit({"scan": rep_scan, "card": card})
-    del wb_blocks, wb_dev
+
+    # ========= 7. channel- and wideband-sharded receivers, one-card mesh
+    mesh1 = make_mesh(1, 1)
+    rx_c = Receiver(cfg, (N_BATCH_CHANNELS,))
+    ch_init, ch_step, ch_rows = make_channel_sharded_receiver(
+        cfg, mesh1, N_BATCH_CHANNELS)
+    ws_init, ws_step = make_wideband_sharded_receiver(cfg, mesh1, WB_K,
+                                                      **wb_kw)
+    w1_init, w1_step = make_wideband_receiver(cfg, WB_K, **wb_kw)
+
+    def trees_equal(a, b):
+        if a is None or b is None:
+            return a is None and b is None
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a, b)
+        return len(a) == len(b) and all(trees_equal(x, y)
+                                        for x, y in zip(a, b))
+
+    # the unsharded receivers first, outside the counted window: their
+    # outputs and states are what the sharded ones must equal
+    raws = [batch_block(b) for b in range(N_CHANNELS_STEPS)]
+    ref_u, wref_u = [], []
+    st_u, wst_u = rx_c.init(), w1_init()
+    for b, raw in enumerate(raws):
+        st_u, out_u = rx_c.step(st_u, raw)
+        wst_u, wout_u = w1_step(wst_u, wb_dev[b])
+        ref_u.append((st_u, out_u))
+        wref_u.append((wst_u, wout_u))
+    torch.cuda.synchronize()
+
+    # ==================== the sharded paths: counts from 0 here
+    _cuda.reset_launch_counts()
+    ch_equal = ws_equal = True
+    st_s, wst_s = ch_init(), ws_init()
+    for b, raw in enumerate(raws):
+        st_s, out_s = ch_step(st_s, raw)
+        wst_s, wout_s = ws_step(wst_s, wb_dev[b])
+        (st_u, out_u), (wst_u, wout_u) = ref_u[b], wref_u[b]
+        ch_equal = (ch_equal and trees_equal(out_s, out_u)
+                    and trees_equal(st_s[0], st_u))
+        ws_equal = (ws_equal and trees_equal(wout_s, wout_u)
+                    and trees_equal(wst_s.rx[0], wst_u.rx)
+                    and trees_equal(wst_s.chan_zi, wst_u.chan_zi))
+    sharded_counts = _cuda.launch_counts()
+    # one channel-sharded step is one receiver step (rds_per_step); one
+    # wideband-sharded step is the composed channelizer plus the receiver
+    # of its slots with the IF front end
+    want = {k: N_CHANNELS_STEPS * v for k, v in rds_per_step.items()}
+    for k, v in {"channelizer.composed": 1, "fir_bank.none": 2,
+                 "fir_bank.square": 1, "fir_bank.mul2": 1, "pll": 1,
+                 "resample_rrc": 1}.items():
+        want[k] = want.get(k, 0) + N_CHANNELS_STEPS * v
+    if sharded_counts != want:
+        raise SystemExit(f"chip_smoke: launch counts {sharded_counts} on the "
+                         f"sharded paths, expected {want}")
+    # ============================== end of the sharded paths
+    t0 = time.perf_counter()
+    scaling = measure_scaling(cfg, device_counts=[1])
+    rep_ch = {"mesh": {"channel_shards": 1, "time_shards": 1},
+              "channels": N_BATCH_CHANNELS, "steps": N_CHANNELS_STEPS,
+              "row_split": [[sl.start, sl.stop] for sl in ch_rows],
+              "channel_sharded_equal_unsharded_bitwise": ch_equal,
+              "wideband_sharded_equal_unsharded_bitwise": ws_equal,
+              "wideband_slots": WB_K, "launches": sharded_counts,
+              "measure_scaling": scaling,
+              "measure_scaling_seconds": time.perf_counter() - t0}
+    if (not ch_equal or not ws_equal or len(scaling) != 1
+            or scaling[0]["devices"] != 1
+            or not scaling[0]["channel_blocks_per_sec"] > 0):
+        raise SystemExit(f"chip_smoke: sharded receivers wrong: {rep_ch}")
+    emit({"channels": rep_ch, "card": card})
+    del (rx_c, raws, ref_u, wref_u, st_s, st_u, out_s, out_u, wst_s, wst_u,
+         wout_s, wout_u, wb_blocks, wb_dev)
     torch.cuda.empty_cache()
 
-    # ================================== 7. mode 1 and MODE1_RDS
+    # ================================== 8. mode 1 and MODE1_RDS
     rx1m = Receiver(MODE1, ())
     st = rx1m.init()
     for b in range(2):                                   # warm-up
@@ -1516,6 +1737,271 @@ def main() -> int:
     emit({"mode1_rds_batch": rep_m1b, "card": card})
     del rxbr, rx1r
 
+    # ============ 9. the time-sharded receiver (MODE0, stereo + RDS + frame)
+    # The serial references run first, outside the counted window.
+    def timed_run(init, step, blocks):
+        st, outs, ms = init(), [], []
+        for raw in blocks:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, out = step(st, raw)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            outs.append(out)
+        return outs, ms
+
+    def serial_run(cfg_, blocks, c=1, **kw):
+        rx = Receiver(cfg_, (c,), **kw)
+        return timed_run(rx.init, rx.step, blocks)
+
+    def ts_run(cfg_, blocks, t_shards, c=1, **kw):
+        return timed_run(*make_time_sharded_receiver(
+            cfg_, make_mesh(1, t_shards), c, **kw), blocks)
+
+    def vs_serial(outs, refs):
+        """Audio and frame outputs of a run against the serial receiver's.
+        Symbols are held in row 0, the noiseless station, here; the rows
+        under +-8 LSB of noise are held at C = 1,024 against a witness
+        (``sym_rel_per_block``)."""
+        a_err = s_err = s_err_all = 0.0
+        sid_diff = sid_n = 0
+        counts_equal = True
+        for o, u in zip(outs, refs):
+            a_err = max(a_err, max_err(o.left, u.left),
+                        max_err(o.right, u.right), max_err(o.mono, u.mono))
+            peak = float(u.rds.symbols_i[0].abs().max())
+            for a, b in ((o.rds.symbols_i, u.rds.symbols_i),
+                         (o.rds.symbols_q, u.rds.symbols_q)):
+                s_err = max(s_err, max_err(a[0], b[0]) / peak)
+                s_err_all = max(s_err_all, max_err(a, b)
+                                / float(b.abs().max()))
+            sid_diff += int((o.rds.syndrome_id != u.rds.syndrome_id).sum())
+            sid_n += o.rds.syndrome_id.numel()
+            counts_equal = counts_equal and torch.equal(
+                o.rds.n_sym, u.rds.n_sym) and torch.equal(
+                o.rds.n_windows, u.rds.n_windows)
+        return {"audio_max_abs_err_vs_serial": a_err,
+                "audio_tolerance": TOL_FUSED_AUDIO,
+                "symbols_max_rel_err_vs_serial": s_err,
+                "symbols_tolerance": TOL_FUSED_SYMBOLS_REL,
+                "symbols_max_rel_err_vs_serial_all_rows": s_err_all,
+                "syndrome_ids_differing": sid_diff,
+                "syndrome_ids_compared": sid_n,
+                "symbol_and_window_counts_equal": counts_equal}
+
+    def sym_rel_per_block(outs, refs):
+        """Per block, over all rows: max |symbol difference| / peak."""
+        return [max(max_err(o.rds.symbols_i, u.rds.symbols_i),
+                    max_err(o.rds.symbols_q, u.rds.symbols_q))
+                / float(u.rds.symbols_i.abs().max())
+                for o, u in zip(outs, refs)]
+
+    def exact_ok(rep):
+        # a symbol within rounding of zero may slice either way; more than
+        # one window in a thousand is a fault
+        return (rep["audio_max_abs_err_vs_serial"] <= TOL_FUSED_AUDIO
+                and rep["symbols_max_rel_err_vs_serial"]
+                <= TOL_FUSED_SYMBOLS_REL
+                and rep["syndrome_ids_differing"]
+                <= rep["syndrome_ids_compared"] // 1000
+                and rep["symbol_and_window_counts_equal"])
+
+    def snr_db(got, ref):
+        got, ref = got.double(), ref.double()
+        err = float(torch.sqrt(torch.mean((got - ref) ** 2)))
+        return 20 * np.log10(float(torch.sqrt(torch.mean(ref ** 2)))
+                             / max(err, 1e-30))
+
+    def syncs(outs):
+        return sum(int(o.rds.is_sync[0, :int(o.rds.n_windows[0])].sum())
+                   for o in outs)
+
+    ts_blocks = [torch.as_tensor(station[b][None]).to(dev)
+                 for b in range(N_TS_BLOCKS)]
+    detuned = fm_multiplex_iq(
+        N_TS_DETUNED_BLOCKS * cfg.iq_len, pilot_hz=19e3 + 60.0,
+        rds_wave=rds_baseband(encode_rds_blocks(ps_station_words(
+            N_TS_DETUNED_BLOCKS + 4, STATION_PI, STATION_PS)))
+    ).reshape(N_TS_DETUNED_BLOCKS, cfg.block_size)
+    det_blocks = [torch.as_tensor(detuned[b][None]).to(dev)
+                  for b in range(N_TS_DETUNED_BLOCKS)]
+    tsb_blocks = [batch_block(b) for b in range(N_TS_BATCH_STEPS)]
+    ser1, ser1_ms = serial_run(cfg, ts_blocks)
+    ser_det, ser_det_ms = serial_run(cfg, det_blocks, pll_loop_div=4)
+    serb, serb_ms = serial_run(cfg, tsb_blocks, c=N_BATCH_CHANNELS)
+    # the witness: the serial receiver with the discriminator in stock ops
+    # after K1's iq route (as the time-sharded receiver has it), against
+    # the serial receiver with K1's fm entry
+    serb_fe, _ = serial_run(cfg, tsb_blocks, c=N_BATCH_CHANNELS,
+                            frontend_impl="split")
+    witness = sym_rel_per_block(serb_fe, serb)
+    for t_shards in TS_SHARDS:            # warm-up of each shape
+        ts_run(cfg, ts_blocks[:1], t_shards)
+    for t_shards in (1, TS_BATCH_T):
+        ts_run(cfg, tsb_blocks[:1], t_shards, c=N_BATCH_CHANNELS)
+    torch.cuda.synchronize()
+
+    def ts_per_step(t_shards, handoff="exact", mode1=False):
+        return {"ingest.iq": 1, "fir_bank.none": 2 if mode1 else 3,
+                "fir_bank.square": 1,
+                **({} if mode1 else {"fir_bank.mul2": 1}),
+                "pll": {"exact": t_shards, "stale": 1, "iterate": 2}[handoff],
+                "resample_mix": 1}
+
+    def add_counts(total, steps, per_step):
+        for k, v in per_step.items():
+            total[k] = total.get(k, 0) + steps * v
+
+    # ==================== the time-sharded path: counts from 0 here
+    _cuda.reset_launch_counts()
+    ts_want, ts_rows, ts_fail = {}, [], []
+    for t_shards in TS_SHARDS:
+        outs, ms = ts_run(cfg, ts_blocks, t_shards)
+        add_counts(ts_want, N_TS_BLOCKS, ts_per_step(t_shards))
+        row = {"channels": 1, "time_shards": t_shards, "handoff": "exact",
+               "blocks": N_TS_BLOCKS, **vs_serial(outs, ser1),
+               "ms_per_64ms_block": statistics.median(ms[1:]),
+               "serial_ms_per_64ms_block": statistics.median(ser1_ms[1:]),
+               "step_ms": ms}
+        ts_rows.append(row)
+        if not exact_ok(row):
+            ts_fail.append(row)
+    for handoff, floor in TS_SNR_FLOOR_DB.items():
+        outs, ms = ts_run(cfg, ts_blocks, 4, pll_handoff=handoff)
+        add_counts(ts_want, N_TS_BLOCKS, ts_per_step(4, handoff))
+        snrs = [snr_db(o.left[0], u.left[0])
+                for o, u in zip(outs[1:], ser1[1:])]
+        last_syncs = syncs(outs[-2:])
+        row = {"channels": 1, "time_shards": 4, "handoff": handoff,
+               "blocks": N_TS_BLOCKS, "left_snr_db_vs_serial_blocks_1_on":
+               snrs, "snr_floor_db": floor,
+               "syncs_in_last_two_blocks": last_syncs,
+               "ms_per_64ms_block": statistics.median(ms[1:]),
+               "serial_ms_per_64ms_block": statistics.median(ser1_ms[1:]),
+               "step_ms": ms}
+        ts_rows.append(row)
+        if min(snrs) <= floor or last_syncs == 0:
+            ts_fail.append(row)
+    outs, ms = ts_run(cfg, det_blocks, 4, pll_handoff="iterate",
+                      pll_loop_div=4)
+    add_counts(ts_want, N_TS_DETUNED_BLOCKS, ts_per_step(4, "iterate"))
+    snrs = [snr_db(o.left[0], u.left[0]) for o, u in zip(outs[1:],
+                                                         ser_det[1:])]
+    row = {"channels": 1, "time_shards": 4, "handoff": "iterate",
+           "pll_loop_div": 4, "pilot_hz": 19e3 + 60.0,
+           "blocks": N_TS_DETUNED_BLOCKS,
+           "left_snr_db_vs_serial_blocks_1_on": snrs,
+           "snr_floor_db": TS_SNR_FLOOR_DB["iterate"],
+           "ms_per_64ms_block": statistics.median(ms[1:]),
+           "serial_ms_per_64ms_block": statistics.median(ser_det_ms[1:]),
+           "step_ms": ms}
+    ts_rows.append(row)
+    if min(snrs) <= TS_SNR_FLOOR_DB["iterate"]:
+        ts_fail.append(row)
+    # C = 1,024: T = 1 (the time-sharded route, no seams) and T = 2.  Rows
+    # 1.. carry +-8 LSB of noise, where a ~1e-7 difference of fm can move an
+    # RDS loop for a block; their symbols may part from the serial
+    # receiver's by at most twice what the witness parts by.  T = 2 shares
+    # T = 1's route: it is held to T = 1 in every row at the exact tolerance
+    batch_outs = {}
+    for t_shards in (1, TS_BATCH_T):
+        outs, ms = ts_run(cfg, tsb_blocks, t_shards, c=N_BATCH_CHANNELS)
+        add_counts(ts_want, N_TS_BATCH_STEPS, ts_per_step(t_shards))
+        batch_outs[t_shards] = outs
+        tol_noisy = max(TOL_FUSED_SYMBOLS_REL, 2 * max(witness))
+        row = {"channels": N_BATCH_CHANNELS, "time_shards": t_shards,
+               "handoff": "exact", "steps": N_TS_BATCH_STEPS,
+               **vs_serial(outs, serb),
+               "symbols_max_rel_err_vs_serial_all_rows_per_block":
+                   sym_rel_per_block(outs, serb),
+               "witness_symbols_max_rel_err_all_rows_per_block": witness,
+               "noisy_rows_tolerance": tol_noisy,
+               "finite": all(bool(torch.isfinite(o.left).all())
+                             for o in outs),
+               "ms_per_step_median": statistics.median(ms[1:]),
+               "serial_ms_per_step_median": statistics.median(serb_ms[1:]),
+               "step_ms": ms, "serial_step_ms": serb_ms}
+        if t_shards != 1:
+            row["symbols_max_rel_err_vs_t1_all_rows_per_block"] = (
+                sym_rel_per_block(outs, batch_outs[1]))
+        ts_rows.append(row)
+        if (not exact_ok(row) or not row["finite"]
+                or max(row["symbols_max_rel_err_vs_serial_all_rows_per_block"])
+                > tol_noisy
+                or max(row.get("symbols_max_rel_err_vs_t1_all_rows_per_block",
+                               [0.0])) > TOL_FUSED_SYMBOLS_REL):
+            ts_fail.append(row)
+    del batch_outs
+    ts_counts = _cuda.launch_counts()
+    if ts_counts != ts_want:
+        raise SystemExit(f"chip_smoke: launch counts {ts_counts} on the "
+                         f"time-sharded path, expected {ts_want}")
+    # ============================== end of the time-sharded path
+    emit({"timeshard": {"runs": ts_rows, "launches": ts_counts},
+          "card": card})
+    if ts_fail:
+        raise SystemExit(f"chip_smoke: time-sharded receiver wrong: "
+                         f"{ts_fail}")
+    del outs, ser1, ser_det, serb, serb_fe, tsb_blocks
+    torch.cuda.empty_cache()
+
+    # ===== 10. the time-sharded MODE1_RDS receiver (T = 4): decoded PI
+    m1_blocks = [torch.as_tensor(m1_station[b][None]).to(dev)
+                 for b in range(N_TS_M1_BLOCKS)]
+    ts_run(cfg1, m1_blocks[:1], 4, resync=True)           # warm-up
+    torch.cuda.synchronize()
+    # ==================== the time-sharded MODE1_RDS path: counts from 0
+    _cuda.reset_launch_counts()
+    outs, ms = ts_run(cfg1, m1_blocks, 4, resync=True)
+    m1ts_counts = expect_counts("time-sharded MODE1_RDS", N_TS_M1_BLOCKS,
+                                ts_per_step(4, mode1=True))
+    # ============================== end of the time-sharded MODE1_RDS path
+    dec = GroupDecoder()
+    for o in outs:
+        fo = type(o.rds)(*(x[0].cpu().numpy() for x in o.rds))
+        dec.feed(fo)
+    rep_m1ts = {"channels": 1, "time_shards": 4, "handoff": "exact",
+                "blocks": N_TS_M1_BLOCKS, "syncs": syncs(outs),
+                "groups": len(dec.groups),
+                "decoded_pi": None if dec.pi is None else f"0x{dec.pi:04X}",
+                "decoded_ps": dec.ps_name, "encoded_pi": f"0x{MODE1_PI:04X}",
+                "encoded_ps": MODE1_PS,
+                "ms_per_64ms_block": statistics.median(ms[1:]),
+                "launches": m1ts_counts}
+    emit({"timeshard_mode1_rds": rep_m1ts, "card": card})
+    if dec.pi != MODE1_PI:
+        raise SystemExit(f"chip_smoke: the time-sharded MODE1_RDS receiver "
+                         f"did not decode its PI: {rep_m1ts}")
+    del outs, m1_blocks
+
+    # ===== 11. the time-sharded receiver's other routes (not counted): the
+    # 'split' ingest (K2 at stride 10 over normalized I/Q) against 'fused'
+    # at T = 2, and MODE1 (audio only) at T = 4 against the serial MODE1
+    # receiver — mono in every block, L / R from block 1 on (the pilot loops
+    # acquire in block 0)
+    fused_outs, _ = ts_run(cfg, ts_blocks[:3], 2)
+    split_outs, _ = ts_run(cfg, ts_blocks[:3], 2, ingest_impl="split")
+    rep_split = {"time_shards": 2, "blocks": 3,
+                 **vs_serial(split_outs, fused_outs)}
+    m1a_blocks = [torch.as_tensor(m1_station[b][None]).to(dev)
+                  for b in range(3)]
+    m1a_ser, _ = serial_run(MODE1, m1a_blocks)
+    m1a_ts, _ = ts_run(MODE1, m1a_blocks, 4)
+    m1a_err = max([max_err(o.mono, u.mono) for o, u in zip(m1a_ts, m1a_ser)]
+                  + [max_err(getattr(o, n), getattr(u, n))
+                     for o, u in zip(m1a_ts[1:], m1a_ser[1:])
+                     for n in ("left", "right")])
+    rep_routes = {"split_vs_fused_ingest": rep_split,
+                  "mode1_audio_t4_max_abs_err_vs_serial": m1a_err,
+                  "mode1_audio_tolerance": TOL_FUSED_AUDIO,
+                  "mode1_rds_output": m1a_ts[0].rds}
+    emit({"timeshard_routes": rep_routes, "card": card})
+    if (not exact_ok(rep_split) or not m1a_err <= TOL_FUSED_AUDIO
+            or m1a_ts[0].rds is not None):
+        raise SystemExit(f"chip_smoke: a time-sharded route is wrong: "
+                         f"{rep_routes}")
+    del fused_outs, split_outs, m1a_ser, m1a_ts, m1a_blocks
+
     # -------------------------------------------------- the kernels line
     # name -> (source, the TPU kernel it replaces, launches in the window
     # of the main path that runs it)
@@ -1540,6 +2026,14 @@ def main() -> int:
         "channelizer.composed": ("rtsdr_tpu_torch/csrc/channelizer.cu",
                                  "rtsdr_tpu/ops/channelizer.py:304",
                                  wb_counts),
+        "ingest.iq": ("rtsdr_tpu_torch/csrc/ingest.cu",
+                      "rtsdr_tpu/ops/ingestfir.py:364", ts_counts),
+        "resample_mix": ("rtsdr_tpu_torch/csrc/resample_rrc.cu",
+                         "rtsdr_tpu/ops/pallas_fir.py:353", ts_counts),
+        # the layout probe's other arm (tools/torch_profile_resample.py):
+        # on no main path
+        "resample_mix.pair": ("rtsdr_tpu_torch/csrc/resample_rrc.cu",
+                               "tools/profile_resample.py:231", ts_counts),
     }
     # the case that has the receiver's own configuration of the kernel at
     # the batch path's shape (C = 1024)
@@ -1556,8 +2050,13 @@ def main() -> int:
         "channelizer.composed": lambda r: (
             r["captures"] == WB_CAPTURES and r["offsets_in_taps"]
             and r["block"] == 1),
+        # the time-sharded receiver's own calls at T = 4, MODE0
+        "ingest.iq": lambda r: r["segments"] == 4,
+        "resample_mix": lambda r: r.get("mode") is None,
     }
-    at_width = {"channelizer.composed": f"u8 ({WB_CAPTURES},"}
+    at_width = {"channelizer.composed": f"u8 ({WB_CAPTURES},",
+                "resample_mix": f"(4, {N_BATCH_CHANNELS},",
+                "resample_mix.pair": f"(4, {N_BATCH_CHANNELS},"}
     rows = []
     for name, (source, replaces, counts) in meta.items():
         case = next(r for r in cases if r["name"] == name
@@ -1565,10 +2064,14 @@ def main() -> int:
                     in r["shape"]
                     and pick.get(name, lambda r: True)(r))
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": counts[name],
+                     "replaces": replaces, "launches": counts.get(name, 0),
                      "launches_audio_path": audio_counts.get(name, 0),
                      "launches_wideband_path": wb_counts.get(name, 0),
                      "launches_mode1_rds_path": m1r_counts.get(name, 0),
+                     "launches_timeshard_path": ts_counts.get(name, 0),
+                     "launches_timeshard_mode1_rds_path":
+                         m1ts_counts.get(name, 0),
+                     "launches_sharded_path": sharded_counts.get(name, 0),
                      "shape": case["shape"],
                      "max_abs_err": case["max_abs_err"],
                      "ms": case["kernel_ms"], "plain_ms": case["plain_ms"],

@@ -6,8 +6,9 @@ and nothing of ``jax`` or ``rtsdr_tpu``.
 
 Ported so far: the receiver in modes 0 and 1 (uint8 I/Q -> front end ->
 mono + stereo -> int16; RDS DSP -> bit layer -> decoded groups), the
-wideband receiver (one capture at K x the RF rate -> K stations) and the
-band scanner, with five hand-written CUDA kernels (``csrc/ingest.cu``,
+wideband receiver (one capture at K x the RF rate -> K stations), the band
+scanner and the parallel receivers (time-, channel- and wideband-sharded,
+multihost), with hand-written CUDA kernels (``csrc/ingest.cu``,
 ``csrc/fir_bank.cu``, ``csrc/pll.cu``, ``csrc/resample_rrc.cu``,
 ``csrc/channelizer.cu``) built at first use and bound through ``ctypes``
 (``ops/_cuda.py``).
@@ -23,6 +24,8 @@ Package layout:
               CUDA kernel wrappers
   pipeline  — frontend, audio, rds, frame, groups, receiver, wideband, scan
               (NamedTuple states, JAX field names)
+  parallel  — mesh, time-sharded / channel-sharded receivers, multihost,
+              scaling
   io        — host streaming loops, wav / raw file I/O
   runtime   — native prefetching block reader + int16 emitter (ctypes)
   utils     — signal generators, state conversion

@@ -14,6 +14,12 @@
 // New state: zi_i / zi_q = last taps-1 normalised I / Q, prev = last IF
 // sample, audio_zi = last ataps-1 fm samples.
 //
+// The iq entry also cuts each raw row into n_seg equal segments, each its
+// own output row (segment-major: (n_seg, C, ...); the time-sharded
+// receiver's form).  A segment's window reads the bytes before it in the
+// same raw row in place, where the first segment reads the zero level
+// (128); zi still adds to every segment.
+//
 // Replaces the Pallas kernels of rtsdr_tpu/ops/ingestfir.py:
 // _ingest_kernel (via _pallas_ingest), _ingest_demod_kernel /
 // _ingest_demod_core (via _pallas_ingest_demod) and
@@ -75,6 +81,7 @@ struct Args {
   int m_if, n_audio;     // IF samples / audio samples per block
   int halo, tile, n_tiles;
   int raw_bytes;         // shared-memory bytes for the raw window (16-multiple)
+  int n_seg;             // segments per raw row (iq entry), else 1
 };
 
 // exact uint8 -> float of (b - 128): 0x4B000000 | b is the float 2^23 + b
@@ -101,12 +108,19 @@ __global__ void __launch_bounds__(kThreads) ingest_kernel(Args p) {
   const int t1 = p.taps - 1;
   const int own = min(p.tile, p.m_if - t0);  // IF outputs owned
   const int n_slots = own + p.halo;
-  const uint8_t* row = p.raw + (size_t)c * 2 * p.n_pairs;
   const int row_bytes = 2 * p.n_pairs;
+  // output row c is segment `seg` of raw row c % n_src; the raw row's bytes
+  // before the segment are real (lo <= 0 of them)
+  const int n_src = p.n_ch / p.n_seg;
+  const int seg = c / n_src;
+  const int lo = -seg * row_bytes;
+  const uint8_t* row =
+      p.raw + ((size_t)(c % n_src) * p.n_seg + seg) * row_bytes;
 
-  // ---- stage the raw window: bytes [b0, b1) of the row, zero level (128)
-  // outside it.  sraw[j] holds row byte b0a + j, with b0a <= b0 chosen so
-  // that 16-byte chunks are aligned in global memory.
+  // ---- stage the raw window: bytes [b0, b1) of the segment (bytes before
+  // it included, down to lo), zero level (128) outside them.  sraw[j] holds
+  // segment byte b0a + j, with b0a <= b0 chosen so that 16-byte chunks are
+  // aligned in global memory.
   const int b0 = 2 * (p.decim * mlo - t1);
   const int b1 = 2 * (p.decim * (mlo + n_slots - 1) + 1);
   const int shift = (int)((reinterpret_cast<intptr_t>(row) + b0) & 15);
@@ -114,13 +128,14 @@ __global__ void __launch_bounds__(kThreads) ingest_kernel(Args p) {
   const int n_chunks = (b1 - b0a + 15) >> 4;
   for (int q = tid; q < n_chunks; q += kThreads) {
     const int gb = b0a + 16 * q;
-    if (gb >= 0 && gb + 16 <= row_bytes) {
+    if (gb >= lo && gb + 16 <= row_bytes) {
       *reinterpret_cast<uint4*>(sraw + 16 * q) =
           *reinterpret_cast<const uint4*>(row + gb);
     } else {
       for (int e = 0; e < 16; ++e) {
         const int g = gb + e;
-        sraw[16 * q + e] = (g >= 0 && g < row_bytes) ? row[g] : (uint8_t)128;
+        sraw[16 * q + e] =
+            (g >= lo && g < row_bytes) ? row[g] : (uint8_t)128;
       }
     }
   }
@@ -258,7 +273,8 @@ __global__ void __launch_bounds__(kThreads) ingest_kernel(Args p) {
 template <int MODE>
 cudaError_t launch(Args p, cudaStream_t stream) {
   if (p.n_ch <= 0 || p.n_pairs <= 0 || p.taps < 1 || p.decim < 1 ||
-      p.n_pairs % p.decim != 0 ||
+      p.n_pairs % p.decim != 0 || p.n_seg < 1 || p.n_ch % p.n_seg != 0 ||
+      (p.n_seg > 1 && p.n_pairs < p.taps - 1) ||
       (reinterpret_cast<uintptr_t>(p.raw) & 1) != 0)
     return cudaErrorInvalidValue;
   p.m_if = p.n_pairs / p.decim;
@@ -303,8 +319,9 @@ extern "C" const char* rtsdr_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Shapes: raw (C, 2*n_pairs) u8 at an even address; rf_h (taps,); zi_* and
-// zi_*_out (C, taps-1); prev_* and prev_*_out (C,); audio_h (ataps,);
+// Shapes: raw (C, 2*n_pairs) u8 at an even address (the iq entry: raw
+// (C/n_seg, n_seg*2*n_pairs), C output rows, n_pairs >= taps-1 if n_seg > 1);
+// rf_h (taps,); zi_* and zi_*_out (C, taps-1); prev_* and prev_*_out (C,); audio_h (ataps,);
 // audio_zi and audio_zi_out (C, ataps-1); out_i, out_q, fm (C, n_pairs/decim);
 // audio (C, n_pairs/decim/down); bank_h (n_bank, btaps); bank_zi
 // (C, btaps-1); bank (n_bank, C, n_pairs/decim).  All float32 but raw.  Each
@@ -314,12 +331,13 @@ extern "C" int rtsdr_ingest_iq(const uint8_t* raw, const float* rf_h,
                                const float* zi_i, const float* zi_q,
                                float* out_i, float* out_q, float* zi_i_out,
                                float* zi_q_out, int n_ch, int n_pairs,
-                               int taps, int decim, void* stream) {
+                               int taps, int decim, int n_seg, void* stream) {
   Args p = {};
   p.raw = raw; p.rf_h = rf_h; p.zi_i = zi_i; p.zi_q = zi_q;
   p.out_i = out_i; p.out_q = out_q;
   p.zi_i_out = zi_i_out; p.zi_q_out = zi_q_out;
   p.n_ch = n_ch; p.n_pairs = n_pairs; p.taps = taps; p.decim = decim;
+  p.n_seg = n_seg;
   return (int)launch<kIq>(p, (cudaStream_t)stream);
 }
 
@@ -336,6 +354,7 @@ extern "C" int rtsdr_ingest_fm(const uint8_t* raw, const float* rf_h,
   p.zi_i_out = zi_i_out; p.zi_q_out = zi_q_out;
   p.prev_i_out = prev_i_out; p.prev_q_out = prev_q_out;
   p.n_ch = n_ch; p.n_pairs = n_pairs; p.taps = taps; p.decim = decim;
+  p.n_seg = 1;
   p.ataps = 1;
   return (int)launch<kFm>(p, (cudaStream_t)stream);
 }
@@ -356,6 +375,7 @@ extern "C" int rtsdr_ingest_fm_audio(
   p.prev_i_out = prev_i_out; p.prev_q_out = prev_q_out;
   p.audio_zi_out = audio_zi_out;
   p.n_ch = n_ch; p.n_pairs = n_pairs; p.taps = taps; p.decim = decim;
+  p.n_seg = 1;
   p.ataps = ataps; p.down = down;
   return (int)launch<kFmAudio>(p, (cudaStream_t)stream);
 }
@@ -380,6 +400,7 @@ extern "C" int rtsdr_ingest_fm_audio_bank(
   p.prev_i_out = prev_i_out; p.prev_q_out = prev_q_out;
   p.audio_zi_out = audio_zi_out;
   p.n_ch = n_ch; p.n_pairs = n_pairs; p.taps = taps; p.decim = decim;
+  p.n_seg = 1;
   p.ataps = ataps; p.down = down; p.n_bank = n_bank; p.btaps = btaps;
   return (int)launch<kFmAudioBank>(p, (cudaStream_t)stream);
 }

@@ -1,4 +1,5 @@
-// RDS mixer + rational resampler + RRC matched filter, one kernel:
+// RDS mixer + rational resampler (+ RRC matched filter): two kernels over
+// one resampler stage.  resample_rrc (K4) does all three:
 //
 //   mixed_b[i] = 2 * e[i] * n_b[i]                       b in {I, Q}
 //   r_b[m]  = gain * sum_k h[k] * uext_b[m*down + t1 - k]
@@ -40,6 +41,27 @@
 // work (25 %).  The dense zi terms are summed by whole warps with coalesced
 // reads (four in flight) and a shuffle reduction.  This first version is limited by
 // shared-memory reads (three per two multiply-adds), not by arithmetic.
+//
+// resample_mix (K6) is the same resampler stage without the RRC: the full
+// (C, 2, M) resampler output is written, both branches.  Replaces the Pallas
+// kernel rtsdr_tpu/ops/pallas_fir.py::_resample_mix_kernel
+// (_mix_resample_core; reached from resample_mul2 through
+// _pallas_resample_mix), which the time-sharded receiver runs on its
+// stacked (T*C, N/T) chunks; that kernel contracts bf16 windows on the
+// matrix unit and adds the carried zi outside through a boundary matmul.
+// Here zi is read in the kernel and all arithmetic is float32.  Bound on an
+// H100: bytes.  At 1,024 channels of 15,360 samples, x19/80: 3 x 61 KB in,
+// 24 KB of zi, 29 KB out per channel (0.24 GB, 0.07 ms) against 2 * 3,648 *
+// 158 * 2 FLOP (2.4 GFLOP, 0.04 ms).  Design: one block per (row, tile of
+// outputs); no RRC look-back, so tiles do not overlap, and the tile shrinks
+// (608 -> 76 outputs) until a launch has two blocks per SM, which keeps a
+// one-station time-sharded step (T rows) from running on a handful of SMs.
+// Two instances ask the TPU probe's layout question of this card
+// (tools/profile_resample.py, B7' there): `split`, one thread per (output,
+// branch), two tap reads per two multiply-adds, and `pair`, one thread makes
+// the I and Q outputs from one tap read.  The receiver launches `split`: it
+// ran as fast or faster at the receiver's shapes on an H100
+// (tools/torch_profile_resample.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,19 +69,125 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = 608;      // RRC outputs owned by one block
+constexpr int kTile = 608;      // RRC outputs owned by one resample_rrc block
+constexpr int kMinBlocks = 264; // resample_mix: two blocks per SM of 132
 
 struct Args {
   const float *e, *ni, *nq, *h, *zi, *g, *rrc_zi;
   float *y, *rrc_zi_out;
   int n_ch, n, m, taps, up, down, rtaps, lane_stride;
   float gain;
-  int n_tiles, x_cap, n_slots_cap;
+  int tile, n_tiles, x_cap, n_slots_cap;
 };
+
+// First x sample read by outputs from mlo_c on (0 if the look-back reaches
+// before the block: those taps read zi instead).
+__device__ __forceinline__ int x_first(const Args& p, int mlo_c) {
+  const long long num = (long long)mlo_c * p.down - (p.taps - 1);
+  return num <= 0 ? 0 : (int)((num + p.up - 1) / p.up);
+}
+
+// Stage the taps and the mixed window x[ilo, ilo + n_x) of row c:
+// mixed_b = 2 * e * n_b, made here so that it never reaches device memory.
+__device__ __forceinline__ void stage_mixed(const Args& p, int c, int ilo,
+                                            int n_x, float* sh, float* sxi,
+                                            float* sxq) {
+  for (int k = threadIdx.x; k < p.taps; k += kThreads) sh[k] = p.h[k];
+  const size_t row = (size_t)c * p.n + ilo;
+  for (int j = threadIdx.x; j < n_x; j += kThreads) {
+    const float e2 = 2.0f * p.e[row + j];
+    sxi[j] = e2 * p.ni[row + j];
+    sxq[j] = e2 * p.nq[row + j];
+  }
+}
+
+// The resampler stage: outputs [m_first, m_end) of the row into slots
+// (m - slot0), before the carried-zi terms and the gain.  Outputs are dealt
+// to threads in groups of 32 * L (L = lane_stride): warp w of a group takes
+// the outputs w, w + L, w + 2L, ... of the group's 32 * L.  kSplit: one
+// thread per (output, branch) instead of one per output for both.
+template <bool kSplit>
+__device__ __forceinline__ void resample_stage(
+    const Args& p, const float* sh, const float* sxi, const float* sxq,
+    int ilo, int m_first, int m_end, int slot0, float* sri, float* srq) {
+  const int t1 = p.taps - 1;
+  const int L = p.lane_stride;
+  const int group = 32 * L;
+  const int n_comp = m_end - m_first;
+  const int n_rounded = (n_comp + group - 1) / group * group;
+  const int n_work = kSplit ? 2 * n_rounded : n_rounded;
+  for (int s = threadIdx.x; s < n_work; s += kThreads) {
+    const int b = kSplit ? s / n_rounded : 0;     // branch (split only)
+    const int sl = s - b * n_rounded;
+    const int w = sl >> 5, lane = sl & 31;
+    const int ml = (w / L) * group + (w % L) + L * lane;
+    if (ml >= n_comp) continue;
+    const int m = m_first + ml;
+    const long long pos = (long long)m * p.down;
+    const int i0 = (int)(pos / p.up);
+    const int ph = (int)(pos - (long long)i0 * p.up);
+    // taps ph + up*j <= t1 that meet a sample x[i0 - j], i0 - j >= 0
+    const int nj = t1 < ph ? 0 : min((t1 - ph) / p.up, i0) + 1;
+    const float* hp = sh + ph;
+    if (kSplit) {
+      const float* x = (b ? sxq : sxi) + (i0 - ilo);
+      float a = 0.0f;
+#pragma unroll 4
+      for (int j = 0; j < nj; ++j) a = fmaf(hp[j * p.up], x[-j], a);
+      (b ? srq : sri)[m - slot0] = a;
+    } else {
+      const float* xi = sxi + (i0 - ilo);
+      const float* xq = sxq + (i0 - ilo);
+      float ai = 0.0f, aq = 0.0f;
+#pragma unroll 4
+      for (int j = 0; j < nj; ++j) {
+        const float hk = hp[j * p.up];
+        ai = fmaf(hk, xi[-j], ai);
+        aq = fmaf(hk, xq[-j], aq);
+      }
+      sri[m - slot0] = ai;
+      srq[m - slot0] = aq;
+    }
+  }
+}
+
+// The carried resampler state: outputs with m*down < t1 also read zi.  One
+// warp per (output, branch): lanes stride over the dense taps, four
+// independent sums keep four 128-byte reads of zi in flight per warp.
+__device__ __forceinline__ void add_carried(const Args& p, int c,
+                                            const float* sh, int m_first,
+                                            int m_end, int slot0, float* sri,
+                                            float* srq) {
+  const int t1 = p.taps - 1;
+  const int nb = (t1 + p.down - 1) / p.down;       // outputs that reach zi
+  const int hi = min(m_end, nb);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t zrow = (size_t)c * 2 * t1;
+  for (int q = 2 * m_first + warp; q < 2 * hi; q += kThreads / 32) {
+    const int m = q >> 1, b = q & 1;
+    const int pos = m * p.down;                    // < t1
+    const float* z = p.zi + zrow + (size_t)b * t1;
+    // tap k in (pos, t1] reads zi[pos + t1 - k]
+    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+    int k = pos + 1 + lane;
+    for (; k + 96 <= t1; k += 128) {
+      a0 = fmaf(sh[k], z[pos + t1 - k], a0);
+      a1 = fmaf(sh[k + 32], z[pos + t1 - k - 32], a1);
+      a2 = fmaf(sh[k + 64], z[pos + t1 - k - 64], a2);
+      a3 = fmaf(sh[k + 96], z[pos + t1 - k - 96], a3);
+    }
+    for (; k <= t1; k += 32) a0 = fmaf(sh[k], z[pos + t1 - k], a0);
+    float acc = (a0 + a1) + (a2 + a3);
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, d);
+    if (lane == 0) (b ? srq : sri)[m - slot0] += acc;
+  }
+}
 
 __global__ void __launch_bounds__(kThreads) resample_rrc_kernel(Args p) {
   extern __shared__ float smem[];
-  const int t1 = p.taps - 1, t1r = p.rtaps - 1;
+  const int t1r = p.rtaps - 1;
   float* sh = smem;                        // taps
   float* sg = sh + p.taps;                 // rtaps
   float* sxi = sg + p.rtaps;               // mixed I window (x_cap)
@@ -78,54 +206,14 @@ __global__ void __launch_bounds__(kThreads) resample_rrc_kernel(Args p) {
   const int mhi = m0 + own;                        // one past the last
 
   // x window [ilo, ihi] that the computed outputs read
-  const long long num = (long long)mlo_c * p.down - t1;
-  const int ilo = num <= 0 ? 0 : (int)((num + p.up - 1) / p.up);
+  const int ilo = x_first(p, mlo_c);
   const int ihi = (int)(((long long)(mhi - 1) * p.down) / p.up);
-  const int n_x = ihi - ilo + 1;
-
-  for (int k = tid; k < p.taps; k += kThreads) sh[k] = p.h[k];
+  stage_mixed(p, c, ilo, ihi - ilo + 1, sh, sxi, sxq);
   for (int k = tid; k < p.rtaps; k += kThreads) sg[k] = p.g[k];
-  {
-    const size_t row = (size_t)c * p.n + ilo;
-    for (int j = tid; j < n_x; j += kThreads) {
-      const float e2 = 2.0f * p.e[row + j];
-      sxi[j] = e2 * p.ni[row + j];
-      sxq[j] = e2 * p.nq[row + j];
-    }
-  }
   __syncthreads();
 
-  // ---- resampler: slot s holds r[mlo + s].  Slots are dealt to threads in
-  // groups of 32 * L (L = lane_stride): warp w of a group takes the outputs
-  // w, w + L, w + 2L, ... of the group's 32 * L.
-  const int L = p.lane_stride;
-  const int group = 32 * L;
-  const int n_comp = mhi - mlo_c;                  // outputs to compute
-  const int n_rounded = (n_comp + group - 1) / group * group;
-  const size_t zrow = (size_t)c * 2 * t1;
-  for (int s = tid; s < n_rounded; s += kThreads) {
-    const int w = s >> 5, lane = s & 31;
-    const int ml = (w / L) * group + (w % L) + L * lane;   // 0 .. n_rounded
-    if (ml >= n_comp) continue;
-    const int m = mlo_c + ml;
-    const long long pos = (long long)m * p.down;
-    const int i0 = (int)(pos / p.up);
-    const int ph = (int)(pos - (long long)i0 * p.up);
-    // taps ph + up*j <= t1 that meet a sample x[i0 - j], i0 - j >= 0
-    const int nj = t1 < ph ? 0 : min((t1 - ph) / p.up, i0) + 1;
-    const float* xi = sxi + (i0 - ilo);
-    const float* xq = sxq + (i0 - ilo);
-    const float* hp = sh + ph;
-    float ai = 0.0f, aq = 0.0f;
-#pragma unroll 4
-    for (int j = 0; j < nj; ++j) {
-      const float hk = hp[j * p.up];
-      ai = fmaf(hk, xi[-j], ai);
-      aq = fmaf(hk, xq[-j], aq);
-    }
-    sri[m - mlo] = ai;
-    srq[m - mlo] = aq;
-  }
+  // ---- resampler: slot s holds r[mlo + s]
+  resample_stage<false>(p, sh, sxi, sxq, ilo, mlo_c, mhi, mlo, sri, srq);
   // the first tile's look-back is the carried RRC state
   if (mlo < 0) {
     const size_t rrow = (size_t)c * 2 * t1r;
@@ -135,35 +223,7 @@ __global__ void __launch_bounds__(kThreads) resample_rrc_kernel(Args p) {
     }
   }
   __syncthreads();
-
-  // ---- carried resampler state: outputs with m*down < t1 also read zi.
-  // One warp per (output, branch): lanes stride over the dense taps.
-  {
-    const int nb = (t1 + p.down - 1) / p.down;     // outputs that reach zi
-    const int lo = mlo_c, hi = min(mhi, nb);
-    const int warp = tid >> 5, lane = tid & 31;
-    for (int q = 2 * lo + warp; q < 2 * hi; q += kThreads / 32) {
-      const int m = q >> 1, b = q & 1;
-      const int pos = m * p.down;                  // < t1
-      const float* z = p.zi + zrow + (size_t)b * t1;
-      // tap k in (pos, t1] reads zi[pos + t1 - k]; four independent sums
-      // keep four 128-byte reads of zi in flight per warp
-      float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
-      int k = pos + 1 + lane;
-      for (; k + 96 <= t1; k += 128) {
-        a0 = fmaf(sh[k], z[pos + t1 - k], a0);
-        a1 = fmaf(sh[k + 32], z[pos + t1 - k - 32], a1);
-        a2 = fmaf(sh[k + 64], z[pos + t1 - k - 64], a2);
-        a3 = fmaf(sh[k + 96], z[pos + t1 - k - 96], a3);
-      }
-      for (; k <= t1; k += 32) a0 = fmaf(sh[k], z[pos + t1 - k], a0);
-      float acc = (a0 + a1) + (a2 + a3);
-#pragma unroll
-      for (int d = 16; d > 0; d >>= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, d);
-      if (lane == 0) (b ? srq : sri)[m - mlo] += acc;
-    }
-  }
+  add_carried(p, c, sh, mlo_c, mhi, mlo, sri, srq);
   __syncthreads();
   for (int s = tid + (mlo_c - mlo); s < n_slots; s += kThreads) {
     sri[s] *= p.gain;
@@ -198,6 +258,41 @@ __global__ void __launch_bounds__(kThreads) resample_rrc_kernel(Args p) {
   }
 }
 
+template <bool kSplit>
+__global__ void __launch_bounds__(kThreads) resample_mix_kernel(Args p) {
+  extern __shared__ float smem[];
+  float* sh = smem;                        // taps
+  float* sxi = sh + p.taps;                // mixed I window (x_cap)
+  float* sxq = sxi + p.x_cap;              // mixed Q window
+  float* sri = sxq + p.x_cap;              // outputs I of the tile
+  float* srq = sri + p.n_slots_cap;        // outputs Q of the tile
+
+  const int c = blockIdx.x / p.n_tiles;
+  const int m0 = (blockIdx.x % p.n_tiles) * p.tile;   // first output owned
+  const int own = min(p.tile, p.m - m0);
+  const int mhi = m0 + own;
+  const int ilo = x_first(p, m0);
+  const int ihi = (int)(((long long)(mhi - 1) * p.down) / p.up);
+  stage_mixed(p, c, ilo, ihi - ilo + 1, sh, sxi, sxq);
+  __syncthreads();
+  resample_stage<kSplit>(p, sh, sxi, sxq, ilo, m0, mhi, m0, sri, srq);
+  __syncthreads();
+  add_carried(p, c, sh, m0, mhi, m0, sri, srq);
+  __syncthreads();
+  const size_t yrow = (size_t)c * 2 * p.m + m0;
+  for (int o = threadIdx.x; o < own; o += kThreads) {
+    p.y[yrow + o] = sri[o] * p.gain;
+    p.y[yrow + p.m + o] = srq[o] * p.gain;
+  }
+}
+
+cudaError_t allow_smem(const void* kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
 }  // namespace
 
 // e, ni, nq: (C, n); h: (taps,); zi: (C, 2, taps-1); g: (rtaps,);
@@ -220,6 +315,7 @@ extern "C" int rtsdr_resample_rrc(const float* e, const float* ni,
   p.rrc_zi = rrc_zi; p.y = y; p.rrc_zi_out = rrc_zi_out;
   p.n_ch = n_ch; p.n = n; p.m = m; p.taps = taps; p.up = up; p.down = down;
   p.rtaps = rtaps; p.lane_stride = lane_stride; p.gain = gain;
+  p.tile = kTile;
   p.n_tiles = (m + kTile - 1) / kTile;
   p.n_slots_cap = kTile + rtaps - 1;
   // x samples a block's outputs can read: their span plus one filter length
@@ -227,13 +323,50 @@ extern "C" int rtsdr_resample_rrc(const float* e, const float* ni,
   const size_t smem = sizeof(float) * ((size_t)taps + rtaps +
                                        2 * (size_t)p.x_cap +
                                        2 * (size_t)p.n_slots_cap);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        resample_rrc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  cudaError_t err = allow_smem((const void*)resample_rrc_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
   resample_rrc_kernel<<<(unsigned)(n_ch * p.n_tiles), kThreads, smem,
                         (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// e, ni, nq: (C, n); h: (taps,); zi: (C, 2, taps-1); y: (C, 2, m),
+// m = n*up/down.  All float32.  Needs n*up % down == 0 and n*up >= taps-1.
+// split != 0 launches the one-thread-per-branch instance.  Returns
+// cudaGetLastError().
+extern "C" int rtsdr_resample_mix(const float* e, const float* ni,
+                                  const float* nq, const float* h,
+                                  const float* zi, float* y, int n_ch, int n,
+                                  int m, int taps, int up, int down,
+                                  int lane_stride, int split, float gain,
+                                  void* stream) {
+  if (n_ch <= 0 || n <= 0 || taps < 1 || up < 1 || down < 1 ||
+      lane_stride < 1 || (long long)n * up != (long long)m * down ||
+      (long long)n * up < taps - 1)
+    return (int)cudaErrorInvalidValue;
+  Args p = {};
+  p.e = e; p.ni = ni; p.nq = nq; p.h = h; p.zi = zi; p.y = y;
+  p.n_ch = n_ch; p.n = n; p.m = m; p.taps = taps; p.up = up; p.down = down;
+  p.lane_stride = lane_stride; p.gain = gain;
+  p.tile = kTile;
+  while (p.tile > kTile / 8 &&
+         (long long)n_ch * ((m + p.tile - 1) / p.tile) < kMinBlocks)
+    p.tile /= 2;
+  p.n_tiles = (m + p.tile - 1) / p.tile;
+  p.n_slots_cap = p.tile;
+  p.x_cap = (int)(((long long)p.tile * down + (taps - 1)) / up) + 2;
+  const size_t smem = sizeof(float) * ((size_t)taps + 2 * (size_t)p.x_cap +
+                                       2 * (size_t)p.n_slots_cap);
+  const void* kernel = split ? (const void*)resample_mix_kernel<true>
+                             : (const void*)resample_mix_kernel<false>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)(n_ch * p.n_tiles);
+  if (split)
+    resample_mix_kernel<true><<<blocks, kThreads, smem,
+                                (cudaStream_t)stream>>>(p);
+  else
+    resample_mix_kernel<false><<<blocks, kThreads, smem,
+                                 (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

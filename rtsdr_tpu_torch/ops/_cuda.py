@@ -35,8 +35,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     # raw, rf_h, zi_i, zi_q, out_i, out_q, zi_i_out, zi_q_out,
-    # C, n_pairs, taps, decim, stream
-    "rtsdr_ingest_iq": [_P] * 8 + [_I] * 4 + [_P],
+    # C (output rows), n_pairs, taps, decim, n_seg (segments per raw row),
+    # stream
+    "rtsdr_ingest_iq": [_P] * 8 + [_I] * 5 + [_P],
     # raw, rf_h, zi_i, zi_q, prev_i, prev_q, fm, zi_i_out, zi_q_out,
     # prev_i_out, prev_q_out, C, n_pairs, taps, decim, stream
     "rtsdr_ingest_fm": [_P] * 11 + [_I] * 4 + [_P],
@@ -59,6 +60,9 @@ _ARGTYPES = {
     # e, nco_i, nco_q, h, zi, rrc_h, rrc_zi, y, rrc_zi_out, C, N, M, taps,
     # up, down, rrc_taps, lane_stride, gain, stream
     "rtsdr_resample_rrc": [_P] * 9 + [_I] * 8 + [_F, _P],
+    # e, nco_i, nco_q, h, zi, y, C, N, M, taps, up, down, lane_stride,
+    # split, gain, stream
+    "rtsdr_resample_mix": [_P] * 6 + [_I] * 8 + [_F, _P],
     # raw, zi, g (taps, K, 2), y, zi_out, B, n_pairs, K, taps, d, stream
     "rtsdr_channelize_composed": [_P] * 5 + [_I] * 5 + [_P],
 }

@@ -1,15 +1,18 @@
-"""RDS mixer + rational resampler + RRC matched filter on the hand-written
-CUDA kernel ``csrc/resample_rrc.cu``.
+"""RDS mixer + rational resampler (+ RRC matched filter) on the hand-written
+CUDA kernels of ``csrc/resample_rrc.cu``.
 
 Counterpart of ``rtsdr_tpu/ops/pallas_fir.py`` (``resample_mul2_rrc``,
-``resample_mul2_tail``): one pass does
+``resample_mul2``, ``resample_mul2_tail``): one pass of
+``resample_mul2_rrc`` does
 
     mixed  = 2 * extract[..., None, :] * stack([nco_i, nco_q], -2)
     resamp, new_zi     = fir_resample(mixed, h, zi, up, down)   (gain = up)
     rrc,    new_rrc_zi = fir_block(resamp, rrc_h, rrc_zi)
 
 and the (..., 2, N) mixed streams and the (..., 2, M) resampler stream never
-reach device memory.  ``zi`` is the carried tail of the zero-stuffed mixed
+reach device memory; ``resample_mul2`` stops after the resampler and writes
+its (..., 2, M) output (the time-sharded receiver's route, which runs the
+RRC after the halo exchange).  ``zi`` is the carried tail of the zero-stuffed mixed
 stream (upsampled domain, arbitrary floats); ``new_zi`` is computed here
 from the last ceil((taps-1)/up) inputs with a few stock ops
 (``resample_mul2_tail``), as the reference computes it outside its kernel.
@@ -19,9 +22,10 @@ does about that is in the note at the top of ``csrc/resample_rrc.cu``.  Any
 ``C >= 1``, ``up``, ``down`` and tap counts are taken as long as
 ``N * up`` divides by ``down``.
 
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
-it runs the plain version (``resample_mul2_rrc_ref``), which is also what
-the kernel is compared with on the card.
+On a CUDA tensor the wrappers launch their kernel or raise; on a CPU tensor
+they run the plain versions (``resample_mul2_rrc_ref``,
+``resample_mul2_ref``), which are also what the kernels are compared with
+on the card.
 """
 
 from __future__ import annotations
@@ -63,6 +67,14 @@ def resample_mul2_rrc_ref(extract, nco_i, nco_q, h, zi, rrc_h, rrc_zi,
     rext = torch.cat([rrc_zi, resamp], dim=-1)
     return (_conv1d_valid(rext, rrc_h), new_zi,
             rext[..., -(len(rrc_h) - 1):].contiguous())
+
+
+def resample_mul2_ref(extract, nco_i, nco_q, h, zi, up: int, down: int,
+                      gain: float | None = None):
+    """Plain PyTorch version of ``resample_mul2`` (any device/dtype): the
+    materialized mixer followed by ``fir_resample``."""
+    return fir_resample(_mixed(extract, nco_i, nco_q), h, zi, up, down,
+                        gain=gain)
 
 
 def _lane_stride(up: int, down: int) -> int:
@@ -133,3 +145,66 @@ def resample_mul2_rrc(extract, nco_i, nco_q, h, zi, rrc_h, rrc_zi,
         c, n, m, taps, up, down, rtaps, _lane_stride(up, down), float(gain))
     new_zi = resample_mul2_tail(extract, nco_i, nco_q, taps - 1, up)
     return rrc, new_zi, new_rrc_zi
+
+
+#: ``resample_mul2``'s kernel instances: launch-count name, ``split`` flag
+_MIX_IMPLS = {"auto": ("resample_mix", 1), "pair": ("resample_mix.pair", 0)}
+
+
+def resample_mul2(extract, nco_i, nco_q, h, zi, up: int, down: int,
+                  gain: float | None = None, impl: str = "auto"
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused RDS mixer + rational resampler, one kernel launch.
+
+    Equivalent to ``fir_resample(2*extract*stack([nco_i, nco_q]), h, zi,
+    up, down, gain)``; the mixed streams never reach device memory.
+
+    Args:
+      extract, nco_i, nco_q: (..., N) float32.
+      h: (taps,) filter at the rate ``fs * up``; zi: (..., 2, taps-1)
+        upsampled-domain carry (arbitrary floats: a time shard's is its left
+        neighbour's tail).
+      impl: "auto" (the production instance: one thread per output and
+        branch) or "pair" (one thread makes both branches' outputs from one
+        tap read; the layout probe's other arm,
+        ``tools/torch_profile_resample.py``).  A CPU tensor runs the plain
+        version either way.
+
+    Returns (y (..., 2, N*up/down), new_zi (..., 2, taps-1)).
+    """
+    if impl not in _MIX_IMPLS:
+        raise ValueError(f"resample_mul2: unknown impl {impl!r}")
+    if gain is None:
+        gain = float(up)
+    if not extract.is_cuda:
+        return resample_mul2_ref(extract, nco_i, nco_q, h, zi, up, down,
+                                 gain)
+    if extract.dim() < 1:
+        raise ValueError(
+            f"extract: expected (..., N), got {tuple(extract.shape)}")
+    lead, n = tuple(extract.shape[:-1]), extract.shape[-1]
+    c = math.prod(lead)
+    if c < 1 or n < 1:
+        raise ValueError(f"extract: empty input {tuple(extract.shape)}")
+    if up < 1 or down < 1 or (n * up) % down:
+        raise ValueError(
+            f"resample_mul2: {n} samples x{up} do not divide by {down}")
+    taps = len(h)
+    if n * up < taps - 1:
+        raise ValueError(
+            f"resample_mul2: a block of {n} samples is shorter than the "
+            "carried tail")
+    dev = extract.device
+    _cuda.check(extract, "extract", dtype=_F32)
+    _cuda.check(nco_i, "nco_i", (*lead, n), _F32, dev)
+    _cuda.check(nco_q, "nco_q", (*lead, n), _F32, dev)
+    _cuda.check(zi, "zi", (*lead, 2, taps - 1), _F32, dev)
+    m = n * up // down
+    y = torch.empty((*lead, 2, m), dtype=_F32, device=dev)
+    name, split = _MIX_IMPLS[impl]
+    _cuda.launch(
+        "rtsdr_resample_mix", name,
+        _cuda.ptr(extract), _cuda.ptr(nco_i), _cuda.ptr(nco_q),
+        _cuda.ptr(_taps_on([h], dev)), _cuda.ptr(zi), _cuda.ptr(y),
+        c, n, m, taps, up, down, _lane_stride(up, down), split, float(gain))
+    return y, resample_mul2_tail(extract, nco_i, nco_q, taps - 1, up)

@@ -44,10 +44,20 @@ def _decimate_ref(x, h, zi, decim):
     return _conv1d_valid(xext, h, decim), xext[..., -(len(h) - 1):]
 
 
-def ingest_fir_decimate_ref(raw_u8, h, zi_i, zi_q, decim: int):
+def ingest_fir_decimate_ref(raw_u8, h, zi_i, zi_q, decim: int,
+                            segments: int | None = None):
     """Plain PyTorch version of ``ingest_fir_decimate``."""
-    iq = normalize_deinterleave(raw_u8, zi_i.dtype)
     zi = torch.stack([zi_i, zi_q], dim=-2)
+    if segments is not None:
+        # (S, ..., 2N): segment s > 0 reads the preceding segment's tail
+        # where segment 0 reads the zero level; the zi adds to both
+        t1 = len(h) - 1
+        _segment_pairs(raw_u8, segments, t1)
+        raw_u8 = raw_u8.reshape(*raw_u8.shape[:-1], segments, -1)
+        raw_u8 = raw_u8.movedim(-2, 0)
+        tails = normalize_deinterleave(raw_u8[:-1, ..., -2 * t1:], zi.dtype)
+        zi = zi + torch.cat([torch.zeros_like(zi[:1]), tails])
+    iq = normalize_deinterleave(raw_u8, zi_i.dtype)
     y, new_zi = _decimate_ref(iq, h, zi, decim)
     return (y[..., 0, :], y[..., 1, :],
             new_zi[..., 0, :].contiguous(), new_zi[..., 1, :].contiguous())
@@ -77,12 +87,29 @@ def ingest_fir_demod_audio_ref(raw_u8, h, zi_i, zi_q, prev_i, prev_q,
     return (*base, tuple(_conv1d_valid(bext, bh) for bh in bank_h))
 
 
-def _check_common(raw_u8, h, zi_i, zi_q, decim):
+def _segment_pairs(raw_u8, segments: int, t1: int) -> int:
+    """Pairs per segment; a segment must hold a whole carried tail."""
+    n_raw = raw_u8.shape[-1]
+    if segments < 1 or n_raw % (2 * segments):
+        raise ValueError(f"raw_u8: {n_raw} bytes do not split into "
+                         f"{segments} segments of whole pairs")
+    n_pairs = n_raw // (2 * segments)
+    if segments > 1 and n_pairs < t1:
+        raise ValueError(
+            f"ingest_fir_decimate: segments of {n_pairs} pairs are fewer "
+            f"than the {t1}-sample carried tail")
+    return n_pairs
+
+
+def _check_common(raw_u8, h, zi_i, zi_q, decim, segments=None):
     if raw_u8.dim() < 1:
         raise ValueError(
             f"raw_u8: expected (..., 2N), got {tuple(raw_u8.shape)}")
     _cuda.check(raw_u8, "raw_u8", dtype=torch.uint8)
     lead, n_raw = tuple(raw_u8.shape[:-1]), raw_u8.shape[-1]
+    if segments is not None:
+        lead = (segments, *lead)
+        n_raw = 2 * _segment_pairs(raw_u8, segments, len(h) - 1)
     if n_raw % 2 or (n_raw // 2) % decim:
         raise ValueError(
             f"raw_u8: {n_raw} bytes is not a whole number of {decim}-pair "
@@ -100,15 +127,25 @@ def _new(shape, dev):
     return torch.empty(shape, dtype=_F32, device=dev)
 
 
-def ingest_fir_decimate(raw_u8: torch.Tensor, h, zi_i, zi_q, decim: int):
+def ingest_fir_decimate(raw_u8: torch.Tensor, h, zi_i, zi_q, decim: int,
+                        segments: int | None = None):
     """uint8 (..., 2N) interleaved IQ -> ((..., M) i, (..., M) q, new zis).
 
     Exactly ``fir_decimate(normalize(deinterleave(raw)), h, zi, decim)``
     for both I and Q, M = N/decim.
+
+    ``segments=S`` (the time-sharded receiver's form): each raw row is S
+    consecutive segments of 2N' bytes, each filtered as a block of its own
+    with a segment axis first: zi and outputs are (S, ..., taps-1) and
+    (S, ..., N'/decim).  Segment s > 0 reads the preceding segment's bytes
+    as its left halo where segment 0 reads the zero level, and zi adds to
+    every segment (zeros for s > 0 make it the serial filter over the whole
+    row).  The kernel reads every segment and its halo in place.
     """
     if not raw_u8.is_cuda:
-        return ingest_fir_decimate_ref(raw_u8, h, zi_i, zi_q, decim)
-    lead, c, n_pairs, dev = _check_common(raw_u8, h, zi_i, zi_q, decim)
+        return ingest_fir_decimate_ref(raw_u8, h, zi_i, zi_q, decim, segments)
+    lead, c, n_pairs, dev = _check_common(raw_u8, h, zi_i, zi_q, decim,
+                                          segments)
     m = n_pairs // decim
     y_i, y_q = _new((*lead, m), dev), _new((*lead, m), dev)
     zi_i_n, zi_q_n = torch.empty_like(zi_i), torch.empty_like(zi_q)
@@ -116,7 +153,7 @@ def ingest_fir_decimate(raw_u8: torch.Tensor, h, zi_i, zi_q, decim: int):
         "rtsdr_ingest_iq", "ingest.iq",
         _cuda.ptr(raw_u8), _cuda.ptr(_taps_on([h], dev)), _cuda.ptr(zi_i),
         _cuda.ptr(zi_q), _cuda.ptr(y_i), _cuda.ptr(y_q), _cuda.ptr(zi_i_n),
-        _cuda.ptr(zi_q_n), c, n_pairs, len(h), decim)
+        _cuda.ptr(zi_q_n), c, n_pairs, len(h), decim, segments or 1)
     return y_i, y_q, zi_i_n, zi_q_n
 
 

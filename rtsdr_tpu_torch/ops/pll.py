@@ -16,7 +16,9 @@ sample, and ``state.nco_i/q`` is the undelayed last sample.
 
 The per-sample Python loop here is the PLAIN VERSION of the CUDA kernel
 (``ops/cuda_pll.py``); ``impl='auto'`` sends CUDA input to the kernel
-(float32 or it raises) and CPU input to the loop.  ``pll_extrapolate*`` (time-sharded receivers) is not ported yet.
+(float32 or it raises) and CPU input to the loop.  ``pll_extrapolate_by``
+/ ``pll_extrapolate`` advance a locked state with no input (the seeds of
+the time-sharded receiver's concurrent PLL handoffs).
 """
 
 from __future__ import annotations
@@ -187,3 +189,50 @@ def pll_loop(x: torch.Tensor, state: PLLState, *, freq, fs: float,
         nco_i=nco_i_new[..., -1].clone(), nco_q=nco_q_new[..., -1].clone(),
         theta=theta)
     return nco_i, nco_q, new_state
+
+
+def pll_extrapolate_by(state: PLLState, theta_advance, n_steps, *,
+                       nco_scale=1.0, phase_adjust=0.0) -> PLLState:
+    """Advance a PLL state with no input, assuming lock, by a precomputed
+    ramp advance.
+
+    In lock the detector error is ~0, so per step the loop advances
+    ``theta`` by the NCO ramp ``2*pi*freq/fs`` and ``phase_est`` by the
+    integrator; the feedback and NCO samples are recomputed from the
+    extrapolated angles exactly as the loop would.
+
+    ``theta_advance`` is ``(n_steps * dtheta) mod 4*pi``, computed on the
+    host in float64 so that extrapolation adds no trig-argument drift.
+    ``theta_advance``, ``n_steps``, ``nco_scale`` and ``phase_adjust`` may
+    be numpy arrays broadcastable against the state's batch shape (the
+    time-sharded receiver extrapolates each shard by its own offset, and
+    two differently configured loops, in one call); the result has the
+    broadcast shape.
+    """
+    leaf = state.phase_est
+    dtype, dev = leaf.dtype, leaf.device
+
+    def const(v):
+        return torch.as_tensor(np.asarray(v, np.float64)).to(dtype).to(dev)
+
+    theta = torch.remainder(state.theta + const(theta_advance), _FOUR_PI)
+    phase = torch.remainder(state.phase_est
+                            + const(n_steps) * state.integrator, _FOUR_PI)
+    arg = theta + phase
+    nco_arg = arg * const(nco_scale) + const(phase_adjust)
+    shape = arg.shape
+    return PLLState(integrator=state.integrator.expand(shape).contiguous(),
+                    phase_est=phase, fb_i=torch.cos(arg), fb_q=torch.sin(arg),
+                    nco_i=torch.cos(nco_arg), nco_q=torch.sin(nco_arg),
+                    theta=theta)
+
+
+def pll_extrapolate(state: PLLState, n_steps: int, *, freq, fs: float,
+                    nco_scale=1.0, phase_adjust=0.0) -> PLLState:
+    """Advance a PLL state ``n_steps`` samples with no input, assuming
+    lock (the float64 ramp advance computed here; see
+    ``pll_extrapolate_by``)."""
+    dth = np.mod(2.0 * np.pi * np.float64(freq) / np.float64(fs)
+                 * np.float64(n_steps), 2.0 * _FOUR_PI) % _FOUR_PI
+    return pll_extrapolate_by(state, dth, float(n_steps),
+                              nco_scale=nco_scale, phase_adjust=phase_adjust)

@@ -1,0 +1,420 @@
+"""Time-block sharded receiver: one block split into T chunks side by side.
+
+Counterpart of ``rtsdr_tpu/parallel/timeshard.py``.  Every FIR's and
+resampler's carried state is the last ``taps-1`` input samples, so chunk
+t's state is chunk t-1's input tail (a halo exchange); the discriminator's
+one-sample state is the same pattern; the PLL recurrence either pipelines
+its state chunk to chunk (``'exact'``) or runs all chunks at once from
+extrapolated seeds (``'stale'``, ``'iterate'``); the RDS bit layer runs
+once on the gathered 57 kS/s stream.
+
+Where JAX spreads the T chunks over the devices of the mesh's ``t`` axis,
+the port keeps the T chunks of one channel shard on that shard's device,
+stacked along a leading dimension, and each collective of the time axis
+becomes a tensor operation on that dimension (``_TimeAxis``):
+
+  =====================  =============================================
+  JAX                    here
+  =====================  =============================================
+  ``axis_index``         the position along the stacked dimension
+  ``ppermute`` right     shift by one shard (``halo``: shard 0 takes the
+                         carried value in the same copy)
+  ``where(t == 0, ..)``  shard 0 takes the carried value (``first_or``)
+  ``psum(where(last))``  shard T-1
+  ``psum``               sum over the stacked dimension
+  ``all_gather(tiled)``  the stacked dimension folded into time
+  =====================  =============================================
+
+The kernels see the stacked (T*C, N/T) rows in one launch each.  The two
+PLL loops (stereo pilot, RDS carrier) run as one launch, as in the serial
+receiver: ``'exact'`` launches T times, chunk after chunk, C lanes each;
+``'stale'`` once over T*C lanes; ``'iterate'`` twice.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from rtsdr_tpu_torch.config import ReceiverConfig
+from rtsdr_tpu_torch.device import require_kernel_dtype
+from rtsdr_tpu_torch.ops import coeffs
+from rtsdr_tpu_torch.ops.cuda_fir import fir_bank_carried, fir_block_pre
+from rtsdr_tpu_torch.ops.cuda_resample import (
+    resample_mul2,
+    resample_mul2_tail,
+)
+from rtsdr_tpu_torch.ops.demod import fm_discriminator
+from rtsdr_tpu_torch.ops.fir import (
+    _upsampled_tail_of,
+    fir_block,
+    fir_block_bank,
+    fir_decimate,
+    fir_resample,
+)
+from rtsdr_tpu_torch.ops.iir import deemphasize
+from rtsdr_tpu_torch.ops.ingestfir import (
+    ingest_fir_decimate,
+    normalize_deinterleave,
+)
+from rtsdr_tpu_torch.ops.pll import PLLState, pll, pll_extrapolate_by
+from rtsdr_tpu_torch.parallel.mesh import (
+    CHANNEL_AXIS,
+    TIME_AXIS,
+    Mesh,
+    row_split,
+    rows_on,
+)
+from rtsdr_tpu_torch.pipeline.audio import AudioState, audio_lpf_taps
+from rtsdr_tpu_torch.pipeline.frame import make_frame
+from rtsdr_tpu_torch.pipeline.frontend import FrontendState, rf_lpf_taps
+from rtsdr_tpu_torch.pipeline.rds import RDSState, composed_resampler_taps
+from rtsdr_tpu_torch.pipeline.receiver import (
+    ReceiverOutputs,
+    ReceiverState,
+    make_receiver,
+)
+from rtsdr_tpu_torch.utils.shards import step_shards
+
+
+class _TimeAxis:
+    """The collectives of the time axis over T shards stacked along ``dim``
+    (0 unless said)."""
+
+    def __init__(self, n_shards: int):
+        self.n = n_shards
+
+    def first_or(self, carried, received, dim=0):
+        """Shard 0 takes ``carried`` (shaped as one shard), the others
+        their ``received``."""
+        return torch.cat([carried.unsqueeze(dim).to(received.dtype),
+                          received.narrow(dim, 1, self.n - 1)], dim)
+
+    def halo(self, carried, local, dim=0):
+        """``first_or(carried, ppermute_right(local))`` in one copy: each
+        shard gets its left neighbour's ``local``, shard 0 the carried
+        state."""
+        return torch.cat([carried.unsqueeze(dim).to(local.dtype),
+                          local.narrow(dim, 0, self.n - 1)], dim)
+
+    def from_last(self, x, dim=0):
+        """The last shard's value (the block's new carried state)."""
+        return x.select(dim, self.n - 1)
+
+    def psum(self, x, dim=0):
+        return x.sum(dim)
+
+    def all_gather(self, x, dim=0):
+        """(..T.., ..., n) -> (..., T*n): the chunks in time order."""
+        x = x.movedim(dim, -2)
+        return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+
+
+def make_time_sharded_receiver(
+    cfg: ReceiverConfig,
+    mesh: Mesh,
+    n_channels: int,
+    dtype=torch.float32,
+    *,
+    enable_rds: bool | None = None,
+    enable_frame: bool = True,
+    offset_mode: str = "hold",
+    use_abs_clock: bool = False,
+    resync: bool = False,
+    pll_impl: str = "auto",
+    deemphasis: float | None = None,
+    ingest_impl: str = "auto",
+    resamp_impl: str = "auto",
+    pll_handoff: str = "exact",
+    pll_loop_div: int = 1,
+    error_correct: bool = False,
+    stereo_blend: bool | tuple = False,
+    derotate: bool = False,
+):
+    """Build ``(init_fn, step_fn)`` sharded over (channel, time).
+
+    ``step_fn(state, raw_u8)``: raw_u8 is (n_channels, block_size) uint8 (a
+    host array or a tensor on any device); each channel shard's rows go to
+    its device.  ``state`` is a tuple with one serial-layout
+    ``ReceiverState`` per channel shard, each on its device (``init_fn``
+    makes it).  Outputs are the serial receiver's ``ReceiverOutputs``
+    shapes, rows in global order, on the mesh's first device (with
+    ``enable_frame=False`` the RDS output is the gathered (rrc_i, rrc_q)
+    pair).
+
+    ``pll_handoff``:
+      * ``'exact'``: the PLL state pipelines chunk to chunk — T dependent
+        launches; the serial receiver's result.
+      * ``'stale'``: every chunk runs at once, seeded from the exact carry
+        of the previous block extrapolated at the locked slope across the
+        chunk's own offset (``ops/pll.py::pll_extrapolate_by``); shard 0 is
+        exact.  A lock-transient approximation, not bit-exact.
+      * ``'iterate'``: ``'stale'`` plus one pass in which chunk k is
+        re-seeded from chunk k-1's end state of the first pass.
+
+    ``ingest_impl``: ``'fused'`` (the ingest kernel over every chunk and
+    its left neighbour's raw tail in place, ``ingest_fir_decimate(...,
+    segments=T)``) or ``'split'``
+    (normalize, then the FIR bank at stride ``decim``); ``'auto'`` is
+    ``'fused'`` on a CUDA mesh and ``'split'`` on the CPU.
+    """
+    if enable_rds is None:
+        enable_rds = cfg.rds is not None
+    if enable_rds and cfg.rds is None:
+        raise ValueError(f"mode {cfg.mode} has no RDS path")
+    if pll_handoff not in ("exact", "stale", "iterate"):
+        raise ValueError(f"unknown pll_handoff {pll_handoff!r}")
+    if resamp_impl != "auto":
+        raise ValueError(
+            f"resamp_impl={resamp_impl!r}: the port has one route, chosen "
+            "by the tensor's device ('auto')")
+    blend_range = None
+    if stereo_blend:
+        blend_range = (0.02, 0.08) if stereo_blend is True else stereo_blend
+        if not blend_range[1] > blend_range[0]:
+            raise ValueError(
+                f"stereo_blend thresholds need hi > lo, got {blend_range}")
+    T = mesh.shape[TIME_AXIS]
+    n_sh = mesh.shape[CHANNEL_AXIS]
+    rows = row_split(n_channels, n_sh)
+    if cfg.block_size % (2 * cfg.rf.decim * T):
+        raise ValueError(f"block of {cfg.block_size} bytes does not split "
+                         f"into {T} whole decimation groups")
+    chunk_if = cfg.if_len // T
+    if chunk_if % pll_loop_div:
+        raise ValueError(f"if_len/T = {chunk_if} not divisible by "
+                         f"pll_loop_div={pll_loop_div}")
+    if (chunk_if * cfg.mono.up) % cfg.mono.down or (
+            enable_rds and (chunk_if * cfg.rds.up) % cfg.rds.down):
+        raise ValueError(f"if_len/T = {chunk_if} does not divide the "
+                         "resampler grid; pick T dividing it")
+    for dev in mesh.devices:
+        require_kernel_dtype(dev, dtype)
+    if ingest_impl == "auto":
+        ingest_impl = "fused" if mesh.devices[0].type == "cuda" else "split"
+    if ingest_impl not in ("fused", "split"):
+        raise ValueError(f"unknown ingest_impl {ingest_impl!r}")
+    fused_ingest = ingest_impl == "fused"
+    if fused_ingest and dtype != torch.float32:
+        raise ValueError("fused ingest computes in float32; use 'split'")
+
+    per = n_channels // n_sh
+    serial_inits = [make_receiver(
+        cfg, (per,), dtype, enable_rds=enable_rds, enable_frame=enable_frame,
+        offset_mode=offset_mode, use_abs_clock=use_abs_clock,
+        deemphasis=deemphasis, error_correct=error_correct,
+        stereo_blend=stereo_blend, derotate=derotate, device=dev)[0]
+        for dev in mesh.devices]
+
+    # coefficients (host constants; the wrappers keep device copies)
+    ax = _TimeAxis(T)
+    t1 = cfg.rf.taps - 1
+    rf_h = rf_lpf_taps(cfg)
+    up, down = cfg.mono.up, cfg.mono.down
+    mono_h = audio_lpf_taps(cfg)
+    a_t1 = len(mono_h) - 1
+    s_t1 = cfg.stereo.taps - 1
+    bank_h = [coeffs.bandpass_taps(cfg.rf.if_fs, cfg.stereo.pilot_lo,
+                                   cfg.stereo.pilot_hi, cfg.stereo.taps),
+              coeffs.bandpass_taps(cfg.rf.if_fs, cfg.stereo.chan_lo,
+                                   cfg.stereo.chan_hi, cfg.stereo.taps)]
+    loops = [cfg.stereo.pll]
+    if enable_rds:
+        r = cfg.rds
+        if r.taps != cfg.stereo.taps:
+            raise ValueError("the RDS extract band-pass shares the stereo "
+                             "band-passes' launch: equal tap counts needed")
+        bank_h.append(coeffs.bandpass_taps(cfg.rf.if_fs, r.extract_lo,
+                                           r.extract_hi, r.taps))
+        squared_h = coeffs.bandpass_taps(cfg.rf.if_fs, r.squared_lo,
+                                         r.squared_hi, r.taps)
+        comb_h = composed_resampler_taps(cfg)
+        comb_t1 = len(comb_h) - 1
+        rrc_h = coeffs.rrc_taps(r.rrc_fs, r.rrc_taps, r.rrc_beta,
+                                r.symbol_rate)
+        rrc_t1 = len(rrc_h) - 1
+        loops.append(r.pll)
+        frame_fn = None
+        if enable_frame:
+            frame_fn = make_frame(cfg, offset_mode=offset_mode,
+                                  use_abs_clock=use_abs_clock, resync=resync,
+                                  error_correct=error_correct,
+                                  derotate=derotate)
+    # the loops run as ONE launch: loop axis first, constants per loop
+    n_loops = len(loops)
+    loop_consts = {k: np.array([getattr(lp, k) for lp in loops])
+                   for k in ("freq", "nco_scale", "phase_adjust",
+                             "norm_bandwidth")}
+    # stale / iterate seeds: chunk t starts t*chunk_if samples after the
+    # carried state; ramp advances in float64 on the host, (loop, t, 1)
+    adv_tab = np.mod(2.0 * math.pi * loop_consts["freq"][:, None]
+                     / np.float64(cfg.rf.if_fs) * np.arange(T) * chunk_if,
+                     4.0 * math.pi)[..., None]
+    # the loop filter adds the integrator once per pll_loop_div samples
+    ns_tab = (np.arange(T, dtype=np.float64) * chunk_if
+              / pll_loop_div)[None, :, None]
+    pll_passes = {"exact": 0, "stale": 1, "iterate": 2}[pll_handoff]
+
+    def run_pll(parts, st, batch_rank):
+        shape = (n_loops,) + (1,) * (batch_rank - 1)
+        return pll(tuple(parts), st, fs=cfg.rf.if_fs, impl=pll_impl,
+                   loop_div=pll_loop_div,
+                   **{k: v.reshape(shape) for k, v in loop_consts.items()})
+
+    def pll_chain(parts, st):
+        """parts: the loops' (T, C, n) inputs; st: PLLState (L, C).
+        Returns nco_i, nco_q (L, T, C, n) and the new (L, C) state."""
+        if pll_passes == 0:
+            outs = []
+            for k in range(T):
+                ni, nq, st = run_pll([p[k] for p in parts], st, 2)
+                outs.append((ni, nq))
+            return (torch.stack([o[0] for o in outs], 1),
+                    torch.stack([o[1] for o in outs], 1), st)
+        seed = pll_extrapolate_by(
+            PLLState(*(leaf[:, None] for leaf in st)), adv_tab, ns_tab,
+            nco_scale=loop_consts["nco_scale"][:, None, None],
+            phase_adjust=loop_consts["phase_adjust"][:, None, None])
+        start = PLLState(*(ax.first_or(a, b, 1) for a, b in zip(st, seed)))
+        for p in range(pll_passes):
+            nco_i, nco_q, end = run_pll(parts, start, 3)
+            if p + 1 < pll_passes:
+                start = PLLState(*(ax.halo(a, b, 1)
+                                   for a, b in zip(st, end)))
+        return (nco_i, nco_q,
+                PLLState(*(ax.from_last(e, 1).contiguous() for e in end)))
+
+    @torch.no_grad()
+    def shard_body(state: ReceiverState, raw_u8: torch.Tensor):
+        c = raw_u8.shape[0]
+        fe, au = state.frontend, state.audio
+
+        # ---- ingest + front end
+        if fused_ingest:
+            # one launch reads every chunk and its left neighbour's raw tail
+            # in place; the carried zi adds on shard 0 only
+            no_zi = torch.zeros((T, c, t1), dtype=dtype, device=fe.zi_i.device)
+            if_i, if_q, zi_i, zi_q = ingest_fir_decimate(
+                raw_u8, rf_h, ax.first_or(fe.zi_i, no_zi),
+                ax.first_or(fe.zi_q, no_zi), cfg.rf.decim, segments=T)
+            zi_i, zi_q = ax.from_last(zi_i), ax.from_last(zi_q)
+        else:
+            chunks = raw_u8.reshape(c, T, -1).transpose(0, 1)   # (T, C, B/T)
+            iq = normalize_deinterleave(chunks, dtype)      # (T, C, 2, n)
+            zi_fe = torch.stack([fe.zi_i, fe.zi_q], dim=-2)
+            iq_ds, zi_fe = fir_decimate(iq, rf_h,
+                                        ax.halo(zi_fe, iq[..., -t1:]),
+                                        cfg.rf.decim)
+            if_i, if_q = iq_ds[..., 0, :], iq_ds[..., 1, :]
+            zi_fe = ax.from_last(zi_fe)
+            zi_i, zi_q = zi_fe[..., 0, :], zi_fe[..., 1, :]
+        fm, (pi, pq) = fm_discriminator(
+            if_i, if_q, (ax.halo(fe.prev_i, if_i[..., -1]),
+                         ax.halo(fe.prev_q, if_q[..., -1])))
+        fe_state = FrontendState(
+            zi_i=zi_i.contiguous(), zi_q=zi_q.contiguous(),
+            prev_i=ax.from_last(pi).clone(), prev_q=ax.from_last(pq).clone())
+
+        # ---- IF band-passes (pilot, stereo channel[, RDS extract]): one
+        # launch over fm with one shared tail, as in the serial receiver
+        bank, if_tail = fir_block_bank(fm, bank_h,
+                                       ax.halo(au.pilot_zi, fm[..., -s_t1:]))
+        if_tail = ax.from_last(if_tail).contiguous()
+        pilot, chan = bank[0], bank[1]
+        parts = [pilot]
+        if enable_rds:
+            extract = bank[2]
+            sq_tail = extract[..., -s_t1:] * extract[..., -s_t1:]
+            pre_pll, squared_zi = fir_block_pre(
+                extract, squared_h, ax.halo(state.rds.squared_zi, sq_tail),
+                "square")
+            parts.append(pre_pll)
+
+        # ---- the PLL loops, one launch per chunk / pass
+        st = PLLState(*(torch.stack(v, 0) for v in zip(
+            au.pll, *([state.rds.pll] if enable_rds else []))))
+        nco_i, nco_q, st = pll_chain(parts, st)
+        pilot_st = PLLState(*(v[0] for v in st))
+        nco = nco_i[0]
+
+        # ---- mono + stereo
+        if up == 1:
+            (mono,), mono_zi = fir_bank_carried(
+                fm, [mono_h], ax.halo(au.mono_zi, fm[..., -a_t1:]), down)
+            mix_tail = 2.0 * chan[..., -a_t1:] * nco[..., -a_t1:]
+            (stereo,), stereo_zi = fir_bank_carried(
+                chan, [mono_h], ax.halo(au.stereo_zi, mix_tail), down,
+                x2=nco, pre="mul2")
+            mono_zi, stereo_zi = ax.from_last(mono_zi), ax.from_last(stereo_zi)
+        else:
+            pair = torch.stack([fm, 2.0 * chan * nco], dim=-2)
+            pair_zi = torch.stack([au.mono_zi, au.stereo_zi], dim=-2)
+            ys, zi2 = fir_resample(
+                pair, mono_h,
+                ax.halo(pair_zi, _upsampled_tail_of(pair, a_t1, up)),
+                up, down)
+            mono, stereo = ys[..., 0, :], ys[..., 1, :]
+            zi2 = ax.from_last(zi2)
+            mono_zi, stereo_zi = zi2[..., 0, :], zi2[..., 1, :]
+        if blend_range is not None:
+            # pilot RMS over the whole block: per-chunk power sums, summed
+            lo, hi = blend_range
+            p_ss = ax.psum(torch.sum(pilot * pilot, dim=-1, keepdim=True))
+            p_rms = torch.sqrt(p_ss * (1.0 / cfg.if_len))
+            stereo = stereo * torch.clamp((p_rms - lo) * (1.0 / (hi - lo)),
+                                          0.0, 1.0)
+        left = ax.all_gather(0.5 * (mono + stereo))
+        right = ax.all_gather(0.5 * (mono - stereo))
+        mono = ax.all_gather(mono)
+        de = None
+        if deemphasis is not None:
+            # the 48 kS/s IIR runs once over the gathered block
+            lr, de = deemphasize(torch.stack([left, right], dim=-2), au.deemph,
+                                 fs=cfg.audio_fs, tau=deemphasis)
+            left, right = lr[..., 0, :], lr[..., 1, :]
+        au_state = AudioState(mono_zi=mono_zi.contiguous(), pilot_zi=if_tail,
+                              chan_zi=if_tail,
+                              stereo_zi=stereo_zi.contiguous(),
+                              pll=pilot_st, deemph=de)
+
+        rds_state = frame_state = rds_out = None
+        if enable_rds:
+            # mixers + resampler (K6 on a CUDA tensor); the halo is the left
+            # neighbour's carry, made by the op's own tail helper
+            r_i, r_q = nco_i[1], nco_q[1]
+            mix_tail = resample_mul2_tail(extract, r_i, r_q, comb_t1, r.up)
+            resamp, resamp_zi = resample_mul2(
+                extract, r_i, r_q, comb_h,
+                ax.halo(state.rds.resamp_zi, mix_tail), r.up, r.down)
+            rrc, rrc_zi = fir_block(
+                resamp, rrc_h,
+                ax.halo(state.rds.rrc_zi, resamp[..., -rrc_t1:]))
+            rds_state = RDSState(
+                extract_zi=if_tail,
+                squared_zi=ax.from_last(squared_zi).contiguous(),
+                pll=PLLState(*(v[1] for v in st)),
+                resamp_zi=ax.from_last(resamp_zi).contiguous(),
+                rrc_zi=ax.from_last(rrc_zi).contiguous())
+            rrc = ax.all_gather(rrc)                        # (C, 2, rds_len)
+            if frame_fn is not None:
+                rds_out, frame_state = frame_fn(state.frame, rrc[..., 0, :],
+                                                rrc[..., 1, :])
+            else:
+                rds_out = (rrc[..., 0, :], rrc[..., 1, :])
+        new_state = ReceiverState(frontend=fe_state, audio=au_state,
+                                  rds=rds_state, frame=frame_state)
+        return new_state, ReceiverOutputs(left=left, right=right, mono=mono,
+                                          rds=rds_out)
+
+    def init_fn() -> tuple:
+        return tuple(init() for init in serial_inits)
+
+    def step_fn(state: tuple, raw_u8):
+        return step_shards(
+            [shard_body] * n_sh, state,
+            (rows_on(raw_u8, sl, dev) for sl, dev in zip(rows, mesh.devices)),
+            mesh.devices[0])
+
+    return init_fn, step_fn

@@ -42,11 +42,13 @@ from rtsdr_tpu_torch.ops.channelizer import (
 from rtsdr_tpu_torch.ops.ingestfir import normalize_deinterleave
 from rtsdr_tpu_torch.pipeline.frontend import rf_lpf_taps
 from rtsdr_tpu_torch.pipeline.receiver import ReceiverState, make_receiver
+from rtsdr_tpu_torch.utils.shards import step_shards
 
 
 class WidebandState(NamedTuple):
     chan_zi: torch.Tensor    # channelizer carried input tail (bytes/complex)
-    rx: ReceiverState        # batched per-channel receiver state
+    rx: ReceiverState | tuple  # batched per-channel receiver state (with
+    #                            channel_sharding: one per shard)
     mix_phase: torch.Tensor | None = None  # (K,) carried residual-NCO phase
 
 
@@ -81,16 +83,24 @@ def make_wideband_receiver(
     and of the RF decimation, the IF block a multiple of 16) — never chosen
     by the channel count or by what happens to build.
 
-    ``channel_sharding`` (spreading the stations over several devices)
-    belongs to the parallel receivers and is not taken here.
+    ``channel_sharding``: optional sequence of devices (repeats allowed,
+    ``parallel/channels.py::make_wideband_sharded_receiver``): the K
+    stations split into that many equal contiguous groups, each decoded on
+    its device; the channelizer runs on ``device``.  ``state.rx`` is then a
+    tuple of the groups' receiver states, and outputs are gathered on
+    ``device`` in station order.
     """
     dev = resolve_device(device)
     require_kernel_dtype(dev, dtype)
-    if channel_sharding is not None:
-        raise NotImplementedError(
-            "channel_sharding: the sharded wideband receiver belongs to the "
-            "parallel receivers, which are not ported yet")
     k = n_rf_channels
+    shard_devs = None
+    if channel_sharding is not None:
+        shard_devs = [resolve_device(d) for d in channel_sharding]
+        for d in shard_devs:
+            require_kernel_dtype(d, dtype)
+        if not shard_devs or k % len(shard_devs):
+            raise ValueError(f"{k} RF channels not divisible by "
+                             f"{len(shard_devs)} shards")
     h = np.asarray(channelizer_taps(k, taps_per_branch))
     taps = len(h)
 
@@ -120,10 +130,25 @@ def make_wideband_receiver(
         raise ValueError("geometry ineligible for the composed channelizer")
     use_composed = channelizer_impl == "composed"
 
-    init_rx, step_rx = make_receiver(
-        cfg, (*batch_shape, k), dtype,
-        frontend_impl="if" if use_composed else "iq", device=dev,
-        **receiver_kwargs)
+    rx_kw = dict(frontend_impl="if" if use_composed else "iq",
+                 **receiver_kwargs)
+    if shard_devs is None:
+        init_rx, step_rx = make_receiver(cfg, (*batch_shape, k), dtype,
+                                         device=dev, **rx_kw)
+    else:
+        k_sh = k // len(shard_devs)
+        shard_rx = [make_receiver(cfg, (*batch_shape, k_sh), dtype,
+                                  device=d, **rx_kw) for d in shard_devs]
+        k_axis = len(batch_shape)     # the station axis of every leaf
+
+        def init_rx():
+            return tuple(init() for init, _ in shard_rx)
+
+        def step_rx(states, iq):
+            return step_shards(
+                [step for _, step in shard_rx], states,
+                (iq.narrow(k_axis, g * k_sh, k_sh).to(d)
+                 for g, d in enumerate(shard_devs)), dev, dim=k_axis)
 
     if use_composed:
         g_taps = composed_rf_taps(k, h, rf_lpf_taps(cfg), cfg.rf.decim,

@@ -183,6 +183,55 @@ def test_resample_cpu_tensor_runs_the_plain_version(launches, dtype):
     assert launches == [] and rrc.dtype == dtype
 
 
+def _mix_call(dtype, n=160, on_device=True, impl="auto"):
+    mk = ((lambda *s: on_card(s, dtype)) if on_device
+          else (lambda *s: torch.zeros(s, dtype=dtype)))
+    e = mk(2, n)
+    return lambda: cuda_resample.resample_mul2(e, e, e, H, mk(2, 2, 30), 19,
+                                               80, impl=impl)
+
+
+@pytest.mark.parametrize("impl", ["auto", "pair"])
+def test_mix_f32_device_tensor_reaches_the_kernel(launches, monkeypatch,
+                                                  impl):
+    monkeypatch.setattr(cuda_resample, "resample_mul2_tail",
+                        lambda *a: torch.zeros(2, 2, 30))
+    y, new_zi = _mix_call(torch.float32, impl=impl)()
+    assert launches == ["rtsdr_resample_mix"]
+    assert y.shape == (2, 2, 38) and new_zi.shape == (2, 2, 30)
+
+
+def test_mix_f64_empty_or_ragged_device_tensor_raises(launches):
+    with pytest.raises(TypeError, match="float32"):
+        _mix_call(torch.float64)()
+    with pytest.raises(ValueError, match="empty"):
+        _mix_call(torch.float32, n=0)()
+    with pytest.raises(ValueError, match="do not divide"):
+        _mix_call(torch.float32, n=161)()
+    assert launches == []
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mix_cpu_tensor_runs_the_plain_version(launches, dtype):
+    y, _ = _mix_call(dtype, on_device=False)()
+    assert launches == [] and y.dtype == dtype
+
+
+def test_ingest_halo_on_device_reaches_the_iq_entry(launches):
+    raw = on_card((2, 2 * 200), torch.uint8)
+    zi = torch.zeros((2, 2, 30))
+    y_i, _, _, _ = ingestfir.ingest_fir_decimate(raw, H, zi, zi, 10,
+                                                 segments=2)
+    assert launches == ["rtsdr_ingest_iq"] and y_i.shape == (2, 2, 10)
+    with pytest.raises(ValueError, match="fewer"):
+        ingestfir.ingest_fir_decimate(on_card((2, 2 * 40), torch.uint8), H,
+                                      zi, zi, 10, segments=2)
+    with pytest.raises(ValueError, match="segments"):
+        ingestfir.ingest_fir_decimate(on_card((2, 2 * 201), torch.uint8), H,
+                                      zi, zi, 10, segments=4)
+    assert launches == ["rtsdr_ingest_iq"]
+
+
 def test_ingest_bank_on_device_reaches_its_own_entry(launches):
     raw = on_card((2, 200), torch.uint8)
     zi = torch.zeros((2, 30))
@@ -206,6 +255,8 @@ def test_no_wrapper_falls_back_from_its_kernel():
     import re
 
     for fn, gate in ((cuda_resample.resample_mul2_rrc, "extract.is_cuda"),
+                     (cuda_resample.resample_mul2, "extract.is_cuda"),
+                     (ingestfir.ingest_fir_decimate, "raw_u8.is_cuda"),
                      (ingestfir.ingest_fir_demod_audio, "raw_u8.is_cuda")):
         src = inspect.getsource(fn)
         assert f"if not {gate}:" in src

@@ -34,7 +34,8 @@ def test_files_found():
     assert {"chip_smoke.py", "receiver.py", "ingestfir.py", "cuda_fir.py",
             "cuda_pll.py", "cli.py", "cuda_resample.py", "rds.py", "frame.py",
             "groups.py", "channelizer.py", "psd.py", "wideband.py",
-            "scan.py"} <= names
+            "scan.py", "mesh.py", "timeshard.py", "channels.py",
+            "multihost.py", "scaling.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -66,7 +67,7 @@ def test_every_cuda_source_is_built_and_packaged():
                                   (PKG / "csrc" / name).read_text()))
     assert entries == set(_cuda._ARGTYPES)
     assert {"rtsdr_resample_rrc", "rtsdr_ingest_fm_audio_bank",
-            "rtsdr_channelize_composed"} <= entries
+            "rtsdr_channelize_composed", "rtsdr_resample_mix"} <= entries
     assert '"rtsdr_tpu_torch.csrc" = ["*.cu"' in \
         (ROOT / "pyproject.toml").read_text()
 
@@ -85,7 +86,9 @@ for m in ('config', 'device', 'cli', 'ops', 'ops.coeffs', 'ops.fir',
           'pipeline.wideband', 'pipeline.scan', 'io',
           'io.stream',
           'io.batch', 'io.staging', 'io.wav', 'io.binio', 'runtime', 'utils',
-          'utils.signals', 'utils.convert'):
+          'utils.signals', 'utils.convert', 'utils.shards', 'parallel',
+          'parallel.mesh', 'parallel.timeshard', 'parallel.channels',
+          'parallel.multihost', 'parallel.scaling'):
     importlib.import_module('rtsdr_tpu_torch.' + m)
 assert not any(k == 'rtsdr_tpu' or k.startswith('rtsdr_tpu.')
                for k in sys.modules), 'rtsdr_tpu was imported'
@@ -99,8 +102,10 @@ print('OK')
     assert out.stdout.strip().endswith("OK")
 
 
-def test_profile_tool_imports_nothing_of_jax():
-    path = ROOT / "tools" / "torch_profile_step.py"
+@pytest.mark.parametrize("tool", ["torch_profile_step.py",
+                                  "torch_profile_resample.py"])
+def test_profile_tool_imports_nothing_of_jax(tool):
+    path = ROOT / "tools" / tool
     bad = [(mod, line) for mod, line in _imported_roots(path)
            if mod in FORBIDDEN]
     assert not bad, f"{path}: forbidden imports {bad}"
@@ -115,3 +120,5 @@ def test_kernel_notes_name_what_they_replace():
         assert "Bound on an H100" in text, name
     assert "rtsdr_tpu/ops/channelizer.py::_composed_kernel" in \
         (PKG / "csrc" / "channelizer.cu").read_text()
+    assert "rtsdr_tpu/ops/pallas_fir.py::_resample_mix_kernel" in \
+        (PKG / "csrc" / "resample_rrc.cu").read_text()

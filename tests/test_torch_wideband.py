@@ -180,8 +180,8 @@ def test_wideband_rds_from_converted_midstream_state(capture):
 def test_wideband_auto_rule_and_refusals():
     """'auto' is 'composed' whenever the geometry allows it (as in the JAX
     package), whatever the channel count; float64 takes the complex
-    phase-plane path; sharding the channels is left to the parallel
-    receivers."""
+    phase-plane path; sharding the channels takes a device per equal
+    group of slots (parallel/channels.py drives it)."""
     for k in (1, 2, 16):
         init, _ = twb.make_wideband_receiver(MODE0, k, enable_rds=False,
                                              device="cpu")
@@ -203,9 +203,15 @@ def test_wideband_auto_rule_and_refusals():
     with pytest.raises(ValueError, match="need 2 offsets"):
         twb.make_wideband_receiver(MODE0, 2, channel_offsets_hz=[0.0],
                                    device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel"):
-        twb.make_wideband_receiver(MODE0, 2, channel_sharding=object(),
+    with pytest.raises(ValueError, match="not divisible"):
+        twb.make_wideband_receiver(MODE0, 2, channel_sharding=["cpu"] * 3,
                                    device="cpu")
+    init, _ = twb.make_wideband_receiver(
+        MODE0, 2, enable_rds=False, channel_sharding=["cpu", "cpu"],
+        device="cpu")
+    rx = init().rx
+    assert isinstance(rx, tuple) and len(rx) == 2
+    assert rx[0].frontend.prev_i.shape == (1,)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             twb.make_wideband_receiver(MODE0, 2)

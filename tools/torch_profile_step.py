@@ -3,6 +3,7 @@
 
     python3 tools/torch_profile_step.py [--channels 1024] [--steps 4]
         [--mode {0,1,1rds}] [--wideband K --captures B]
+        [--time-shards T [--handoff {exact,stale,iterate}]]
         [--no-rds] [--no-frame] [--resync] [--fuse-if-bank]
 
 Runs ``rtsdr_tpu_torch``'s ``Receiver(cfg, (C,))`` (``--mode 0``, the
@@ -13,7 +14,9 @@ MODE1, audio through the x24/125 resampler; ``--mode 1rds``: MODE1_RDS;
 ``--fuse-if-bank`` with the band-pass bank inside the ingest kernel) — or,
 with ``--wideband K --captures B``, ``make_wideband_receiver(cfg, K, (B,))``
 (B captures at K x the RF rate per step, K x B stations; five live slots in
-16, the rest empty) — on
+16, the rest empty) — or, with ``--time-shards T``, the time-sharded
+receiver ``make_time_sharded_receiver(cfg, make_mesh(1, T), C,
+pll_handoff=...)`` (each block split into T chunks stacked on the card) — on
 the GPU over noisy synthetic FM stations that carry RDS and traces
 ``--steps`` steady steps
 with ``torch.profiler`` (CPU + CUDA activities), after timing as many
@@ -37,6 +40,10 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from rtsdr_tpu_torch.config import MODE0, MODE1, MODE1_RDS  # noqa: E402
+from rtsdr_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
+from rtsdr_tpu_torch.parallel.timeshard import (  # noqa: E402
+    make_time_sharded_receiver,
+)
 from rtsdr_tpu_torch.pipeline.receiver import Receiver  # noqa: E402
 from rtsdr_tpu_torch.pipeline.wideband import (  # noqa: E402
     make_wideband_receiver,
@@ -59,6 +66,9 @@ def main() -> int:
     ap.add_argument("--wideband", type=int, default=None, metavar="K")
     ap.add_argument("--captures", type=int, default=8, metavar="B",
                     help="with --wideband: captures per step")
+    ap.add_argument("--time-shards", type=int, default=None, metavar="T")
+    ap.add_argument("--handoff", choices=("exact", "stale", "iterate"),
+                    default="exact", help="with --time-shards: PLL handoff")
     ap.add_argument("--no-rds", action="store_true")
     ap.add_argument("--no-frame", action="store_true")
     ap.add_argument("--resync", action="store_true")
@@ -84,8 +94,11 @@ def main() -> int:
                     rds_wave=rds_baseband(encode_rds_blocks(ps_station_words(
                         n_blocks + 4, 0x3A5C + k, f"STN {k:02d}  "))))
 
-    kwargs = dict(enable_frame=not args.no_frame, resync=args.resync,
-                  fuse_if_bank=args.fuse_if_bank)
+    kwargs = dict(enable_frame=not args.no_frame, resync=args.resync)
+    if not args.time_shards:
+        kwargs["fuse_if_bank"] = args.fuse_if_bank
+    elif args.fuse_if_bank or args.wideband:
+        ap.error("--time-shards takes neither --fuse-if-bank nor --wideband")
     if args.no_rds or cfg.rds is None:
         kwargs["enable_rds"] = False
     if args.wideband:
@@ -106,9 +119,15 @@ def main() -> int:
                             ).reshape(n_blocks, cfg.block_size)
             for k in range(min(c, 8))], axis=1)            # (blocks, 8, B)
         amp = 8
-        rx = Receiver(cfg, (c,), **kwargs)
-        init_fn, step_fn = rx.init, rx.step
         shape = {"channels": c}
+        if args.time_shards:
+            kwargs["pll_handoff"] = args.handoff
+            init_fn, step_fn = make_time_sharded_receiver(
+                cfg, make_mesh(1, args.time_shards), c, **kwargs)
+            shape["time_shards"] = args.time_shards
+        else:
+            rx = Receiver(cfg, (c,), **kwargs)
+            init_fn, step_fn = rx.init, rx.step
     rows = torch.as_tensor(rows).to(dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
 
