@@ -22,7 +22,12 @@ git-ignored ``rtsdr_tpu_torch/build``), then
      stated tolerance; times the kernel (CUDA events, median),
      the plain version, and for the FIR bank and the ingest kernel's iq
      entry one ``torch.nn.functional.conv1d`` call as a yardstick that the
-     port itself never uses; computes the least time the card could need;
+     port itself never uses; for the FIR bank and the PLL also a burst of
+     10 calls (``kernel_burst_ms``: the device's time where the host keeps
+     ahead), ``F.conv1d`` the same way, and at C = 1 the host's
+     microseconds per wrapper call; the PLL at 1, 2, 256, 2,048 and 4,096
+     lanes, with ``loop_div`` 1 and 4, tuple input and the undelayed view;
+     computes the least time the card could need;
   2. the audio path (``enable_rds=False``), counted on its own:
      ``stream_audio`` (4 blocks through ``StreamRunner`` at C = 1 and once
      more through ``python -m rtsdr_tpu_torch.cli 0 --no-rds``, identical
@@ -273,6 +278,27 @@ def main() -> int:
             times.append(a.elapsed_time(b))
         return statistics.median(times)
 
+    def burst_ms(fn, calls=10, reps=5):
+        """Events around a burst of ``calls`` calls, per call: the device
+        time where the device, not the host's enqueueing, is the limit."""
+        return time_ms(lambda: [fn() for _ in range(calls)], reps=reps
+                       ) / calls
+
+    def host_us(fn, calls=20, reps=15):
+        """Host time per call: loops of ``calls`` calls with no
+        synchronisation inside (short enough that the launch queue never
+        fills and blocks the host), median of ``reps``."""
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            times.append((time.perf_counter() - t) / calls * 1e6)
+        torch.cuda.synchronize()
+        return statistics.median(times)
+
     def nbytes(*tensors):
         return sum(t.numel() * t.element_size() for t in tensors
                    if t is not None)
@@ -334,13 +360,23 @@ def main() -> int:
                       float(r_ys[f].abs().max()) for f in range(len(hl)))
         del lib
         n_out = k_ys[0].shape[-1]
+
+        def kernel():
+            return cuda_fir.fir_bank_carried(x, hl, zi, s, x2=x2, pre=pre)
+
+        def library():
+            return F.conv1d(xext, w, stride=s)
+
         check(f"fir_bank.{pre}", f"f32 {shape_of(x)}", errs, tols,
               filters=len(hl), stride=s,
-              kernel_ms=time_ms(lambda: cuda_fir.fir_bank_carried(
-                  x, hl, zi, s, x2=x2, pre=pre)),
+              kernel_ms=time_ms(kernel), kernel_burst_ms=burst_ms(kernel),
+              **({"kernel_host_us": host_us(kernel),
+                  "library_host_us": host_us(library)} if lanes == 1
+                 else {}),
               plain_ms=time_ms(lambda: cuda_fir.fir_bank_carried_ref(
                   x, hl, zi, s, x2=x2, pre=pre), reps=2, warm=0),
-              library_ms=time_ms(lambda: F.conv1d(xext, w, stride=s)),
+              library_ms=time_ms(library),
+              library_burst_ms=burst_ms(library),
               library="torch.nn.functional.conv1d (cudnn.allow_tf32="
                       "False) on the extended, pre-mixed input",
               library_rel_err_vs_plain=lib_err,
@@ -376,13 +412,19 @@ def main() -> int:
             tols[f"state.{name}"] = (TOL_PLL_INTEG if name == "integrator"
                                      else TOL_PLL_STATE)
         n = xs.shape[-1]
+
+        def kernel():
+            return cuda_pll.pll_cuda(x, st, loop_div=div, **kw)
+
         check("pll", f"f32 {label} = {lanes} lanes x {n}", errs, tols,
-              loop_div=div, lanes_held_to_tolerance=int(gate.sum()),
+              loop_div=div, delay_output=kw.get("delay_output", True),
+              lanes_held_to_tolerance=int(gate.sum()),
               nco_max_abs_err_all_lanes=max(max_err(k[0], r[0]),
                                             max_err(k[1], r[1])),
               integrator_max_abs=float(r[2].integrator.abs().max()),
-              kernel_ms=time_ms(lambda: cuda_pll.pll_cuda(
-                  x, st, loop_div=div, **kw)),
+              kernel_ms=time_ms(kernel), kernel_burst_ms=burst_ms(kernel),
+              **({"kernel_host_us": host_us(kernel)} if lanes <= 2
+                 else {}),
               plain_ms=t_plain, library_ms=None,
               **bound(nbytes(xs, k[0], k[1]) + 2 * 7 * 4 * lanes
                       + 5 * 4 * lanes,
@@ -595,9 +637,8 @@ def main() -> int:
         bank_cases = [("none", [pilot_h, chan_h], 1, fm, None, if_zi)]
         bank_cases.append(("mul2", [mono_h], cfg.mono.down, chan, nco,
                            mix_zi))
-        if c != 1:
-            bank_cases.append(("square", [sq_h], 1, extract, None, sq_zi))
-            bank_cases.append(("none", bank_hs, 1, fm, None, if_zi))
+        bank_cases.append(("square", [sq_h], 1, extract, None, sq_zi))
+        bank_cases.append(("none", bank_hs, 1, fm, None, if_zi))
         for case in bank_cases:
             bank_case(*case)
 
@@ -613,19 +654,29 @@ def main() -> int:
                                      rp.norm_bandwidth]).reshape(b1))
         pll_case(f"({c}, N)", pilot, st1, 1, **pkw)
         pll_case(f"({c}, N)", pilot, st1, 4, **pkw)
+        # two-part input with per-part constants: the stereo-pilot +
+        # squared-RDS-carrier pair of the receiver's one PLL launch (the
+        # second part is a clean 114 kHz carrier per lane: an unlocked loop
+        # fed noise wanders across the detector's +-pi seam, where two
+        # roundings of one angle legitimately part)
+        tt = torch.arange(n_if, device=dev, dtype=torch.float64) / if_fs
+        ph = 0.05 * (torch.arange(c, device=dev) % 16)[:, None]
+        sq = torch.cos(2 * np.pi * cfg.rds.pll.freq * tt[None, :] + ph
+                       ).to(torch.float32)
+        st2 = PLLState(*(torch.stack([a, b]) for a, b in
+                         zip(st1, pll_init((c,), device=dev))))
+        pll_case(f"2 parts of ({c}, N)", (pilot, sq), st2, 1, **kw2)
+        # from the state that block leaves (both loops locked; the pilot
+        # and the carrier are whole cycles per block): loop_div 4, the
+        # undelayed view and, at C = 1,024, twice the lanes (4,096)
+        st2 = cuda_pll.pll_cuda((pilot, sq), st2, **kw2)[2]
+        pll_case(f"2 parts of ({c}, N)", (pilot, sq), st2, 4, **kw2)
+        pll_case(f"2 parts of ({c}, N), undelayed", (pilot, sq), st2, 1,
+                 delay_output=False, **kw2)
         if c != 1:
-            # two-part input with per-part constants: the stereo-pilot +
-            # squared-RDS-carrier pair of the receiver's one PLL launch
-            # (the second part is a clean 114 kHz carrier per lane: an
-            # unlocked loop fed noise wanders across the detector's +-pi
-            # seam, where two roundings of one angle legitimately part)
-            tt = torch.arange(n_if, device=dev, dtype=torch.float64) / if_fs
-            ph = 0.05 * (torch.arange(c, device=dev) % 16)[:, None]
-            sq = torch.cos(2 * np.pi * cfg.rds.pll.freq * tt[None, :] + ph
-                           ).to(torch.float32)
-            st2 = PLLState(*(torch.stack([a, b]) for a, b in
-                             zip(st1, pll_init((c,), device=dev))))
-            pll_case(f"2 parts of ({c}, N)", (pilot, sq), st2, 1, **kw2)
+            pll_case(f"2 parts of ({2 * c}, N)",
+                     (pilot.repeat(2, 1), sq.repeat(2, 1)),
+                     PLLState(*(v.repeat(1, 2) for v in st2)), 1, **kw2)
 
         # mixers + resampler + RRC: extract of both blocks, the carrier NCO
         # the PLL kernel makes of their squared band-pass; block 0 from the
@@ -2074,7 +2125,9 @@ def main() -> int:
                      "launches_sharded_path": sharded_counts.get(name, 0),
                      "shape": case["shape"],
                      "max_abs_err": case["max_abs_err"],
-                     "ms": case["kernel_ms"], "plain_ms": case["plain_ms"],
+                     "ms": case["kernel_ms"],
+                     "burst_ms": case.get("kernel_burst_ms"),
+                     "plain_ms": case["plain_ms"],
                      "bound_ms": case["bound_ms"],
                      "bound_by": case["bound_by"],
                      "library_ms": case["library_ms"]})

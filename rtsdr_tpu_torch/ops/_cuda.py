@@ -50,8 +50,8 @@ _ARGTYPES = {
     # prev_q_out, audio_zi_out, C, n_pairs, taps, decim, audio_taps, down,
     # n_bank, bank_taps, stream
     "rtsdr_ingest_fm_audio_bank": [_P] * 18 + [_I] * 8 + [_P],
-    # x, x2 (or NULL), zi (or NULL), h, y, zi_out (or NULL),
-    # C, N, M, taps, F, stride, pre, stream
+    # x, x2 (or NULL), zi (or NULL), phase taps (F, stride, q_pad), y,
+    # zi_out (or NULL), C, N, M, taps, F, stride, pre, stream
     "rtsdr_fir_bank": [_P] * 6 + [_I] * 7 + [_P],
     # parts (host array of pointers), part_lanes (host array of ints),
     # n_parts, consts (5, C), st_in (7, C), st_out (7, C), nco_i, nco_q,
@@ -166,17 +166,28 @@ def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+_entries: dict = {}
+
+
+def current_stream() -> int:
+    """PyTorch's current CUDA stream on the current device, as the raw
+    handle (the accessor PyTorch's own kernel launchers use: no Stream
+    object is made per launch)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+
+
 def launch(entry: str, count_as: str, *args) -> None:
     """Call C entry point ``entry`` with ``args`` plus PyTorch's current
     stream; raise on a launch error, else count one launch of
     ``count_as``."""
-    import torch
-
-    lib = load()
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib, entry)(*args, stream)
+    fn = _entries.get(entry)
+    if fn is None:
+        fn = _entries[entry] = getattr(load(), entry)
+    err = fn(*args, current_stream())
     if err != 0:
-        msg = lib.rtsdr_error_string(err).decode()
+        msg = _lib.rtsdr_error_string(err).decode()
         raise RuntimeError(f"{entry}: CUDA launch failed ({err}: {msg})")
     LAUNCHES[count_as] = LAUNCHES.get(count_as, 0) + 1
 
@@ -184,11 +195,12 @@ def launch(entry: str, count_as: str, *args) -> None:
 def check(t, name: str, shape=None, dtype=None, device=None):
     """Raise unless ``t`` is a contiguous tensor of the given shape /
     dtype / device (what the kernels take)."""
-    if dtype is not None and t.dtype != dtype:
+    if dtype is not None and t.dtype is not dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if device is not None and t.device != device:
         raise ValueError(f"{name}: expected device {device}, got {t.device}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
+    if shape is not None and t.shape != shape and \
+            tuple(t.shape) != tuple(shape):
         raise ValueError(
             f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():

@@ -18,28 +18,49 @@ compared with on the card.
 from __future__ import annotations
 
 import math
+import operator
 
 import numpy as np
 import torch
 
 from rtsdr_tpu_torch.ops import _cuda
-from rtsdr_tpu_torch.ops.fir import _conv1d_valid
+from rtsdr_tpu_torch.ops.fir import _conv1d_valid, derived_from_list
 
 _PRE = {"none": 0, "square": 1, "mul2": 2}
-_taps_cache: dict = {}
 
 
 def _taps_on(h_list, device) -> torch.Tensor:
     """(F, taps) float32 taps on ``device`` (rounded from float64 once)."""
-    h = np.stack([np.asarray(hh, np.float64) for hh in h_list])
-    key = (device, h.shape, h.tobytes())
-    t = _taps_cache.get(key)
-    if t is None:
-        if len(_taps_cache) > 64:
-            _taps_cache.clear()
-        t = torch.as_tensor(h.astype(np.float32)).to(device)
-        _taps_cache[key] = t
-    return t
+    def build():
+        h = np.stack([np.asarray(hh, np.float64) for hh in h_list])
+        return torch.as_tensor(h.astype(np.float32)).to(device)
+
+    return derived_from_list(h_list, ("taps", device), build)
+
+
+def bank_plan(taps: int, stride: int) -> tuple[int, int]:
+    """(lead, q_pad) of the kernel's polyphase plan: ``lead`` = taps-1
+    rounded up to a multiple of 4 (the front padding puts the staged span
+    on a 16-byte boundary), ``q_pad`` = taps per phase filter,
+    ceil((lead+1) / stride) rounded up to a multiple of 4."""
+    lead = -(-(taps - 1) // 4) * 4
+    return lead, -(-(-(-(lead + 1) // stride)) // 4) * 4
+
+
+def phase_taps(h_list, stride: int) -> np.ndarray:
+    """The kernel's (F, stride, q_pad) float32 phase taps:
+    ``hp[f, phi, q] = h_f[lead - q*stride - phi]`` where that index lies in
+    [0, taps), else 0 (``csrc/fir_bank.cu``)."""
+    h = np.stack([np.asarray(hh, np.float64) for hh in h_list]
+                 ).astype(np.float32)
+    taps = h.shape[1]
+    lead, q_pad = bank_plan(taps, stride)
+    k = lead - (np.arange(q_pad)[None, :] * stride
+                + np.arange(stride)[:, None])                 # (s, q_pad)
+    ok = (k >= 0) & (k < taps)
+    return np.ascontiguousarray(
+        np.where(ok[None], h[:, np.clip(k, 0, taps - 1)], 0.0)
+        .astype(np.float32))
 
 
 def _pre_op(x, x2, pre: str):
@@ -63,7 +84,14 @@ def fir_bank_carried_ref(x, h_list, zi, stride: int = 1, x2=None,
     return ys, xext[..., -t1:].contiguous()
 
 
-def _launch(x, h_list, zi, stride, x2, pre, want_tail: bool):
+_plans: dict = {}
+_F32 = torch.float32
+
+
+def _plan(x, h_list, stride: int, pre: str, key):
+    """What a call of this shape needs beyond its pointers, made once per
+    (tap arrays, x shape and device, stride, pre-op): argument checks,
+    output shapes, the phase taps on the device."""
     taps = len(h_list[0])
     n_f = len(h_list)
     if pre not in _PRE:
@@ -77,23 +105,49 @@ def _launch(x, h_list, zi, stride, x2, pre, want_tail: bool):
     if c < 1 or n < 1:
         raise ValueError(f"x: empty input {tuple(x.shape)}")
     dev = x.device
-    _cuda.check(x, "x", dtype=torch.float32)
-    if pre == "mul2":
+    m = -(-n // stride)
+    hp = derived_from_list(
+        h_list, ("phase", stride, dev),
+        lambda: torch.as_tensor(phase_taps(h_list, stride)).to(dev))
+    y_shape = (*lead, m) if n_f == 1 else (n_f, *lead, m)
+    if len(_plans) > 64:
+        _plans.clear()
+    plan = _plans[key] = (tuple(h_list), dev, torch.Size((*lead, taps - 1)),
+                          y_shape, hp.data_ptr(), hp, c, n, m, taps, n_f,
+                          f"fir_bank.{pre}", _PRE[pre])
+    return plan
+
+
+def _launch(x, h_list, zi, stride, x2, pre, want_tail: bool):
+    # the host work of a call is on the C = 1 step's critical path: a plan
+    # lookup, the checks, the outputs, the launch
+    key = (tuple(map(id, h_list)), x.shape, x.get_device(), stride, pre)
+    plan = _plans.get(key)
+    if plan is None or not all(map(operator.is_, plan[0], h_list)):
+        plan = _plan(x, h_list, stride, pre, key)
+    (_, dev, zi_shape, y_shape, hp_ptr, _, c, n, m, taps, n_f, count_as,
+     pre_id) = plan
+    if x.dtype is not _F32 or not x.is_contiguous():
+        _cuda.check(x, "x", dtype=_F32)
+    if pre_id == 2:
         if x2 is None:
             raise ValueError("pre='mul2' needs x2")
-        _cuda.check(x2, "x2", (*lead, n), torch.float32, dev)
-    if zi is not None:
-        _cuda.check(zi, "zi", (*lead, taps - 1), torch.float32, dev)
-    m = -(-n // stride)
-    y = torch.empty((n_f, *lead, m), dtype=torch.float32, device=dev)
-    tail = (torch.empty((*lead, taps - 1), dtype=torch.float32, device=dev)
-            if want_tail else None)
+        _cuda.check(x2, "x2", x.shape, _F32, dev)
+    if zi is not None and (zi.shape != zi_shape or zi.dtype is not _F32
+                           or zi.device != dev or not zi.is_contiguous()):
+        _cuda.check(zi, "zi", zi_shape, _F32, dev)
+    y = x.new_empty(y_shape)
+    ys = [y] if n_f == 1 else list(y.unbind(0))
+    tail = x.new_empty(zi_shape) if want_tail else None
+    # the launch is the last host work of the call: the kernel starts as
+    # soon as the host has done everything else
     _cuda.launch(
-        "rtsdr_fir_bank", f"fir_bank.{pre}",
-        _cuda.ptr(x), _cuda.ptr(x2 if pre == "mul2" else None),
-        _cuda.ptr(zi), _cuda.ptr(_taps_on(h_list, dev)), _cuda.ptr(y),
-        _cuda.ptr(tail), c, n, m, taps, n_f, stride, _PRE[pre])
-    return list(y.unbind(0)), tail
+        "rtsdr_fir_bank", count_as, x.data_ptr(),
+        x2.data_ptr() if pre_id == 2 else None,
+        None if zi is None else zi.data_ptr(), hp_ptr, y.data_ptr(),
+        None if tail is None else tail.data_ptr(), c, n, m, taps, n_f,
+        stride, pre_id)
+    return ys, tail
 
 
 def fir_bank(x, h_list, stride: int = 1, x2=None,

@@ -168,20 +168,27 @@ def _resample_boundary_index(t1: int, up: int, down: int
 _derived: dict = {}
 
 
-def derived_from(taps, key, build):
-    """What ``build()`` derives from the host tap array ``taps`` (matrices
-    on a device, say), made once per (array, key).  Entries go by the
-    array's identity and hold the array, so its id cannot pass to another
-    array while the entry lives; tap arrays are not modified once used."""
-    entry = _derived.get(id(taps))
-    if entry is None or entry[0] is not taps:
-        if len(_derived) > 16:
+def derived_from_list(arrays, key, build):
+    """What ``build()`` derives from the host arrays ``arrays`` (taps, say:
+    matrices or phase taps on a device), made once per (arrays, key).
+    Entries go by the arrays' identities and hold the arrays, so no id can
+    pass to another array while its entry lives; tap arrays are not
+    modified once used.  A hit reads and hashes no tap."""
+    ids = tuple(map(id, arrays))
+    entry = _derived.get(ids)
+    if entry is None or any(a is not b for a, b in zip(entry[0], arrays)):
+        if len(_derived) > 64:
             _derived.clear()
-        entry = _derived[id(taps)] = (taps, {})
+        entry = _derived[ids] = (tuple(arrays), {})
     hit = entry[1].get(key)
     if hit is None:
         hit = entry[1][key] = build()
     return hit
+
+
+def derived_from(taps, key, build):
+    """``derived_from_list`` for one array."""
+    return derived_from_list((taps,), key, build)
 
 
 def _resample_matrices(h: np.ndarray, up: int, down: int, dtype, device):

@@ -42,6 +42,7 @@ from rtsdr_tpu_torch.config import ReceiverConfig
 from rtsdr_tpu_torch.device import require_kernel_dtype
 from rtsdr_tpu_torch.ops import coeffs
 from rtsdr_tpu_torch.ops.cuda_fir import fir_bank_carried, fir_block_pre
+from rtsdr_tpu_torch.ops.cuda_pll import stacked_state
 from rtsdr_tpu_torch.ops.cuda_resample import (
     resample_mul2,
     resample_mul2_tail,
@@ -333,8 +334,8 @@ def make_time_sharded_receiver(
             parts.append(pre_pll)
 
         # ---- the PLL loops, one launch per chunk / pass
-        st = PLLState(*(torch.stack(v, 0) for v in zip(
-            au.pll, *([state.rds.pll] if enable_rds else []))))
+        st = stacked_state((au.pll, state.rds.pll) if enable_rds
+                           else (au.pll,))
         nco_i, nco_q, st = pll_chain(parts, st)
         pilot_st = PLLState(*(v[0] for v in st))
         nco = nco_i[0]

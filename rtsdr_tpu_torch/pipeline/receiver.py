@@ -38,6 +38,7 @@ from rtsdr_tpu_torch.config import ReceiverConfig
 from rtsdr_tpu_torch.device import require_kernel_dtype, resolve_device
 from rtsdr_tpu_torch.ops import coeffs
 from rtsdr_tpu_torch.ops.cuda_fir import fir_block_pre
+from rtsdr_tpu_torch.ops.cuda_pll import stacked_state
 from rtsdr_tpu_torch.ops.fir import fir_block_bank
 from rtsdr_tpu_torch.ops.ingestfir import ingest_fir_demod_audio
 from rtsdr_tpu_torch.ops.pll import PLLState, pll
@@ -252,8 +253,7 @@ def make_receiver(
                     extract, squared_h, state.rds.squared_zi, "square")
                 # tuple input: the kernel reads pilot and pre_pll where
                 # they lie; the (2, C, N) stacked pair is never made
-                st2 = PLLState(*(torch.stack([a, b], dim=0) for a, b in
-                                 zip(state.audio.pll, state.rds.pll)))
+                st2 = stacked_state((state.audio.pll, state.rds.pll))
                 nco_i2, nco_q2, st2 = pll(
                     (pilot, pre_pll), st2, freq=pll_freqs, fs=cfg.rf.if_fs,
                     nco_scale=pll_scales, phase_adjust=pll_adjusts,

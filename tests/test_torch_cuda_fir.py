@@ -143,3 +143,120 @@ def test_ragged_shapes_and_leading_dims(rng):
     np.testing.assert_allclose(y.numpy(), ref, rtol=0,
                                atol=_f32_tol(ref) * 2)
     assert np.array_equal(tail.numpy(), x[..., -150:])
+
+
+# --------------------------------------------------------------------------
+# CPU rehearsal of the kernel's plan (csrc/fir_bank.cu runs only on a card):
+# tiles of threads x 4 x groups outputs, the span staged from 16-byte-aligned
+# x index g0 = m0*s - lead into s polyphase planes with the pre-op and the zi
+# look-back applied, the masked ragged edge, each output summed over the
+# phase taps in the kernel's order (p = q*s + phi descending) with one fused
+# multiply-add per tap, emulated in float64 and rounded to float32 once.
+
+def _geometry(c, m, stride, n_f, taps, n_sm=132):
+    """The (threads, groups) that rtsdr_fir_bank picks."""
+    _, q_pad = tcf.bank_plan(taps, stride)
+    cands = [(128, 2), (128, 1), (64, 1), (32, 1)][0 if stride == 1 else 1:]
+    for th, g in cands:
+        tile = th * 4 * g
+        smem = 4 * (n_f * stride * q_pad + stride * (tile + q_pad))
+        if c * -(-m // tile) >= 2 * n_sm and smem <= 200 * 1024:
+            return th, g
+    return 32, 1
+
+
+def _bank_rehearsal(x, x2, zi, h_list, stride, pre, threads, groups):
+    c, n = x.shape
+    taps = len(h_list[0])
+    t1 = taps - 1
+    lead, q_pad = tcf.bank_plan(taps, stride)
+    assert lead % 4 == 0 and q_pad % 4 == 0 and q_pad * stride >= lead + 1
+    hp = tcf.phase_taps(h_list, stride).astype(np.float64)
+    n_f, s = len(h_list), stride
+    m_out = -(-n // s)
+    tile = threads * 4 * groups
+    plane = tile + q_pad
+    n_tiles = -(-m_out // tile)
+    xp = _pre_np(x, x2, pre).astype(np.float32)
+    # o of thread t, group g, output r: consecutive 4 per thread, a
+    # permutation of the tile
+    t, g, r = np.meshgrid(np.arange(threads), np.arange(groups),
+                          np.arange(4), indexing="ij")
+    o = (g * 4 * threads + t * 4 + r).ravel()
+    assert np.array_equal(np.sort(o), np.arange(tile))
+    y = np.full((n_f, c, m_out), np.nan, np.float32)
+    for tix in range(n_tiles):
+        m0 = tix * tile
+        g0 = m0 * s - lead
+        assert g0 % 4 == 0
+        gi = g0 + np.arange(plane * s)                      # span's x index
+        span = np.where(gi[None] >= n, 0.0, xp[:, np.clip(gi, 0, n - 1)])
+        back = (gi < 0) & (gi >= -t1)
+        span = np.where(back[None], zi[:, np.clip(t1 + gi, 0, t1 - 1)]
+                        if t1 else 0.0, span)
+        span = np.where((gi < -t1)[None], 0.0, span).astype(np.float32)
+        planes = np.zeros((c, s, plane), np.float32)
+        j = np.arange(plane * s)
+        planes[:, j % s, j // s] = span
+        acc = np.zeros((n_f, c, tile), np.float32)
+        for p in range(s * q_pad - 1, -1, -1):       # output o reads
+            ph, q = p % s, p // s                      # planes[ph, o + q]
+            assert q + tile - 1 < plane
+            xs = planes[:, ph, q:q + tile].astype(np.float64)
+            for f in range(n_f):
+                acc[f] = (hp[f, ph, q] * xs + acc[f]).astype(np.float32)
+        keep = m0 + np.arange(tile) < m_out
+        y[:, :, m0 + np.arange(tile)[keep]] = acc[:, :, keep]
+    xext = np.concatenate([zi, xp], -1)
+    return y, xext[:, -t1:]
+
+
+@pytest.mark.parametrize("c,n,stride,pre,n_f", [
+    (1, 15360, 1, "none", 3), (1, 15360, 5, "mul2", 1),
+    (3, 16000, 1, "square", 1), (3, 16000, 10, "none", 1),
+    (3, 4999, 5, "mul2", 1), (1, 4999, 1, "none", 2),
+    (1024, 251, 1, "none", 3), (1024, 257, 5, "mul2", 1),
+    (1024, 263, 10, "square", 1)])
+def test_kernel_plan_equals_plain(c, n, stride, pre, n_f):
+    """What ``csrc/fir_bank.cu`` computes, rehearsed index for index in
+    numpy (151 taps: not a multiple of 4, 5 or 10; N = 15,360, 16,000 and
+    primes: ragged last tiles and unaligned rows), equals the plain version
+    within the kernel's tolerance of 2e-6 max|ref|; the geometry is the one
+    the kernel picks for the shape."""
+    rng = np.random.default_rng(7 + c + n)
+    x, x2, zi = _inputs(rng, c, n)
+    hs = (BANK_H if stride == 1 else [AUDIO_H, BANK_H[1], BANK_H[2]])[:n_f]
+    th, gr = _geometry(c, -(-n // stride), stride, n_f, 151)
+    got, tail = _bank_rehearsal(x, x2, zi, hs, stride, pre, th, gr)
+    ys, want_tail = tcf.fir_bank_carried_ref(
+        torch.as_tensor(x), hs, torch.as_tensor(zi), stride,
+        x2=torch.as_tensor(x2), pre=pre)
+    for f, want in enumerate(ys):
+        want = want.numpy()
+        np.testing.assert_allclose(got[f], want, rtol=0, atol=_f32_tol(want))
+    assert np.array_equal(tail, want_tail.numpy())
+
+
+def test_kernel_geometry_fills_the_card():
+    """Two blocks per SM wherever the work allows; wide tiles at C >= 1,024
+    (the halo a small share of the span); the narrowest tile at C = 1."""
+    assert _geometry(1024, 15360, 1, 3, 151) == (128, 2)
+    assert _geometry(1024, 3072, 5, 1, 151) == (128, 1)
+    assert _geometry(1, 15360, 1, 3, 151) == (32, 1)      # 120 blocks
+    assert _geometry(128, 15360, 1, 3, 151) == (128, 2)   # wideband bank
+    assert _geometry(32, 15360, 10, 1, 151) == (128, 1)   # scan, s = 10
+
+
+def test_phase_taps_cached_by_identity():
+    """The wrapper's taps come from a cache keyed by the arrays' identity:
+    the same arrays give the same device tensor without a rebuild, a new
+    list of the same arrays too."""
+    a = tcf.derived_from_list([AUDIO_H], ("phase", 5, "cpu"),
+                              lambda: tcf.phase_taps([AUDIO_H], 5))
+    b = tcf.derived_from_list([AUDIO_H], ("phase", 5, "cpu"),
+                              lambda: pytest.fail("rebuilt"))
+    assert a is b
+    t = tcf._taps_on(BANK_H, "cpu")
+    assert t is tcf._taps_on(list(BANK_H), "cpu")
+    np.testing.assert_array_equal(
+        t.numpy(), np.stack(BANK_H).astype(np.float32))

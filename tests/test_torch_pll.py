@@ -211,3 +211,157 @@ def test_kernel_wrapper_on_cpu_tensor_is_the_plain_loop():
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     for u, v in zip(a[2], b[2]):
         assert torch.equal(u, v)
+
+
+# --------------------------------------------------------------------------
+# CPU rehearsal of the kernel's reordered chain (csrc/pll.cu runs only on a
+# card), in float32 arithmetic op for op (a fused multiply-add emulated in
+# float64, rounded once): the kq = kp + ki fold, theta's per-sample ramp off
+# the chain, the detector's wrap by the 1.5 * 2^23 rounding trick and a
+# two-part 2*pi, the loop_div gate and zero mask as selects, phase's
+# mod 4*pi deferred to once per 8 samples and to each 64-sample tile's end,
+# the stored angle folded per sample only for a scale that is not a
+# half-integer, the NCO from the stored angles, the delayed view.
+
+_F32 = np.float32
+_K_PI, _K_4PI = _F32(np.pi), _F32(4 * np.pi)
+_K_INV2PI, _K_MAGIC = _F32(1 / (2 * np.pi)), _F32(12582912.0)
+_K_HI = _F32(2 * np.pi)
+_K_LO = _F32(2 * np.pi - np.float64(_K_HI))
+
+
+def _fma(a, b, c):
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(_F32) \
+        if np.ndim(a) or np.ndim(b) or np.ndim(c) else \
+        _F32(np.float64(a) * np.float64(b) + np.float64(c))
+
+
+def _fold(z):
+    z = np.where(z >= _K_4PI, z - _K_4PI, z).astype(_F32)
+    return np.where(z < 0, z + _K_4PI, z).astype(_F32)
+
+
+def _chain_rehearsal(x, st, consts, loop_div, delay):
+    """x (C, N) float32, st: numpy (7, C), consts: numpy (5, C) float32 (the
+    wrapper's table) -> nco_i, nco_q (C, N), new state (7, C)."""
+    c, n = x.shape
+    kp, ki, dth, sc, ad = (consts[i].astype(_F32) for i in range(5))
+    kq = (kp + ki).astype(_F32)
+    kqlo, kilo = (-kq * _K_LO).astype(_F32), (-ki * _K_LO).astype(_F32)
+    fold_store = np.any(_F32(2) * sc != np.rint(_F32(2) * sc))
+    integ, phase = st[0].astype(_F32), st[1].astype(_F32)
+    a = np.arctan2(st[3].astype(_F32), st[2].astype(_F32)).astype(_F32)
+    theta = st[6].astype(_F32)
+    tp = (a - phase).astype(_F32)
+    ang = np.zeros((c, n + 1), _F32)
+    ang[:, 0] = a
+    for t0 in range(0, n, 64):
+        length = min(64, n - t0)
+        for tt in range(length):
+            k = t0 + tt
+            if k % loop_div == 0:
+                xk = x[:, k]
+                live = xk != 0
+                off = np.where(xk < 0, _K_PI, _F32(0)).astype(_F32)
+                mq, mi = np.where(live, kq, 0), np.where(live, ki, 0)
+                mqlo, milo = np.where(live, kqlo, 0), np.where(live, kilo, 0)
+                z = ((off - tp).astype(_F32) - phase).astype(_F32)
+                kk = (_fma(z, _K_INV2PI, _K_MAGIC) - _K_MAGIC).astype(_F32)
+                tr = _fma(-kk, _K_HI, z)
+                pi_pre = (phase + integ).astype(_F32)
+                phase = _fma(mq, tr, _fma(kk, mqlo, pi_pre))
+                integ = _fma(mi, tr, _fma(kk, milo, integ))
+            theta = _fold((theta + dth).astype(_F32))
+            tp = theta
+            ang[:, k + 1] = theta + (_fold(phase) if fold_store else phase)
+            if tt % 8 == 7 or tt == length - 1:
+                phase = _fold(phase)
+                assert np.all((phase >= 0) & (phase <= _K_4PI))
+                assert np.all((theta >= 0) & (theta <= _K_4PI))
+    arg = _fma(ang, sc[:, None], ad[:, None]).astype(np.float64)
+    ni, nq = np.cos(arg).astype(_F32), np.sin(arg).astype(_F32)
+    if delay:
+        ni[:, 0], nq[:, 0] = st[4], st[5]
+        ni_out, nq_out = ni[:, :n], nq[:, :n]
+    else:
+        ni_out, nq_out = ni[:, 1:], nq[:, 1:]
+    a_end = (theta + phase).astype(_F32)
+    arg_end = _fma(a_end, sc, ad).astype(np.float64)
+    new = np.stack([integ, phase, np.cos(np.float64(a_end)),
+                    np.sin(np.float64(a_end)), np.cos(arg_end),
+                    np.sin(arg_end), theta]).astype(_F32)
+    return ni_out, nq_out, new
+
+
+def _locked_lanes(n, scales):
+    """(3, n) of two blocks: a pilot, a 114 kHz carrier (the squared RDS
+    band-pass), a pilot with a stretch of exact zeros in the second block;
+    the loops' constants, per lane."""
+    from rtsdr_tpu_torch.utils.signals import generate_sin
+
+    fs = 240e3
+    pilot = generate_sin(fs, 19e3, 2 * n, 0.3)
+    carrier = np.roll(generate_sin(fs, 114e3, 2 * n, 0.5), 3)
+    gap = pilot.copy()
+    gap[n + 1000:n + 1300] = 0.0
+    x = np.stack([pilot, carrier, gap]).astype(np.float32)
+    kw = dict(freq=np.array([19e3, 114e3, 19e3]), fs=fs,
+              nco_scale=np.array(scales), phase_adjust=np.array([0, .3, 0]),
+              norm_bandwidth=np.array([0.01, 0.01, 0.02]))
+    return x, kw
+
+
+@pytest.mark.parametrize("loop_div,delay,scales", [
+    (1, True, [2.0, 0.5, 2.0]), (4, True, [2.0, 0.5, 2.0]),
+    (1, False, [2.0, 0.5, 2.0]), (2, True, [2.0, 1.3, 1.0])])
+def test_kernel_chain_equals_plain_loop(loop_div, delay, scales):
+    """The kernel's reordered chain, rehearsed in float32 over the second
+    of two 3,000-sample blocks (locked loops; a tile that is not full; a
+    lane fed exact zeros for 300 samples), is within the kernel's
+    tolerances of the plain loop: NCO 5e-5, state 1e-4 (angles mod 4 pi),
+    integrator 1e-5."""
+    from rtsdr_tpu_torch.ops.cuda_pll import _lane_consts
+
+    n = 3000
+    x, kw = _locked_lanes(n, scales)
+    xt = torch.as_tensor(x)
+    st0 = tpll.pll_init((3,), device="cpu")
+    _, _, st1 = tpll.pll_loop(xt[:, :n], st0, loop_div=loop_div, **kw)
+    ri, rq, rst = tpll.pll_loop(xt[:, n:].contiguous(), st1,
+                                loop_div=loop_div, delay_output=delay, **kw)
+    consts = _lane_consts((3,), 3, "cpu", kw["freq"], kw["fs"],
+                          kw["nco_scale"], kw["phase_adjust"],
+                          kw["norm_bandwidth"], loop_div).numpy()
+    st = np.stack([v.numpy() for v in st1])
+    ki, kq, kst = _chain_rehearsal(x[:, n:], st, consts, loop_div, delay)
+    np.testing.assert_allclose(ki, ri.numpy(), rtol=0, atol=5e-5)
+    np.testing.assert_allclose(kq, rq.numpy(), rtol=0, atol=5e-5)
+    for i, name in enumerate(tpll.PLLState._fields):
+        d = np.abs(kst[i].astype(np.float64) - rst[i].numpy())
+        if name in ("phase_est", "theta"):
+            d = np.minimum(d % _FOUR_PI, _FOUR_PI - d % _FOUR_PI)
+        tol = 1e-5 if name == "integrator" else 1e-4
+        assert d.max() <= tol, (name, d.max())
+    # the loops are locked: the detector error is small on every lane
+    assert float(rst.integrator.abs().max()) < 1e-2
+
+
+def test_stacked_state_reads_one_block_without_a_copy():
+    """The receiver's pilot and carrier states, split from one call's
+    (7, 2C) state, stack back into views of that very buffer; other states
+    are stacked once."""
+    from rtsdr_tpu_torch.ops.cuda_pll import _rows_of_one_block, stacked_state
+
+    block = torch.arange(7 * 2 * 3, dtype=torch.float32).view(7, 6)
+    st2 = tpll.PLLState(*(row.view(2, 3) for row in block.unbind(0)))
+    a = tpll.PLLState(*(v[0] for v in st2))
+    b = tpll.PLLState(*(v[1] for v in st2))
+    s = stacked_state((a, b))
+    assert s.integrator.data_ptr() == block.data_ptr()
+    assert _rows_of_one_block(s, 6).data_ptr() == block.data_ptr()
+    for u, v in zip(s, st2):
+        assert torch.equal(u, v)
+    c = stacked_state((tpll.pll_init((3,), device="cpu"),) * 2)
+    assert _rows_of_one_block(c, 6) is not None
+    assert torch.equal(c.fb_i, torch.ones(2, 3))
+    assert _rows_of_one_block(tpll.pll_init((3,), device="cpu"), 3) is None
