@@ -26,7 +26,10 @@ git-ignored ``rtsdr_tpu_torch/build``), then
      10 calls (``kernel_burst_ms``: the device's time where the host keeps
      ahead), ``F.conv1d`` the same way, and at C = 1 the host's
      microseconds per wrapper call; the PLL at 1, 2, 256, 2,048 and 4,096
-     lanes, with ``loop_div`` 1 and 4, tuple input and the undelayed view;
+     lanes, with ``loop_div`` 1 and 4, tuple input, the undelayed view and
+     loop constants as lists and tuples; the ingest kernel's iq entry also
+     at 101 taps and decim 8 (its instance for other filters); the
+     resampler + RRC kernel's carried resampler state bit for bit;
      computes the least time the card could need;
   2. the audio path (``enable_rds=False``), counted on its own:
      ``stream_audio`` (4 blocks through ``StreamRunner`` at C = 1 and once
@@ -75,11 +78,14 @@ git-ignored ``rtsdr_tpu_torch/build``), then
      receiver from block 1 on above 38 / 60 dB, syncs in the last two
      blocks), ``iterate`` with ``pll_loop_div=4`` on a pilot 60 Hz off
      (SNR above 60 dB against the serial receiver with the same
-     ``pll_loop_div``), and 1,024 channels at T = 1 and 2 (4 steps, against
-     the serial receiver: audio in all rows and symbols in the noiseless
-     row 0 at the exact tolerances; symbols in the rows under noise within
-     twice what a witness parts by, the serial receiver with its
-     discriminator in stock ops, and T = 2 against T = 1 in every row at
+     ``pll_loop_div``), and 1,024 channels at T = 1 and 2 (4 steps: every
+     row at the exact tolerances against a witness with the time-sharded
+     route's arithmetic, the serial receiver behind K1's iq route with the
+     discriminator in stock ops; against the serial receiver, audio and
+     symbols of the noiseless row 0 at the exact tolerances; audio of the
+     rows under noise at the exact tolerance but for at most one row in
+     1,000 per block, which stays within 5e-3, and their symbols within
+     twice what the witness parts by; T = 2 against T = 1 in every row at
      the exact tolerance); ms per block of each beside the serial
      receiver's;
      ``timeshard_mode1_rds`` — MODE1_RDS at T = 4 over 16 blocks with
@@ -121,6 +127,9 @@ TOL_RRC_REL = 5e-6    # x max|ref|: float32 sums of 158 + 151 terms, FMA vs
 TOL_ROW0 = 2e-5       # a batch row against the same station run alone
 TOL_FUSED_AUDIO = 2e-5    # fused-bank receiver against the unfused one
 TOL_FUSED_SYMBOLS_REL = 1e-4  # x peak symbol: through two locked loops
+# a row under noise whose loop or blend a ~1e-7 difference of fm moved for
+# a block (2.4e-3 on an H100): at most one row in 1,000 per block
+TOL_FLIPPED_ROW_AUDIO = 5e-3
 
 N_AUDIO_STREAM_BLOCKS = 4
 N_AUDIO_BATCH_STEPS = 3
@@ -498,18 +507,18 @@ def main() -> int:
     # B1's yardstick: one grouped conv1d (stride decim) over the normalized
     # (.., 2, taps-1 + N) I/Q extended by the carried zi (+ the left
     # neighbour's tail, segmented form)
-    w_rf = torch.as_tensor(np.stack([rf_h[::-1]] * 2)[:, None].copy(),
-                           dtype=torch.float32, device=dev)
-
-    def ingest_iq_case(raw, zi_i, zi_q, segments=None, **extra):
+    def ingest_iq_case(raw, zi_i, zi_q, segments=None, h=rf_h,
+                       decim=cfg.rf.decim, note="", **extra):
         """One ``ingest_fir_decimate`` call (K1's iq entry) on the kernel,
         on its plain version and as one ``F.conv1d`` call."""
-        args = (raw, rf_h, zi_i, zi_q, cfg.rf.decim)
+        args = (raw, h, zi_i, zi_q, decim)
         k = ingestfir.ingest_fir_decimate(*args, segments=segments)
         r = ingestfir.ingest_fir_decimate_ref(*args, segments=segments)
         names = ("i", "q", "zi_i", "zi_q")
         rows = zi_i.numel() // zi_i.shape[-1]
-        t1 = taps - 1
+        t1 = len(h) - 1
+        w = torch.as_tensor(np.stack([h[::-1]] * 2)[:, None].copy(),
+                            dtype=torch.float32, device=dev)
         zi2 = torch.stack([zi_i, zi_q], dim=-2).reshape(rows, 2, t1)
         if segments:
             # rows (S, C): each segment behind its left neighbour's tail
@@ -521,11 +530,11 @@ def main() -> int:
             xn = ingestfir.normalize_deinterleave(raw).reshape(rows, 2, -1)
         xn = torch.cat([zi2, xn], dim=-1)
         del zi2
-        lib = F.conv1d(xn, w_rf, stride=cfg.rf.decim, groups=2)
+        lib = F.conv1d(xn, w, stride=decim, groups=2)
         lib_err = max(max_err(lib[:, 0], r[0].reshape(rows, -1)),
                       max_err(lib[:, 1], r[1].reshape(rows, -1)))
         del lib
-        check("ingest.iq", f"u8 {shape_of(raw)}",
+        check("ingest.iq", f"u8 {shape_of(raw)}{note}",
               {n: max_err(a, b) for n, a, b in zip(names, k, r)},
               dict(zip(names, (TOL_IQ, TOL_IQ, TOL_STATE, TOL_STATE))),
               segments=segments,
@@ -534,13 +543,13 @@ def main() -> int:
               plain_ms=time_ms(lambda: ingestfir.ingest_fir_decimate_ref(
                   *args, segments=segments), reps=2, warm=0),
               library_ms=time_ms(lambda: F.conv1d(
-                  xn, w_rf, stride=cfg.rf.decim, groups=2)),
+                  xn, w, stride=decim, groups=2)),
               library="torch.nn.functional.conv1d (cudnn.allow_tf32=False),"
-                      " stride 10, groups 2, on the normalized I/Q extended "
-                      "by zi",
+                      f" stride {decim}, groups 2, on the normalized I/Q "
+                      "extended by zi",
               library_max_abs_err_vs_plain=lib_err,
               **bound(nbytes(raw, zi_i, zi_q, *k),
-                      rows * k[0].shape[-1] * 2 * 2 * taps), **extra)
+                      rows * k[0].shape[-1] * 2 * 2 * len(h)), **extra)
         del xn
 
     for c in (N_BATCH_CHANNELS, 1):
@@ -550,6 +559,13 @@ def main() -> int:
         au_flop = c * n_audio * 2 * len(mono_h)
         if c != 1:
             ingest_iq_case(raw, zi_i, zi_q)
+            # K1's instance for other filters and decimations (the
+            # receivers' own has 151 taps at decim 10 compiled in): 101
+            # taps at decim 8
+            z8 = torch.zeros(c, 100, device=dev)
+            ingest_iq_case(raw, z8, z8, h=coeffs.lowpass_taps(
+                cfg.rf.fs, 100e3, 101), decim=8, note=", 101 taps at decim 8")
+            del z8
             k = ingestfir.ingest_fir_demod(raw, rf_h, zi_i, zi_q, pi, pq,
                                            cfg.rf.decim)
             r = ingestfir.ingest_fir_demod_ref(raw, rf_h, zi_i, zi_q, pi, pq,
@@ -673,6 +689,15 @@ def main() -> int:
         pll_case(f"2 parts of ({c}, N)", (pilot, sq), st2, 4, **kw2)
         pll_case(f"2 parts of ({c}, N), undelayed", (pilot, sq), st2, 1,
                  delay_output=False, **kw2)
+        if c == 1:
+            # loop constants as lists and tuples (the plain loop's forms):
+            # the pilot and the carrier as two lanes of one input
+            pll_case("(2, N), list constants", torch.cat([pilot, sq]),
+                     PLLState(*(v.reshape(2) for v in st2)), 1,
+                     freq=[sp.freq, rp.freq], fs=if_fs,
+                     nco_scale=[sp.nco_scale, rp.nco_scale],
+                     phase_adjust=(sp.phase_adjust, rp.phase_adjust),
+                     norm_bandwidth=[sp.norm_bandwidth, rp.norm_bandwidth])
         if c != 1:
             pll_case(f"2 parts of ({2 * c}, N)",
                      (pilot.repeat(2, 1), sq.repeat(2, 1)),
@@ -699,7 +724,8 @@ def main() -> int:
             rnames = ("rrc", "new_zi", "new_rrc_zi")
             errs = {n: max_err(a, b) for n, a, b in zip(rnames, k, r)}
             scale = float(r[0].abs().max())
-            tols = {"rrc": TOL_RRC_REL * scale, "new_zi": TOL_STATE,
+            # new_zi: the kernel writes the reference's tail bit for bit
+            tols = {"rrc": TOL_RRC_REL * scale, "new_zi": 0.0,
                     "new_rrc_zi": TOL_RRC_REL * scale}
             timing = {}
             if blk == 1:
@@ -885,7 +911,7 @@ def main() -> int:
         check("resample_rrc", f"3 x f32 {shape_of(x)}",
               {n: max_err(p, q) for n, p, q in
                zip(("rrc", "new_zi", "new_rrc_zi"), k, r)},
-              {"rrc": TOL_RRC_REL * scale, "new_zi": TOL_STATE,
+              {"rrc": TOL_RRC_REL * scale, "new_zi": 0.0,
                "new_rrc_zi": TOL_RRC_REL * scale},
               block=2, up=a["up"], down=a["down"], taps=len(a["h"]),
               rrc_max_abs=scale,
@@ -1847,6 +1873,24 @@ def main() -> int:
                 / float(u.rds.symbols_i.abs().max())
                 for o, u in zip(outs, refs)]
 
+    def audio_per_block(outs, refs):
+        """Per block, over all rows: max |audio difference|."""
+        return [max(max_err(o.left, u.left), max_err(o.right, u.right),
+                    max_err(o.mono, u.mono))
+                for o, u in zip(outs, refs)]
+
+    def audio_rows_over(outs, refs, tol):
+        """Per block: the rows whose max |audio difference| exceeds tol."""
+        over = []
+        for o, u in zip(outs, refs):
+            err = torch.stack([(a.double() - b.double()).abs().amax(-1)
+                               for a, b in ((o.left, u.left),
+                                            (o.right, u.right),
+                                            (o.mono, u.mono))]).amax(0)
+            over.append({int(r): float(err[r])
+                         for r in torch.nonzero(err > tol).flatten()})
+        return over
+
     def exact_ok(rep):
         # a symbol within rounding of zero may slice either way; more than
         # one window in a thousand is a fault
@@ -1881,11 +1925,23 @@ def main() -> int:
     ser_det, ser_det_ms = serial_run(cfg, det_blocks, pll_loop_div=4)
     serb, serb_ms = serial_run(cfg, tsb_blocks, c=N_BATCH_CHANNELS)
     # the witness: the serial receiver with the discriminator in stock ops
-    # after K1's iq route (as the time-sharded receiver has it), against
+    # after K1's iq route, as the time-sharded receiver has it (its 'if'
+    # front end fed K1's decimated I/Q, the RF state carried here), against
     # the serial receiver with K1's fm entry
-    serb_fe, _ = serial_run(cfg, tsb_blocks, c=N_BATCH_CHANNELS,
-                            frontend_impl="split")
+    def witness_run(blocks, c):
+        rx = Receiver(cfg, (c,), frontend_impl="if")
+        st, outs = rx.init(), []
+        zi_i = zi_q = torch.zeros(c, taps - 1, device=dev)
+        for blk in blocks:
+            y_i, y_q, zi_i, zi_q = ingestfir.ingest_fir_decimate(
+                blk, rf_h, zi_i, zi_q, cfg.rf.decim)
+            st, out = rx.step(st, torch.stack([y_i, y_q], dim=-2))
+            outs.append(out)
+        return outs
+
+    serb_fe = witness_run(tsb_blocks, N_BATCH_CHANNELS)
     witness = sym_rel_per_block(serb_fe, serb)
+    witness_audio = audio_per_block(serb_fe, serb)
     for t_shards in TS_SHARDS:            # warm-up of each shape
         ts_run(cfg, ts_blocks[:1], t_shards)
     for t_shards in (1, TS_BATCH_T):
@@ -1950,23 +2006,42 @@ def main() -> int:
     if min(snrs) <= TS_SNR_FLOOR_DB["iterate"]:
         ts_fail.append(row)
     # C = 1,024: T = 1 (the time-sharded route, no seams) and T = 2.  Rows
-    # 1.. carry +-8 LSB of noise, where a ~1e-7 difference of fm can move an
-    # RDS loop for a block; their symbols may part from the serial
-    # receiver's by at most twice what the witness parts by.  T = 2 shares
-    # T = 1's route: it is held to T = 1 in every row at the exact tolerance
+    # 1.. carry +-8 LSB of noise, where a ~1e-7 difference of fm can move a
+    # loop or the blend for a block; against the serial receiver at most
+    # one row in 1,000 per block may then part in audio, by at most
+    # TOL_FLIPPED_ROW_AUDIO, and their symbols by at most twice what the
+    # witness parts by.  The witness has the time-sharded route's
+    # arithmetic: T = 1 and T = 2 are held to it in every row at the exact
+    # tolerances, and T = 2 to T = 1 in every row
     batch_outs = {}
     for t_shards in (1, TS_BATCH_T):
         outs, ms = ts_run(cfg, tsb_blocks, t_shards, c=N_BATCH_CHANNELS)
         add_counts(ts_want, N_TS_BATCH_STEPS, ts_per_step(t_shards))
         batch_outs[t_shards] = outs
         tol_noisy = max(TOL_FUSED_SYMBOLS_REL, 2 * max(witness))
+        flipped = audio_rows_over(outs, serb, TOL_FUSED_AUDIO)
+        vs_w = vs_serial(outs, serb_fe)
         row = {"channels": N_BATCH_CHANNELS, "time_shards": t_shards,
                "handoff": "exact", "steps": N_TS_BATCH_STEPS,
                **vs_serial(outs, serb),
+               "audio_max_abs_err_vs_serial_all_rows_per_block":
+                   audio_per_block(outs, serb),
                "symbols_max_rel_err_vs_serial_all_rows_per_block":
                    sym_rel_per_block(outs, serb),
+               "witness_audio_max_abs_err_all_rows_per_block":
+                   witness_audio,
                "witness_symbols_max_rel_err_all_rows_per_block": witness,
                "noisy_rows_tolerance": tol_noisy,
+               "audio_rows_over_tolerance_vs_serial_per_block": flipped,
+               "audio_rows_over_tolerance_allowed_per_block":
+                   N_BATCH_CHANNELS // 1000,
+               "flipped_rows_audio_tolerance": TOL_FLIPPED_ROW_AUDIO,
+               "audio_max_abs_err_vs_witness_all_rows":
+                   vs_w["audio_max_abs_err_vs_serial"],
+               "symbols_max_rel_err_vs_witness_all_rows":
+                   vs_w["symbols_max_rel_err_vs_serial_all_rows"],
+               "syndrome_ids_differing_vs_witness":
+                   vs_w["syndrome_ids_differing"],
                "finite": all(bool(torch.isfinite(o.left).all())
                              for o in outs),
                "ms_per_step_median": statistics.median(ms[1:]),
@@ -1976,9 +2051,26 @@ def main() -> int:
             row["symbols_max_rel_err_vs_t1_all_rows_per_block"] = (
                 sym_rel_per_block(outs, batch_outs[1]))
         ts_rows.append(row)
-        if (not exact_ok(row) or not row["finite"]
-                or max(row["symbols_max_rel_err_vs_serial_all_rows_per_block"])
-                > tol_noisy
+        # against the serial receiver: row 0 (noiseless) exact; the audio
+        # of every other row exact but for a bounded count of flipped rows;
+        # symbols within the witness's bound
+        serial_ok = (
+            row["symbols_max_rel_err_vs_serial"] <= TOL_FUSED_SYMBOLS_REL
+            and all(len(f) <= N_BATCH_CHANNELS // 1000
+                    and max(f.values(), default=0.0) <= TOL_FLIPPED_ROW_AUDIO
+                    for f in flipped)
+            and max(row["symbols_max_rel_err_vs_serial_all_rows_per_block"])
+            <= tol_noisy and row["symbol_and_window_counts_equal"])
+        # against the witness (the same arithmetic): every row exact
+        witness_ok = (
+            exact_ok(vs_w) and vs_w["symbols_max_rel_err_vs_serial_all_rows"]
+            <= TOL_FUSED_SYMBOLS_REL)
+        row["row0_audio_max_abs_err_vs_serial"] = max(
+            max(max_err(o.left[0], u.left[0]), max_err(o.right[0], u.right[0]),
+                max_err(o.mono[0], u.mono[0])) for o, u in zip(outs, serb))
+        row0_ok = row["row0_audio_max_abs_err_vs_serial"] <= TOL_FUSED_AUDIO
+        if (not serial_ok or not witness_ok or not row0_ok
+                or not row["finite"]
                 or max(row.get("symbols_max_rel_err_vs_t1_all_rows_per_block",
                                [0.0])) > TOL_FUSED_SYMBOLS_REL):
             ts_fail.append(row)

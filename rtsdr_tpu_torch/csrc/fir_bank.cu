@@ -328,16 +328,17 @@ cudaError_t launch_s(const Args& a, int threads, int groups,
   return launch_g<F, 0>(a, threads, groups, stream);
 }
 
+// the current device's SM count, cached per device
 int sm_count() {
-  static int n_sm = 0;
-  if (n_sm == 0) {
-    int device = 0;
-    if (cudaGetDevice(&device) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
-                               device) != cudaSuccess)
-      n_sm = 132;
-  }
-  return n_sm;
+  static int n_sm[64] = {};
+  int device = 0, n = 0;
+  if (cudaGetDevice(&device) != cudaSuccess) return 132;
+  if (device < 64 && n_sm[device]) return n_sm[device];
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) !=
+      cudaSuccess)
+    n = 132;
+  if (device < 64) n_sm[device] = n;
+  return n;
 }
 
 }  // namespace

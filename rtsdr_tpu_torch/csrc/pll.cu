@@ -409,16 +409,17 @@ pll_kernel(Parts parts, const float* __restrict__ consts,
   }
 }
 
+// the current device's SM count, cached per device
 int sm_count() {
-  static int n_sm = 0;
-  if (n_sm == 0) {
-    int device = 0;
-    if (cudaGetDevice(&device) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
-                               device) != cudaSuccess)
-      n_sm = 132;
-  }
-  return n_sm;
+  static int n_sm[64] = {};
+  int device = 0, n = 0;
+  if (cudaGetDevice(&device) != cudaSuccess) return 132;
+  if (device < 64 && n_sm[device]) return n_sm[device];
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) !=
+      cudaSuccess)
+    n = 132;
+  if (device < 64) n_sm[device] = n;
+  return n;
 }
 
 template <int DIV>

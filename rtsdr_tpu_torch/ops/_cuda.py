@@ -57,9 +57,9 @@ _ARGTYPES = {
     # n_parts, consts (5, C), st_in (7, C), st_out (7, C), nco_i, nco_q,
     # C, N, loop_div, delay_output, stream
     "rtsdr_pll": [_P, _P, _I] + [_P] * 5 + [_I] * 4 + [_P],
-    # e, nco_i, nco_q, h, zi, rrc_h, rrc_zi, y, rrc_zi_out, C, N, M, taps,
-    # up, down, rrc_taps, lane_stride, gain, stream
-    "rtsdr_resample_rrc": [_P] * 9 + [_I] * 8 + [_F, _P],
+    # e, nco_i, nco_q, h, zi, rrc_h, rrc_zi, y, rrc_zi_out, zi_out, C, N, M,
+    # taps, up, down, rrc_taps, gain, stream
+    "rtsdr_resample_rrc": [_P] * 10 + [_I] * 7 + [_F, _P],
     # e, nco_i, nco_q, h, zi, y, C, N, M, taps, up, down, lane_stride,
     # split, gain, stream
     "rtsdr_resample_mix": [_P] * 6 + [_I] * 8 + [_F, _P],

@@ -28,13 +28,16 @@ _PtrArray = ctypes.c_void_p * MAX_PARTS
 
 
 def _arg_key(v):
-    """A cache key for one loop-constant argument: scalars and small arrays
-    by value, a large array by identity (the entry holds it)."""
-    if isinstance(v, np.ndarray):
-        if v.size <= 64:
-            return (v.shape, v.dtype.str, v.tobytes())
-        return ("id", id(v))
-    return float(v)
+    """A cache key for one loop-constant argument: Python scalars by value,
+    anything else through ``np.asarray`` (lists, tuples, numpy scalars and
+    arrays), by value up to 64 elements and by identity above that (the
+    entry holds it)."""
+    if isinstance(v, (int, float)):
+        return float(v)
+    a = np.asarray(v)
+    if a.size <= 64:
+        return (a.shape, a.dtype.str, a.tobytes())
+    return ("id", id(v))
 
 
 def _lane_consts(batch_shape, c, device, freq, fs, nco_scale, phase_adjust,

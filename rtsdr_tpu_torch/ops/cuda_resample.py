@@ -13,9 +13,11 @@ and the (..., 2, N) mixed streams and the (..., 2, M) resampler stream never
 reach device memory; ``resample_mul2`` stops after the resampler and writes
 its (..., 2, M) output (the time-sharded receiver's route, which runs the
 RRC after the halo exchange).  ``zi`` is the carried tail of the zero-stuffed mixed
-stream (upsampled domain, arbitrary floats); ``new_zi`` is computed here
-from the last ceil((taps-1)/up) inputs with a few stock ops
-(``resample_mul2_tail``), as the reference computes it outside its kernel.
+stream (upsampled domain, arbitrary floats).  ``resample_mul2_rrc``'s kernel
+writes ``new_zi`` itself (one launch, no stock ops);
+``resample_mul2``'s is made here from the last ceil((taps-1)/up) inputs
+with a few stock ops (``resample_mul2_tail``), as the reference computes it
+outside its kernel; the two are equal bit for bit.
 
 What the kernel replaces, what bounds it on an H100 and what its design
 does about that is in the note at the top of ``csrc/resample_rrc.cu``.  Any
@@ -136,14 +138,14 @@ def resample_mul2_rrc(extract, nco_i, nco_q, h, zi, rrc_h, rrc_zi,
     _cuda.check(rrc_zi, "rrc_zi", (*lead, 2, rtaps - 1), _F32, dev)
     rrc = torch.empty((*lead, 2, m), dtype=_F32, device=dev)
     new_rrc_zi = torch.empty_like(rrc_zi)
+    new_zi = torch.empty_like(zi)
     _cuda.launch(
         "rtsdr_resample_rrc", "resample_rrc",
         _cuda.ptr(extract), _cuda.ptr(nco_i), _cuda.ptr(nco_q),
         _cuda.ptr(_taps_on([h], dev)), _cuda.ptr(zi),
         _cuda.ptr(_taps_on([rrc_h], dev)), _cuda.ptr(rrc_zi),
-        _cuda.ptr(rrc), _cuda.ptr(new_rrc_zi),
-        c, n, m, taps, up, down, rtaps, _lane_stride(up, down), float(gain))
-    new_zi = resample_mul2_tail(extract, nco_i, nco_q, taps - 1, up)
+        _cuda.ptr(rrc), _cuda.ptr(new_rrc_zi), _cuda.ptr(new_zi),
+        c, n, m, taps, up, down, rtaps, float(gain))
     return rrc, new_zi, new_rrc_zi
 
 

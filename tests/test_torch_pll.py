@@ -365,3 +365,20 @@ def test_stacked_state_reads_one_block_without_a_copy():
     assert _rows_of_one_block(c, 6) is not None
     assert torch.equal(c.fb_i, torch.ones(2, 3))
     assert _rows_of_one_block(tpll.pll_init((3,), device="cpu"), 3) is None
+
+
+@pytest.mark.parametrize("make", [
+    lambda v: list(v), lambda v: tuple(v), lambda v: np.float32(v[0]),
+    lambda v: np.array(v[0]), lambda v: np.array(v).reshape(2, 1)],
+    ids=["list", "tuple", "numpy scalar", "0-d array", "(2, 1) array"])
+def test_kernel_plan_key_takes_any_array_like(make):
+    """The kernel wrapper's plan key takes every loop-constant form the
+    plain loop takes (lists, tuples, numpy scalars, arrays of any rank):
+    equal values give equal keys, other values other keys."""
+    from rtsdr_tpu_torch.ops.cuda_pll import _arg_key
+
+    a, b = _arg_key(make([19e3, 114e3])), _arg_key(make([19e3, 114e3]))
+    assert a == b and hash(a) == hash(b)
+    assert _arg_key(make([19.5e3, 114e3])) != a
+    big = np.zeros(65)
+    assert _arg_key(big) == ("id", id(big))

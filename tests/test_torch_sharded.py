@@ -114,6 +114,51 @@ def test_step_shards_steps_each_shard_and_gathers_in_order():
     assert torch.equal(one.left, x + 1)
 
 
+class OnCard(torch.Tensor):
+    """A CPU tensor that claims to lie on a CUDA device (its own index)."""
+
+    is_cuda = property(lambda self: True)
+    device = property(lambda self: torch.device("cuda", self.card))
+
+
+def test_step_shards_makes_each_cuda_shard_device_current(monkeypatch):
+    """Each shard whose input lies on a GPU steps inside that GPU's device
+    guard (its kernels launch on that GPU's stream); a CPU shard enters
+    none."""
+    current, entered = [None], []
+
+    class Guard:
+        def __init__(self, d):
+            self.d, self.prev = torch.device(d), None
+
+        def __enter__(self):
+            self.prev, current[0] = current[0], self.d
+            entered.append(self.d)
+
+        def __exit__(self, *exc):
+            current[0] = self.prev
+
+    monkeypatch.setattr(torch.cuda, "device", Guard)
+    ran_on = []
+
+    def step(st, x):
+        ran_on.append(current[0])
+        return st, x.as_subclass(torch.Tensor)
+
+    parts = []
+    for card in (0, 1, 2):
+        p = torch.full((1, 2), float(card)).as_subclass(OnCard)
+        p.card = card
+        parts.append(p)
+    _, out = step_shards([step] * 3, (0, 1, 2), parts, torch.device("cpu"))
+    cards = [torch.device("cuda", k) for k in range(3)]
+    assert ran_on == cards and entered == cards and current[0] is None
+    assert torch.equal(out, torch.tensor([[0.0, 0], [1, 1], [2, 2]]))
+    ran_on.clear()
+    step_shards([step], (0,), [torch.zeros(1, 2)], torch.device("cpu"))
+    assert ran_on == [None] and entered == cards
+
+
 def test_channel_count_must_split():
     with pytest.raises(ValueError, match="not divisible"):
         make_channel_sharded_receiver(

@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
-"""The FIR-bank (K2) and PLL (K3) kernels alone, at the shapes the receivers
-give them, on one GPU.
+"""The fused-ingest (K1), FIR-bank (K2), PLL (K3) and mixer + resampler +
+RRC (K4) kernels alone, at the shapes the receivers give them, on one GPU.
 
     python3 tools/torch_profile_kernels.py [--repo DIR] [--label NAME]
-        [--check] [--host-breakdown] [--out FILE]
+        [--only K1,K2,K3,K4] [--check] [--host-breakdown] [--out FILE]
 
 Imports ``rtsdr_tpu_torch`` from ``--repo`` (default: this checkout), so
 that the same script times another tree's kernels, such as a ``git
 archive`` of a parent commit, through the same wrapper signatures
-(``cuda_fir.fir_bank_carried``, ``cuda_pll.pll_cuda``).  Per shape:
+(``ingestfir.ingest_fir_*``, ``cuda_fir.fir_bank_carried``,
+``cuda_pll.pll_cuda``, ``cuda_resample.resample_mul2_rrc``).  K1's inputs
+are 16 synthetic stations under +-8 LSB of noise, tiled to the rows, with
+the states their previous block leaves; K4's a band-limited extract and a
+carrier of unit modulus.  Per shape:
 
   * ``wrapper_ms``: CUDA events around one wrapper call, median of 7;
   * ``burst_ms``: events around a burst of 10 calls, / 10, median of 5;
@@ -26,8 +30,11 @@ cost the host (microseconds per call, as ``host_us``): an allocation,
 ``unbind``, ``data_ptr``, the current stream, a bare launch through
 ``ctypes``, the whole wrappers, ``F.conv1d``.
 
-With ``--check`` each case is also held against its plain version (K2:
-2e-6 max|ref|; K3 over 2 lanes of a locked pilot and carrier: NCO 5e-5).
+With ``--check`` each case is also held against its plain version (K1:
+I/Q 3e-6, fm 5e-6 rad, audio and bank 2e-6 max|ref| plus what the fm
+difference passes on, state 1e-6; K2: 2e-6 max|ref|; K3 over 2 lanes of a
+locked pilot and carrier: NCO 5e-5; K4: rrc and its state 5e-6 max|ref|,
+``new_zi`` bit for bit).
 Prints one JSON line per case and a last line with the card's name and power
 limit; ``--out`` appends the lines to a file too.
 """
@@ -48,6 +55,8 @@ def main() -> int:
     ap.add_argument("--repo", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument("--label", default="")
+    ap.add_argument("--only", default="K1,K2,K3,K4",
+                    help="comma-separated kernels to time")
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--host-breakdown", action="store_true")
     ap.add_argument("--out", default=None)
@@ -61,8 +70,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_profile_kernels: no CUDA device", file=sys.stderr)
         return 1
-    from rtsdr_tpu_torch.config import MODE0
-    from rtsdr_tpu_torch.ops import _cuda, coeffs, cuda_fir, cuda_pll
+    from rtsdr_tpu_torch.config import MODE0, MODE1, MODE1_RDS
+    from rtsdr_tpu_torch.ops import (
+        _cuda, coeffs, cuda_fir, cuda_pll, cuda_resample, ingestfir)
+    from rtsdr_tpu_torch.pipeline.rds import composed_resampler_taps
+    from rtsdr_tpu_torch.utils.signals import fm_multiplex_iq
     from rtsdr_tpu_torch.ops.pll import pll_init, pll_loop
     from rtsdr_tpu_torch.pipeline.audio import audio_lpf_taps
     from rtsdr_tpu_torch.pipeline.frontend import rf_lpf_taps
@@ -153,6 +165,7 @@ def main() -> int:
     mono_h = audio_lpf_taps(cfg)
     rf_h = rf_lpf_taps(cfg)
     gen = torch.Generator(device=dev).manual_seed(5)
+    only = set(args.only.split(","))
 
     if args.host_breakdown:
         x = torch.randn(1, 15360, device=dev)
@@ -213,7 +226,7 @@ def main() -> int:
         ("wideband s=10", "none", [rf_h], 10, (8, 16, 2, 153600)),
         ("scan s=10", "none", [rf_h], 10, (16, 2, 153600)),
     ]
-    for label, pre, hl, s, shape in bank_cases:
+    for label, pre, hl, s, shape in (bank_cases if "K2" in only else []):
         x = torch.randn(shape, generator=gen, device=dev)
         x2 = (torch.randn(shape, generator=gen, device=dev)
               if pre == "mul2" else None)
@@ -258,7 +271,8 @@ def main() -> int:
         ("2,048 x 16,000 (mode 1)", 2048, 16000, 1, True, True),
         ("4,096 lanes", 4096, 15360, 1, True, True),
     ]
-    for label, lanes, n, div, delay, pair in pll_cases:
+    for label, lanes, n, div, delay, pair in (pll_cases if "K3" in only
+                                               else []):
         t = torch.arange(n, device=dev, dtype=torch.float64) / fs
         ph = 0.05 * (torch.arange(lanes, device=dev) % 16)[:, None]
         if pair:
@@ -291,6 +305,155 @@ def main() -> int:
             row["ok"] = row["nco_err"] <= 5e-5
         emit(row)
         del x, st
+        torch.cuda.empty_cache()
+    # K1: the receivers' front ends.  16 stations (+-8 LSB of noise on
+    # every row but row 0) tiled to C rows, two blocks: the states of the
+    # first, the second timed
+    def stations(c, cfg_):
+        n = 2 * cfg_.iq_len
+        rows = [fm_multiplex_iq(n, cfg_.rf.fs, mono_hz=700.0 + 130.0 * k,
+                                stereo_hz=1500.0 + 210.0 * k,
+                                pilot_phase=0.37 * k)
+                for k in range(min(c, 16))]
+        base = torch.as_tensor(np.stack(rows)).to(dev)
+        raw = base.repeat((c + 15) // 16, 1)[:c].to(torch.int16)
+        noise = torch.randint(-8, 9, raw.shape, generator=gen, device=dev,
+                              dtype=torch.int16)
+        noise[0] = 0
+        raw = (raw + noise).clamp_(0, 255).to(torch.uint8)
+        half = raw.shape[1] // 2
+        return raw[:, :half].contiguous(), raw[:, half:].contiguous()
+
+    def k1_state(c, first, cfg_):
+        z = lambda *s_: torch.zeros(s_, device=dev)
+        out = ingestfir.ingest_fir_demod_audio(
+            first, rf_lpf_taps(cfg_), z(c, 150), z(c, 150),
+            torch.ones(c, device=dev), z(c), cfg_.rf.decim, mono_h, z(c, 150),
+            5) if cfg_ is MODE0 else None
+        if out is None:
+            out = ingestfir.ingest_fir_demod(
+                first, rf_lpf_taps(cfg_), z(c, 150), z(c, 150),
+                torch.ones(c, device=dev), z(c), cfg_.rf.decim)
+            return out[1:5] + (z(c, 150),), out[0]
+        return out[2:7], out[0]
+
+    def errs_of(names, got, ref, tols):
+        row = {}
+        ok = True
+        for n, a, b in zip(names, got, ref):
+            if a is None or n not in tols:
+                continue
+            e = float((a.double() - b.double()).abs().max())
+            row[n] = e
+            ok = ok and e <= tols[n]
+        return row, ok
+
+    k1_cases = [("fm_audio C=1", 1, MODE0, "fm_audio", True),
+                ("fm_audio C=1024", 1024, MODE0, "fm_audio", True),
+                ("fm_audio C=1024, fm not written", 1024, MODE0, "fm_audio",
+                 False),
+                ("fm_audio_bank C=1024", 1024, MODE0, "bank", False),
+                ("fm mode 1 C=1", 1, MODE1, "fm", True),
+                ("fm mode 1 C=1024", 1024, MODE1, "fm", True),
+                ("iq C=1", 1, MODE0, "iq", True),
+                ("iq C=1024", 1024, MODE0, "iq", True),
+                ("iq segmented T=4 (1024 rows of 4 segments)", 1024, MODE0,
+                 "iq4", True)]
+    bank_hs = bank_h
+    for label, c, cfg_, entry, emit_fm in (k1_cases if "K1" in only else []):
+        first, raw = stations(c, cfg_)
+        h_rf = rf_lpf_taps(cfg_)
+        (zi_i, zi_q, pi, pq, azi), fm_prev = k1_state(c, first, cfg_)
+        if entry in ("fm_audio", "bank"):
+            kw = dict(emit_fm=emit_fm)
+            if entry == "bank":
+                kw.update(bank_h=bank_hs,
+                          bank_zi=fm_prev[:, -150:].contiguous())
+            a = (raw, h_rf, zi_i, zi_q, pi, pq, cfg_.rf.decim, mono_h, azi,
+                 5)
+            fn = (lambda a=a, kw=kw:
+                  ingestfir.ingest_fir_demod_audio(*a, **kw))
+            ref = (lambda a=a, kw=kw:
+                   ingestfir.ingest_fir_demod_audio_ref(*a, **kw))
+            names = ("fm", "audio", "zi_i", "zi_q", "prev_i", "prev_q",
+                     "audio_zi")
+        elif entry == "fm":
+            a = (raw, h_rf, zi_i, zi_q, pi, pq, cfg_.rf.decim)
+            fn = lambda a=a: ingestfir.ingest_fir_demod(*a)
+            ref = lambda a=a: ingestfir.ingest_fir_demod_ref(*a)
+            names = ("fm", "zi_i", "zi_q", "prev_i", "prev_q")
+        else:
+            seg = 4 if entry == "iq4" else None
+            if seg:
+                zi_i = zi_i.repeat(seg, 1).reshape(seg, c, -1)
+                zi_q = torch.zeros_like(zi_i)
+            a = (raw, h_rf, zi_i, zi_q, cfg_.rf.decim)
+            fn = lambda a=a, seg=seg: ingestfir.ingest_fir_decimate(
+                *a, segments=seg)
+            ref = lambda a=a, seg=seg: ingestfir.ingest_fir_decimate_ref(
+                *a, segments=seg)
+            names = ("i", "q", "zi_i", "zi_q")
+        row = {"label": args.label, "kernel": "K1", "case": label,
+               "entry": entry, "shape": list(raw.shape),
+               **timings(fn, "ingest_kernel", c == 1)}
+        if args.check:
+            got, want = fn(), ref()
+            tols = {"i": 3e-6, "q": 3e-6, "fm": 5e-6, "zi_i": 1e-6,
+                    "zi_q": 1e-6, "prev_i": 1e-6, "prev_q": 1e-6,
+                    "audio_zi": 5e-6}
+            if entry in ("fm_audio", "bank"):
+                tols["audio"] = 2e-6 * float(want[1].abs().max())
+            row["errors"], row["ok"] = errs_of(names, got, want, tols)
+            if entry == "bank":
+                fm_err = float((ingestfir.ingest_fir_demod_audio(*a)[0]
+                                - ingestfir.ingest_fir_demod_audio_ref(*a)[0]
+                                ).abs().max())
+                for f_, (x_, y_) in enumerate(zip(got[7], want[7])):
+                    e = float((x_ - y_).abs().max())
+                    tol = (2e-6 * float(y_.abs().max()) + max(fm_err, 2.5e-7)
+                           * float(np.abs(bank_hs[f_]).sum()))
+                    row["errors"][f"bank{f_}"] = e
+                    row["ok"] = row["ok"] and e <= tol
+        emit(row)
+        del first, raw
+        torch.cuda.empty_cache()
+
+    # K4: mixers + resampler + RRC at the receivers' shapes
+    rrc_h = coeffs.rrc_taps(cfg.rds.rrc_fs, cfg.rds.rrc_taps,
+                            cfg.rds.rrc_beta, cfg.rds.symbol_rate)
+    k4_cases = [("x19/80 C=1", (1,), MODE0), ("x19/80 C=1024", (1024,), MODE0),
+                ("x57/250 C=1024 (MODE1_RDS)", (1024,), MODE1_RDS),
+                ("x19/80 wideband (8, 16)", (8, 16), MODE0)]
+    for label, lead, cfg_ in (k4_cases if "K4" in only else []):
+        comb = composed_resampler_taps(cfg_)
+        up, down = cfg_.rds.up, cfg_.rds.down
+        n = cfg_.if_len
+        t = torch.arange(n, device=dev, dtype=torch.float64)
+        ph = 2 * np.pi * 57e3 / cfg_.rf.if_fs * t
+        off = torch.rand((*lead, 1), generator=gen, device=dev,
+                         dtype=torch.float64) * 6
+        ext = (0.3 * torch.cos(ph + off) + 0.01 * torch.randn(
+            (*lead, n), generator=gen, device=dev, dtype=torch.float64)
+               ).float()
+        ni = torch.cos(ph + 2 * off).float()
+        nq = torch.sin(ph + 2 * off).float()
+        zi = cuda_resample.resample_mul2_tail(ext, ni, nq, len(comb) - 1, up)
+        rzi = torch.randn((*lead, 2, len(rrc_h) - 1), generator=gen,
+                          device=dev)
+        a = (ext, ni, nq, comb, zi, rrc_h, rzi, up, down)
+        fn = lambda a=a: cuda_resample.resample_mul2_rrc(*a)
+        row = {"label": args.label, "kernel": "K4", "case": label,
+               "shape": [*lead, n], "up": up, "down": down,
+               **timings(fn, "resample_rrc_kernel", lead == (1,))}
+        if args.check:
+            got = fn()
+            want = cuda_resample.resample_mul2_rrc_ref(*a)
+            sc = float(want[0].abs().max())
+            row["errors"], row["ok"] = errs_of(
+                ("rrc", "new_zi", "new_rrc_zi"), got, want,
+                {"rrc": 5e-6 * sc, "new_zi": 0.0, "new_rrc_zi": 5e-6 * sc})
+        emit(row)
+        del ext, ni, nq, zi, rzi
         torch.cuda.empty_cache()
     emit({"label": args.label, "card": card, "repo": args.repo,
           "torch": torch.__version__})
