@@ -9,14 +9,19 @@ git-ignored ``rtsdr_tpu_torch/build``), then
   1. ``kernel_cases`` — calls every kernel wrapper on CUDA tensors at the
      shapes the receiver gives it (MODE0: 307,200-byte blocks, 151-tap
      filters, the 3,001-tap composed resampler, C = 1 and C = 1024; the
-     composed channelizer at K = 16 with 1 and 8 captures; every wrapper
+     composed channelizer at K = 16 with 1 and 8 captures, with no offsets
+     (every station on the shared prototype), the smoke's one offset
+     (15 + 1) and every station offset (own taps only), each case naming
+     the stations of each route, then at K = 8 and 32 and in its generic
+     instance (K = 3, decim 2); every wrapper
      call of the third step of the MODE1 / MODE1_RDS receivers (320,000-byte
      blocks, 16,000 IF samples, the x57/250 resampler with its 9,003 taps),
      of the wideband receiver at 8 captures x 16 slots, and of the band
      scanner, with the receiver's own arguments; the time-sharded
      receiver's calls of the mixer + resampler kernel K6 in its third step
-     at T = 1 (1,024 x 15,360) and T = 4 (4 x 1,024 stacked rows of 3,840,
-     both instances; MODE1_RDS: 4 x 1,024 x 4,000 at x57/250) and of the
+     at T = 1 (1,024 x 15,360) and T = 4 (4 x 1,024 stacked rows of 3,840;
+     MODE1_RDS: 4 x 1,024 x 4,000 at x57/250), in its segmented form (each
+     arm) and as rows behind the halo zi made in stock ops, and of the
      ingest kernel's iq entry in its segmented form) and holds the result
      against its plain PyTorch version on the same inputs, within the
      stated tolerance; times the kernel (CUDA events, median),
@@ -781,66 +786,141 @@ def main() -> int:
         "blocks": WB_BLOCKS, "live_slots": sorted(WB_STATIONS),
         "bytes_per_capture_block": wbs}})
 
+    # K5: the receiver's taps with no offsets (every station on the shared
+    # prototype), with the smoke's one offset (15 + 1), with every station
+    # offset (own taps only), at 8 and 1 captures over two chained blocks;
+    # then K = 8 and 32 (the compiled-in 17 taps per plane) and a geometry
+    # of the generic instance, on random bytes
     h_proto = np.asarray(channelizer.channelizer_taps(WB_K, 16))
-    for offs in (None, wb_offsets):
+    all_offsets = np.linspace(-90e3, 90e3, WB_K) + 1e3
+
+    def k5_least_flop(k_, g_len, decim, n_sh, n_own, l_ch, l_rf):
+        """FLOP per output and capture of the least exact work for g's
+        stations.  g_k = up_K(h_rf rot_k) * (mod_k h_ch) factors into the
+        shared bank at the slot rate (residue sums of h_ch's l_ch real taps,
+        4 FLOP each, then one K-point DFT row per station, 8 K FLOP, both
+        decim times per output) and a station's own l_rf-tap complex FIR
+        (8 FLOP a tap); the shared stations may instead take the composed
+        prototype (L real taps, then one DFT row each at the output rate)
+        and an offset one its L dense complex taps (8 L)."""
+        slot_bank = decim * 4 * l_ch
+        two_stage = decim * 8 * k_ + 8 * l_rf        # per station
+        own = min(n_own * 8 * g_len, slot_bank + n_own * two_stage) \
+            if n_own else 0
+        mixed = ((4 * g_len + 8 * k_ * n_sh) if n_sh else 0) + own
+        return min(mixed, slot_bank + k_ * two_stage)
+
+    def k5_case(g, blocks, ncap, decim, label, timed, factors=None):
+        """Two chained blocks through the kernel and the plain version;
+        the second timed (with the yardstick) where ``timed``; ``factors``
+        (len h_ch, len h_rf): g's two stages, for the least-work bound."""
+        k_, g_len = g.shape
+        g_l1 = float(np.abs(g).sum(axis=1).max())
+        plan = channelizer.composed_plan(g, decim)
+        geo = channelizer.composed_geometry(plan, ncap,
+                                            blocks[0].shape[-1] // 2
+                                            // (decim * k_))
+        d = decim * k_
+        zi = channelizer.composed_zi_u8(g_len, (ncap,), dev)
+        for blk in range(2):            # block 1 reads block 0's byte tail
+            raw = blocks[blk][:ncap].contiguous()
+            k_y, k_zi = channelizer.composed_channelize_u8(raw, g, zi, decim)
+            r_y, r_zi = channelizer.composed_channelize_u8_ref(
+                raw, g, zi, decim, block=32)
+            errs = {"y": max_err(k_y, r_y),
+                    "new_zi_bytes_differing": float((k_zi != r_zi).sum())}
+            tols = {"y": TOL_K5_REL * g_l1, "new_zi_bytes_differing": 0.0}
+            timing = {}
+            if blk == 1 and timed:
+                # yardstick: one conv1d over the normalized, de-interleaved
+                # input
+                w = np.empty((k_, 2, 2, g_len))
+                w[:, 0, 0], w[:, 0, 1] = g.real[:, ::-1], -g.imag[:, ::-1]
+                w[:, 1, 0], w[:, 1, 1] = g.imag[:, ::-1], g.real[:, ::-1]
+                w = torch.as_tensor(w.reshape(2 * k_, 2, g_len),
+                                    dtype=torch.float32, device=dev)
+                xn = ingestfir.normalize_deinterleave(
+                    torch.cat([zi, raw], dim=-1)).contiguous()
+                lib = F.conv1d(xn, w, stride=d).reshape(k_y.shape)
+                outs = k_y.numel() // (2 * k_)       # outputs per station
+                n_sh, n_own = len(plan.shared), len(plan.own)
+                plan_bytes = sum(a.nbytes for a in (
+                    plan.proto, plan.twiddle, plan.own_taps) if a is not None)
+                moved = nbytes(raw, zi, k_y, k_zi) + plan_bytes
+                timing = dict(
+                    kernel_ms=time_ms(
+                        lambda: channelizer.composed_channelize_u8(
+                            raw, g, zi, decim)),
+                    kernel_burst_ms=burst_ms(
+                        lambda: channelizer.composed_channelize_u8(
+                            raw, g, zi, decim)),
+                    plain_ms=time_ms(
+                        lambda: channelizer.composed_channelize_u8_ref(
+                            raw, g, zi, decim, block=32),
+                        reps=2, warm=0),
+                    library_ms=time_ms(lambda: F.conv1d(xn, w, stride=d)),
+                    library="torch.nn.functional.conv1d (cudnn."
+                            "allow_tf32=False), stride decim K, weight "
+                            "(2 K, 2, L), on the normalized "
+                            "de-interleaved float input",
+                    library_rel_err_vs_plain=max_err(lib, r_y)
+                    / float(r_y.abs().max()),
+                    # bound_ms: the least exact work (k5_least_flop);
+                    # beside it, the work of the routes this g takes (per
+                    # output the shared route's real taps, 4 FLOP each,
+                    # and DFT rows, 8 FLOP per residue and station; the
+                    # own route's complex taps, 8 FLOP each) and the dense
+                    # form's
+                    dense_bound_ms=8 * g_len * outs * k_
+                    / H100_F32_FLOP_PER_S * 1e3,
+                    route_bound_ms=bound(
+                        moved, outs * ((4 * g_len + 8 * k_ * n_sh) if n_sh
+                                       else 0)
+                        + outs * n_own * 8 * g_len)["bound_ms"],
+                    **bound(moved, outs * k5_least_flop(
+                        k_, g_len, decim, n_sh, n_own, *factors)))
+                del xn, lib, w
+            check("channelizer.composed",
+                  f"u8 ({ncap}, {raw.shape[-1]}), K = {k_}, L = {g_len}",
+                  errs, tols, captures=ncap, case=label, block=blk,
+                  shared_stations=list(plan.shared),
+                  own_taps_stations=list(plan.own), tile=geo.tile,
+                  taps_per_plane=plan.a_sp, sum_abs_g=g_l1,
+                  y_max_abs=float(r_y.abs().max()), **timing)
+            zi = k_zi
+        del k_y, r_y, k_zi, r_zi, raw
+
+    for label, offs in (("no offsets", None), ("one offset", wb_offsets),
+                        ("all offset", all_offsets)):
         g = channelizer.composed_rf_taps(WB_K, h_proto, rf_h, cfg.rf.decim,
                                          offsets_hz=offs, fs_ch=cfg.rf.fs)
-        g_len = g.shape[1]
-        g_l1 = float(np.abs(g).sum(axis=1).max())
-        # yardstick: one conv1d over the normalized, de-interleaved input
-        w = np.empty((WB_K, 2, 2, g_len))
-        w[:, 0, 0], w[:, 0, 1] = g.real[:, ::-1], -g.imag[:, ::-1]
-        w[:, 1, 0], w[:, 1, 1] = g.imag[:, ::-1], g.real[:, ::-1]
-        w = torch.as_tensor(w.reshape(2 * WB_K, 2, g_len),
-                            dtype=torch.float32, device=dev)
-        d = cfg.rf.decim * WB_K
         for ncap in (WB_CAPTURES, 1):
-            zi = channelizer.composed_zi_u8(g_len, (ncap,), dev)
-            for blk in range(2):        # block 1 reads block 0's byte tail
-                raw = wb_blocks[blk][:ncap].contiguous()
-                k_y, k_zi = channelizer.composed_channelize_u8(
-                    raw, g, zi, cfg.rf.decim)
-                r_y, r_zi = channelizer.composed_channelize_u8_ref(
-                    raw, g, zi, cfg.rf.decim, block=32)
-                errs = {"y": max_err(k_y, r_y),
-                        "new_zi_bytes_differing":
-                            float((k_zi != r_zi).sum())}
-                tols = {"y": TOL_K5_REL * g_l1, "new_zi_bytes_differing": 0.0}
-                timing = {}
-                if blk == 1:
-                    xn = ingestfir.normalize_deinterleave(
-                        torch.cat([zi, raw], dim=-1)).contiguous()
-                    lib = F.conv1d(xn, w, stride=d).reshape(k_y.shape)
-                    timing = dict(
-                        kernel_ms=time_ms(
-                            lambda: channelizer.composed_channelize_u8(
-                                raw, g, zi, cfg.rf.decim)),
-                        plain_ms=time_ms(
-                            lambda: channelizer.composed_channelize_u8_ref(
-                                raw, g, zi, cfg.rf.decim, block=32),
-                            reps=2, warm=0),
-                        library_ms=time_ms(
-                            lambda: F.conv1d(xn, w, stride=d)),
-                        library="torch.nn.functional.conv1d (cudnn."
-                                "allow_tf32=False), stride 10 K, weight "
-                                "(2 K, 2, L), on the normalized "
-                                "de-interleaved float input",
-                        library_rel_err_vs_plain=max_err(lib, r_y)
-                        / float(r_y.abs().max()),
-                        # 8 FLOP per tap and complex output
-                        **bound(nbytes(raw, zi, k_y, k_zi)
-                                + g.size * 8,
-                                8 * g_len * k_y.numel() // 2))
-                    del xn, lib
-                check("channelizer.composed",
-                      f"u8 ({ncap}, {raw.shape[-1]}), K = {WB_K}, "
-                      f"L = {g_len}", errs, tols, captures=ncap,
-                      offsets_in_taps=offs is not None, block=blk,
-                      sum_abs_g=g_l1, y_max_abs=float(r_y.abs().max()),
-                      **timing)
-                zi = k_zi
-        del w, k_y, r_y, k_zi, r_zi, raw
+            k5_case(g, wb_blocks, ncap, cfg.rf.decim, label, True,
+                    (len(h_proto), len(rf_h)))
         torch.cuda.empty_cache()
+    for k_ in (8, 32):
+        small = [torch.randint(0, 256, (2, 2 * cfg.rf.decim * k_ * 960),
+                               generator=gen, device=dev, dtype=torch.uint8)
+                 for _ in range(2)]
+        offs_k = np.zeros(k_)
+        offs_k[k_ // 2] = WB_OFFSET_HZ
+        for label, offs in (("no offsets", None), ("one offset", offs_k),
+                            ("all offset", np.linspace(-90e3, 90e3, k_)
+                             + 1e3)):
+            g = channelizer.composed_rf_taps(
+                k_, channelizer.channelizer_taps(k_, 16), rf_h,
+                cfg.rf.decim, offsets_hz=offs, fs_ch=cfg.rf.fs)
+            k5_case(g, small, 2, cfg.rf.decim, label, False)
+    # the generic instance (taps per plane not 17): K = 3, decim 2
+    g = channelizer.composed_rf_taps(3, channelizer.channelizer_taps(3, 4),
+                                     np.hanning(31) / 16, 2,
+                                     offsets_hz=[0.0, 1e5, 0.0],
+                                     fs_ch=cfg.rf.fs)
+    small = [torch.randint(0, 256, (2, 2 * 6 * 1000), generator=gen,
+                           device=dev, dtype=torch.uint8) for _ in range(2)]
+    k5_case(g, small, 2, 2, "one offset, generic instance", False)
+    del small
+    torch.cuda.empty_cache()
 
     # MODE1 / MODE1_RDS: the receiver's own calls of the fm ingest entry
     # (320,000-byte blocks) and of the mixer + resampler + RRC kernel
@@ -1026,40 +1106,60 @@ def main() -> int:
 
     # ---- 1c. the time-sharded receiver's own calls of K6 (mixers +
     # resampler, B7) and of K1's iq entry in its segmented form, in its
-    # third step (real mid-stream states; shards >= 1 carry their left
-    # neighbour's tail as zi): MODE0 at T = 1 (1,024 x 15,360) and at
-    # T = 4 (4 x 1,024 stacked rows of 3,840; both instances of K6, and K1
+    # third step (real mid-stream states; shards >= 1 read their left
+    # neighbour's inputs as their halo): MODE0 at T = 1 (1,024 x 15,360) and at
+    # T = 4 (4 x 1,024 stacked rows of 3,840; every arm of K6, and K1
     # over 1,024 rows of 4 segments of 76,800 bytes, read in place),
     # MODE1_RDS at T = 4
     # (x57/250, 9,003 taps, 4 x 1,024 x 4,000)
     TS_WRAPPERS = [(timeshard_mod, "resample_mul2"),
                    (timeshard_mod, "ingest_fir_decimate")]
     mix_names = ("extract", "nco_i", "nco_q", "h", "zi", "up", "down",
-                 "gain")
+                 "gain", "segments")
+    mix_count = {"auto": "resample_mix", "pair": "resample_mix.pair",
+                 "split": "resample_mix.split"}
 
-    def mix_case(a, impl="auto", **extra):
+    def mix_case(a, impl="auto", rows_form=False, **extra):
+        """The receiver's call of K6 (the segmented form over its stacked
+        chunks) once more on the kernel and its plain version; with
+        ``rows_form`` the same chunks as (T*C, n) rows behind the halo zi
+        built in stock ops (the unsegmented form, the parent's route)."""
         a = {n: a[n] for n in mix_names}
+        t_sh = a["segments"]
+        if rows_form:
+            x = a["extract"]
+            halo = cuda_resample._segment_halo(
+                x, a["nco_i"], a["nco_q"], a["zi"], len(a["h"]) - 1, a["up"])
+            a = dict(a, segments=None, zi=halo.reshape(-1, *halo.shape[-2:]),
+                     **{n: a[n].reshape(-1, x.shape[-1])
+                        for n in ("extract", "nco_i", "nco_q")})
+            del halo
+        plain = (cuda_resample.resample_mul2_ref if a["segments"] is None
+                 else cuda_resample.resample_mul2_segments_ref)
+        pa = {n: v for n, v in a.items() if n != "segments"}
         k = cuda_resample.resample_mul2(**a, impl=impl)
-        r = cuda_resample.resample_mul2_ref(**a)
+        r = plain(**pa)
         scale = float(r[0].abs().max())
         x, taps_ = a["extract"], len(a["h"])
         lanes, n = x.numel() // x.shape[-1], x.shape[-1]
-        check("resample_mix" if impl == "auto" else "resample_mix.pair",
-              f"3 x f32 {shape_of(x)}",
+        check(mix_count[impl], f"3 x f32 {shape_of(x)}",
               {"y": max_err(k[0], r[0]), "new_zi": max_err(k[1], r[1])},
               {"y": TOL_RESAMP_REL * scale, "new_zi": 0.0},
+              form="rows" if rows_form else "segmented", time_shards=t_sh,
               up=a["up"], down=a["down"], taps=taps_, y_max_abs=scale,
               carried_zi_max_abs=float(a["zi"].abs().max()),
               kernel_ms=time_ms(
                   lambda: cuda_resample.resample_mul2(**a, impl=impl)),
-              plain_ms=time_ms(lambda: cuda_resample.resample_mul2_ref(**a),
-                               reps=2, warm=0),
+              kernel_burst_ms=burst_ms(
+                  lambda: cuda_resample.resample_mul2(**a, impl=impl)),
+              plain_ms=time_ms(lambda: plain(**pa), reps=2, warm=0),
               library_ms=None,
               # per output and branch the taps that meet a sample; 2
               # multiplies per mixed sample
               **bound(nbytes(x, a["nco_i"], a["nco_q"], a["zi"], *k),
                       lanes * 2 * k[0].shape[-1] * 2 * -(-taps_ // a["up"])
                       + lanes * 2 * n * 2), **extra)
+        del k, r
 
     def ts_third_step_calls(cfg_, t_shards, block, **kw):
         init, step = make_time_sharded_receiver(
@@ -1072,9 +1172,11 @@ def main() -> int:
     for t_shards in (1, 4):
         seen = ts_third_step_calls(cfg, t_shards, batch_block)
         (ma,) = seen["resample_mul2"]
-        mix_case(ma, time_shards=t_shards)
+        assert ma["segments"] == t_shards
+        for impl in ("auto", "pair", "split"):
+            mix_case(ma, impl)
+        mix_case(ma, rows_form=True)
         if t_shards == 4:
-            mix_case(ma, impl="pair", time_shards=t_shards)
             (ia,) = seen["ingest_fir_decimate"]
             assert ia["segments"] == t_shards
             ingest_iq_case(ia["raw_u8"], ia["zi_i"], ia["zi_q"], t_shards,
@@ -1084,7 +1186,9 @@ def main() -> int:
     seen = ts_third_step_calls(cfg1, 4, m1_block, enable_frame=False)
     (ma,) = seen["resample_mul2"]
     assert len(ma["h"]) == 9003 and (ma["up"], ma["down"]) == (57, 250)
-    mix_case(ma, time_shards=4, mode=1)
+    for impl in ("auto", "pair", "split"):
+        mix_case(ma, impl, mode=1)
+    mix_case(ma, rows_form=True, mode=1)
     del seen, ma
     torch.cuda.empty_cache()
 
@@ -2173,9 +2277,11 @@ def main() -> int:
                       "rtsdr_tpu/ops/ingestfir.py:364", ts_counts),
         "resample_mix": ("rtsdr_tpu_torch/csrc/resample_rrc.cu",
                          "rtsdr_tpu/ops/pallas_fir.py:353", ts_counts),
-        # the layout probe's other arm (tools/torch_profile_resample.py):
-        # on no main path
+        # the layout probe's arms (tools/torch_profile_resample.py): on no
+        # main path
         "resample_mix.pair": ("rtsdr_tpu_torch/csrc/resample_rrc.cu",
+                              "tools/profile_resample.py:231", ts_counts),
+        "resample_mix.split": ("rtsdr_tpu_torch/csrc/resample_rrc.cu",
                                "tools/profile_resample.py:231", ts_counts),
     }
     # the case that has the receiver's own configuration of the kernel at
@@ -2188,18 +2294,22 @@ def main() -> int:
         "fir_bank.none": lambda r: r["filters"] == 3,
         "pll": lambda r: r["shape"].startswith("f32 2 parts"),
         "resample_rrc": lambda r: r["block"] == 1,
-        # the wideband receiver's own call: 8 captures, the offset folded
-        # into the taps, mid-stream byte tail
+        # the wideband receiver's own call: 8 captures, the smoke's offset
+        # folded into the taps (15 stations shared, 1 own), mid-stream tail
         "channelizer.composed": lambda r: (
-            r["captures"] == WB_CAPTURES and r["offsets_in_taps"]
+            r["captures"] == WB_CAPTURES and r["case"] == "one offset"
             and r["block"] == 1),
         # the time-sharded receiver's own calls at T = 4, MODE0
         "ingest.iq": lambda r: r["segments"] == 4,
-        "resample_mix": lambda r: r.get("mode") is None,
+        "resample_mix": lambda r: (r.get("mode") is None
+                                   and r["form"] == "segmented"),
+        "resample_mix.pair": lambda r: r.get("mode") is None,
+        "resample_mix.split": lambda r: r.get("mode") is None,
     }
     at_width = {"channelizer.composed": f"u8 ({WB_CAPTURES},",
                 "resample_mix": f"(4, {N_BATCH_CHANNELS},",
-                "resample_mix.pair": f"(4, {N_BATCH_CHANNELS},"}
+                "resample_mix.pair": f"(4, {N_BATCH_CHANNELS},",
+                "resample_mix.split": f"(4, {N_BATCH_CHANNELS},"}
     rows = []
     for name, (source, replaces, counts) in meta.items():
         case = next(r for r in cases if r["name"] == name
@@ -2222,6 +2332,8 @@ def main() -> int:
                      "plain_ms": case["plain_ms"],
                      "bound_ms": case["bound_ms"],
                      "bound_by": case["bound_by"],
+                     **{k: case[k] for k in ("route_bound_ms",
+                                             "dense_bound_ms") if k in case},
                      "library_ms": case["library_ms"]})
     print(card, flush=True)
     emit({"kernels": rows})

@@ -13,9 +13,9 @@
 //                   + sum_{k=pos+1..t1} h[k] * zi_b[pos + t1 - k] )
 // (158 taps per output at x19/80 with 3,001 taps); the second sum exists for
 // the first ceil(t1/down) outputs of a row only, and zi is arbitrary floats.
-// resample_rrc writes the next zi itself: the zero-stuffed tail of the
-// mixed stream, from the last ceil(t1/up) inputs; resample_mix's wrapper
-// makes it from the same inputs with stock ops (the same bits).
+// Both kernels write the next zi themselves: the zero-stuffed tail of the
+// mixed stream, from the last ceil(t1/up) inputs (the bits of the stock-op
+// tail, ops/cuda_resample.py::resample_mul2_tail).
 //
 // Replaces the Pallas kernel rtsdr_tpu/ops/pallas_fir.py::
 // _resample_mix_rrc_kernel (_mix_resample_core, _rrc_banded; reached from
@@ -69,19 +69,29 @@
 // _pallas_resample_mix), which the time-sharded receiver runs on its
 // stacked (T*C, N/T) chunks; that kernel contracts bf16 windows on the
 // matrix unit and adds the carried zi outside through a boundary matmul.
-// Here zi is read in the kernel and all arithmetic is float32.  Bound on an
-// H100: bytes.  At 1,024 channels of 15,360 samples, x19/80: 3 x 61 KB in,
-// 24 KB of zi, 29 KB out per channel (0.24 GB, 0.07 ms) against 2 * 3,648 *
-// 158 * 2 FLOP (2.4 GFLOP, 0.04 ms).  Design: one block per (row, tile of
-// outputs); no RRC look-back, so tiles do not overlap, and the tile shrinks
-// (608 -> 76 outputs) until a launch has two blocks per SM, which keeps a
-// one-station time-sharded step (T rows) from running on a handful of SMs.
-// Two instances ask the TPU probe's layout question of this card
-// (tools/profile_resample.py, B7' there): `split`, one thread per (output,
-// branch), two tap reads per two multiply-adds, and `pair`, one thread makes
-// the I and Q outputs from one tap read.  The receiver launches `split`: it
-// ran as fast or faster at the receiver's shapes on an H100
-// (tools/torch_profile_resample.py).
+// Here all arithmetic is float32 and the block is K4's without the RRC
+// stage: the taps as up phase planes, kR outputs of one phase per unit, the
+// mixed window staged transposed, the carried zi staged in shared memory
+// (its taps read linearly from device memory: no phase-plane index
+// arithmetic per tap), the next zi written by the last tile; no unit idle
+// (K4 pads a phase's units to a power of two).  K4 keeps its own body:
+// through these shared helpers it ran 17 % slower at the wideband shape
+// (tools/torch_profile_kernels.py --only K4, PERF.md).  Tiles by shape:
+// equal tiles of at most 1,024 outputs, as few as give two blocks per SM
+// with every unit in one pass of the block (a one-station time-sharded
+// step has T rows).  The segmented form (n_seg = T; rows are (segment,
+// channel)): a row of segment s > 0 reads its left neighbour's last
+// ceil(t1/up) inputs (extract, both NCOs) in place and mixes them in its
+// window, so no zero-stuffed zi is built, shifted or read for it; segment
+// 0's rows read the carried zi, and only the last segment's rows
+// write the next one.  Bound on an H100: bytes.  At 4 x 1,024 stacked rows
+// of 3,840 (x19/80): 3 x 63 MB in, 30 MB out, 2 x 25 MB of carried zi
+// (0.27 GB, 0.080 ms) against 2 * 3.7 M * 158 * 2 FLOP (2.4 GFLOP, 0.035
+// ms).  Two arms ask the TPU probe's layout question of this card
+// (tools/profile_resample.py, B7' there): `pair`, a unit makes kR outputs of
+// both branches from one tap read, and `split`, a unit makes 2 kR outputs of
+// one branch (as many multiply-adds per tap read, other rows of the
+// window); tools/torch_profile_resample.py times both.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -89,134 +99,165 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = 608;      // resample_mix: widest tile of outputs
-constexpr int kMinBlocks = 264; // resample_mix: two blocks per SM of 132
-constexpr int kR = 4;           // resample_rrc: outputs of one phase per thread
+constexpr int kR = 4;           // outputs of one phase per unit
 constexpr int kB = 4;           // resample_rrc: staging loads in flight
+constexpr int kMixB = 8;        // resample_mix: staging loads in flight
 constexpr int kSmemTwoBlocks = 113 * 1024;
 // resample_rrc's tiles of RRC outputs, widest first
 constexpr int kRrcTiles[5] = {2048, 1024, 512, 256, 128};
+// resample_mix's widest tile of outputs
+constexpr int kMixTileMax = 1024;
 
 struct Args {
   const float *e, *ni, *nq, *h, *zi, *g, *rrc_zi;
   float *y, *rrc_zi_out, *zi_out;
-  int n_ch, n, m, taps, up, down, rtaps, lane_stride;
+  int n_ch, n, m, taps, up, down, rtaps;
   float gain;
-  int tile, n_tiles, x_cap, n_slots_cap;
-  // resample_rrc's plan: RRC taps padded to a 4-multiple, taps per phase,
-  // resampler slots, rows of the transposed window (odd), 16-byte stores
-  int q_r, qp, s_cap, lcap, vec_out;
+  int tile, n_tiles;
+  // resample_rrc's plan: RRC taps padded to a 4-multiple, resampler slots
+  int q_r, s_cap;
+  // taps per phase, rows of the transposed window (odd), 16-byte stores
+  int qp, lcap, vec_out;
+  // resample_mix's segments (rows are (segment, channel); 1: no segments)
+  int n_seg;
 };
 
-// First x sample read by outputs from mlo_c on (0 if the look-back reaches
-// before the block: those taps read zi instead).
-__device__ __forceinline__ int x_first(const Args& p, int mlo_c) {
-  const long long num = (long long)mlo_c * p.down - (p.taps - 1);
-  return num <= 0 ? 0 : (int)((num + p.up - 1) / p.up);
-}
-
-// Stage the taps and the mixed window x[ilo, ilo + n_x) of row c:
-// mixed_b = 2 * e * n_b, made here so that it never reaches device memory.
-__device__ __forceinline__ void stage_mixed(const Args& p, int c, int ilo,
-                                            int n_x, float* sh, float* sxi,
-                                            float* sxq) {
-  for (int k = threadIdx.x; k < p.taps; k += kThreads) sh[k] = p.h[k];
-  const size_t row = (size_t)c * p.n + ilo;
-  for (int j = threadIdx.x; j < n_x; j += kThreads) {
-    const float e2 = 2.0f * p.e[row + j];
-    sxi[j] = e2 * p.ni[row + j];
-    sxq[j] = e2 * p.nq[row + j];
+// Phase taps hp_ph[j] = h[ph + up*j] (0 past t1) at shp[ph * qp + j].
+__device__ __forceinline__ void stage_phase_taps(const Args& p, float* shp) {
+  const int t1 = p.taps - 1;
+  for (int k = threadIdx.x; k < p.up * p.qp; k += kThreads) {
+    const int kk = k / p.qp + p.up * (k % p.qp);
+    shp[k] = kk <= t1 ? p.h[kk] : 0.0f;
   }
 }
 
-// The resampler stage: outputs [m_first, m_end) of the row into slots
-// (m - slot0), before the carried-zi terms and the gain.  Outputs are dealt
-// to threads in groups of 32 * L (L = lane_stride): warp w of a group takes
-// the outputs w, w + L, w + 2L, ... of the group's 32 * L.  kSplit: one
-// thread per (output, branch) instead of one per output for both.
-template <bool kSplit>
-__device__ __forceinline__ void resample_stage(
-    const Args& p, const float* sh, const float* sxi, const float* sxq,
+// The mixed window 2*e*n_b of the row at xrow, x index ilo + row*down + col
+// at col*lcap + row (coalesced reads; consecutive elements are written lcap
+// (odd) apart, on distinct banks), kMixB loads of each input in flight per
+// thread before any is stored; (row, col) advance by kThreads elements
+// without a division.  x < 0 reads the row at prow (a segment's left
+// neighbour) at x + n, or zeros when prow < 0.
+__device__ __forceinline__ void stage_window(const Args& p, size_t xrow,
+                                             long long prow, int ilo,
+                                             float* sxi, float* sxq) {
+  const int tid = threadIdx.x;
+  const int n_el = p.lcap * p.down;
+  const int step_r = kThreads / p.down, step_c = kThreads % p.down;
+  int row = tid / p.down, col = tid % p.down;
+  for (int idx0 = tid; idx0 < n_el; idx0 += kMixB * kThreads) {
+    float ve[kMixB], vi[kMixB], vq[kMixB];
+#pragma unroll
+    for (int u = 0; u < kMixB; ++u) {
+      const int i = ilo + idx0 + u * kThreads;
+      ve[u] = vi[u] = vq[u] = 0.0f;
+      if (idx0 + u * kThreads < n_el && i < p.n) {
+        const long long at = i >= 0 ? (long long)xrow + i
+                                    : (prow >= 0 ? prow + p.n + i : -1);
+        if (at >= 0) {
+          ve[u] = __ldg(p.e + at);
+          vi[u] = __ldg(p.ni + at);
+          vq[u] = __ldg(p.nq + at);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kMixB; ++u) {
+      if (idx0 + u * kThreads >= n_el) break;
+      const float e2 = 2.0f * ve[u];
+      sxi[col * p.lcap + row] = e2 * vi[u];
+      sxq[col * p.lcap + row] = e2 * vq[u];
+      row += step_r;
+      col += step_c;
+      if (col >= p.down) {
+        col -= p.down;
+        ++row;
+      }
+    }
+  }
+}
+
+// The resampler over the staged window: unit (pp, qb) makes the outputs
+// m_first + pp + up*(qb + k*q_s), k < NO, all of one phase, into slots
+// (m - slot0): kPair, NO = kR outputs of both branches, so one broadcast
+// tap read feeds 2*kR multiply-adds; else NO = 2*kR outputs of one branch
+// (the branch outermost), the same multiply-adds per tap read.  The q_s
+// units of one phase class pp are consecutive lanes and read consecutive
+// rows; none is idle (K4 pads a phase's units to a power of two).  Taps j
+// ascending, as the plain version's k ascending; samples before the
+// window's data are staged zeros.
+template <bool kPair>
+__device__ __forceinline__ void resample_units(
+    const Args& p, const float* shp, const float* sxi, const float* sxq,
     int ilo, int m_first, int m_end, int slot0, float* sri, float* srq) {
+  constexpr int NO = kPair ? kR : 2 * kR;
   const int t1 = p.taps - 1;
-  const int L = p.lane_stride;
-  const int group = 32 * L;
-  const int n_comp = m_end - m_first;
-  const int n_rounded = (n_comp + group - 1) / group * group;
-  const int n_work = kSplit ? 2 * n_rounded : n_rounded;
-  for (int s = threadIdx.x; s < n_work; s += kThreads) {
-    const int b = kSplit ? s / n_rounded : 0;     // branch (split only)
-    const int sl = s - b * n_rounded;
-    const int w = sl >> 5, lane = sl & 31;
-    const int ml = (w / L) * group + (w % L) + L * lane;
-    if (ml >= n_comp) continue;
-    const int m = m_first + ml;
-    const long long pos = (long long)m * p.down;
+  const int n_q = (m_end - m_first + p.up - 1) / p.up;
+  const int q_s = (n_q + NO - 1) / NO;
+  const int q_w = q_s;
+  const int per_branch = p.up * q_w;
+  for (int unit = threadIdx.x; unit < (kPair ? 1 : 2) * per_branch;
+       unit += kThreads) {
+    const int br = kPair ? 0 : unit / per_branch;
+    const int uu = unit - br * per_branch;
+    const int pp = uu / q_w, qb = uu % q_w;
+    if (qb >= q_s) continue;
+    const int mb = m_first + pp;                   // output of q = 0
+    if (mb + p.up * qb >= m_end) continue;
+    const long long pos = (long long)mb * p.down;
     const int i0 = (int)(pos / p.up);
     const int ph = (int)(pos - (long long)i0 * p.up);
-    // taps ph + up*j <= t1 that meet a sample x[i0 - j], i0 - j >= 0
-    const int nj = t1 < ph ? 0 : min((t1 - ph) / p.up, i0) + 1;
-    const float* hp = sh + ph;
-    if (kSplit) {
-      const float* x = (b ? sxq : sxi) + (i0 - ilo);
-      float a = 0.0f;
-#pragma unroll 4
-      for (int j = 0; j < nj; ++j) a = fmaf(hp[j * p.up], x[-j], a);
-      (b ? srq : sri)[m - slot0] = a;
-    } else {
-      const float* xi = sxi + (i0 - ilo);
-      const float* xq = sxq + (i0 - ilo);
-      float ai = 0.0f, aq = 0.0f;
-#pragma unroll 4
-      for (int j = 0; j < nj; ++j) {
-        const float hk = hp[j * p.up];
-        ai = fmaf(hk, xi[-j], ai);
-        aq = fmaf(hk, xq[-j], aq);
-      }
-      sri[m - slot0] = ai;
-      srq[m - slot0] = aq;
-    }
-  }
-}
-
-// The carried resampler state: outputs with m*down < t1 also read zi.  One
-// warp per (output, branch): lanes stride over the dense taps, four
-// independent sums keep four 128-byte reads of zi in flight per warp.
-__device__ __forceinline__ void add_carried(const Args& p, int c,
-                                            const float* sh, int m_first,
-                                            int m_end, int slot0, float* sri,
-                                            float* srq) {
-  const int t1 = p.taps - 1;
-  const int nb = (t1 + p.down - 1) / p.down;       // outputs that reach zi
-  const int hi = min(m_end, nb);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t zrow = (size_t)c * 2 * t1;
-  for (int q = 2 * m_first + warp; q < 2 * hi; q += kThreads / 32) {
-    const int m = q >> 1, b = q & 1;
-    const int pos = m * p.down;                    // < t1
-    const float* z = p.zi + zrow + (size_t)b * t1;
-    // tap k in (pos, t1] reads zi[pos + t1 - k]
-    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
-    int k = pos + 1 + lane;
-    for (; k + 96 <= t1; k += 128) {
-      a0 = fmaf(sh[k], z[pos + t1 - k], a0);
-      a1 = fmaf(sh[k + 32], z[pos + t1 - k - 32], a1);
-      a2 = fmaf(sh[k + 64], z[pos + t1 - k - 64], a2);
-      a3 = fmaf(sh[k + 96], z[pos + t1 - k - 96], a3);
-    }
-    for (; k <= t1; k += 32) a0 = fmaf(sh[k], z[pos + t1 - k], a0);
-    float acc = (a0 + a1) + (a2 + a3);
+    const int nj = ph <= t1 ? (t1 - ph) / p.up + 1 : 0;
+    int col = (i0 - ilo) % p.down;
+    int a = col * p.lcap + (i0 - ilo) / p.down + qb;
+    int off[NO];
+    bool ok[NO];
 #pragma unroll
-    for (int d = 16; d > 0; d >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, d);
-    if (lane == 0) (b ? srq : sri)[m - slot0] += acc;
+    for (int k = 0; k < NO; ++k) {
+      ok[k] = mb + p.up * (qb + k * q_s) < m_end;
+      off[k] = ok[k] ? k * q_s : 0;    // past the tile: read row qb, unused
+    }
+    const float* hp = shp + ph * p.qp;
+    const float* sx = br ? sxq : sxi;
+    float ai[NO], aq[NO];
+#pragma unroll
+    for (int k = 0; k < NO; ++k) ai[k] = aq[k] = 0.0f;
+#pragma unroll 2
+    for (int j = 0; j < nj; ++j) {
+      const float t = hp[j];
+#pragma unroll
+      for (int k = 0; k < NO; ++k) {
+        if (kPair) {
+          ai[k] = fmaf(t, sxi[a + off[k]], ai[k]);
+          aq[k] = fmaf(t, sxq[a + off[k]], aq[k]);
+        } else {
+          ai[k] = fmaf(t, sx[a + off[k]], ai[k]);
+        }
+      }
+      // x index one lower: the column before, or the last of the row before
+      const bool wrap = col == 0;
+      col = wrap ? p.down - 1 : col - 1;
+      a += wrap ? (p.down - 1) * p.lcap - 1 : -p.lcap;
+    }
+#pragma unroll
+    for (int k = 0; k < NO; ++k)
+      if (ok[k]) {
+        const int s = mb + p.up * (qb + k * q_s) - slot0;
+        if (kPair) {
+          sri[s] = ai[k];
+          srq[s] = aq[k];
+        } else {
+          (br ? srq : sri)[s] = ai[k];
+        }
+      }
   }
 }
 
-// add_carried for one branch b, with the taps read from the phase planes
-// (h[k] at hp[(k % up) * qp + k / up]) and the branch's carried zi from
-// shared memory: the same lanes, sums and shuffle tree; each lane's four
-// tap indices advance by 128 without a division
+// The carried resampler state of one branch b: outputs with m*down < t1
+// also read zi (arbitrary floats).  One warp per output: lanes stride over
+// the dense taps (read from the phase planes, h[k] at hp[(k % up) * qp +
+// k / up]) against the branch's zi staged in shared memory, four
+// independent sums per lane (each lane's four tap indices advance by 128
+// without a division), then a shuffle tree.
 __device__ __forceinline__ void add_carried_shared(
     const Args& p, const float* hp, const float* z, int m_first, int m_end,
     int slot0, float* sr) {
@@ -267,6 +308,74 @@ __device__ __forceinline__ void add_carried_shared(
     for (int d = 16; d > 0; d >>= 1)
       acc += __shfl_xor_sync(0xffffffffu, acc, d);
     if (lane == 0) sr[m - slot0] += acc;
+  }
+}
+
+// add_carried_shared with the taps read as h[k] from device memory (the
+// lanes' taps are consecutive: coalesced, and L1 keeps them): the same lanes,
+// sums and shuffle tree, so the same bits, without the phase-plane index
+// arithmetic per tap (K6's).
+__device__ __forceinline__ void add_carried_linear(
+    const Args& p, const float* z, int m_first, int m_end, int slot0,
+    float* sr) {
+  const int t1 = p.taps - 1;
+  const int nb = (t1 + p.down - 1) / p.down;       // outputs that reach zi
+  const int hi = min(m_end, nb);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int m = m_first + warp; m < hi; m += kThreads / 32) {
+    const int pos = m * p.down;                    // < t1
+    const float* zk = z + pos + t1;                // zk[-k] = z[pos + t1 - k]
+    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+    int k = pos + 1 + lane;
+    for (; k + 96 <= t1; k += 128) {
+      a0 = fmaf(__ldg(p.h + k), zk[-k], a0);
+      a1 = fmaf(__ldg(p.h + k + 32), zk[-k - 32], a1);
+      a2 = fmaf(__ldg(p.h + k + 64), zk[-k - 64], a2);
+      a3 = fmaf(__ldg(p.h + k + 96), zk[-k - 96], a3);
+    }
+    for (; k <= t1; k += 32) a0 = fmaf(__ldg(p.h + k), zk[-k], a0);
+    float acc = (a0 + a1) + (a2 + a3);
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, d);
+    if (lane == 0) sr[m - slot0] += acc;
+  }
+}
+
+// The carried resampler state of the block's first outputs (those with
+// m*down < t1), one branch at a time: zi row zrow staged in the dead window
+// memory.  Ends with all threads past the last barrier.
+__device__ __forceinline__ void add_carried_rows(const Args& p, size_t zrow,
+                                                 float* sxi, int m_first,
+                                                 int m_end, int slot0,
+                                                 float* sri, float* srq) {
+  const int t1 = p.taps - 1;
+  for (int b = 0; b < 2; ++b) {
+    for (int k = threadIdx.x; k < t1; k += kThreads)
+      sxi[k] = __ldg(p.zi + zrow + (size_t)b * t1 + k);
+    __syncthreads();
+    add_carried_linear(p, sxi, m_first, m_end, slot0, b ? srq : sri);
+    __syncthreads();
+  }
+}
+
+// The zero-stuffed tail of the row's mixed stream: position n*up - t1 + j
+// holds (2e) * n_b at its index / up where up divides it, else +0.
+__device__ __forceinline__ void write_mixed_tail(const Args& p, size_t xrow,
+                                                 float* out) {
+  const int t1 = p.taps - 1;
+  const int tail0 = p.n * p.up - t1;      // n*up < 2^31: checked
+  for (int j = threadIdx.x; j < t1; j += kThreads) {
+    const int q = tail0 + j;
+    float vi = 0.0f, vq = 0.0f;
+    if (q % p.up == 0) {
+      const size_t i = xrow + q / p.up;
+      const float e2 = 2.0f * p.e[i];
+      vi = e2 * p.ni[i];
+      vq = e2 * p.nq[i];
+    }
+    out[j] = vi;
+    out[t1 + j] = vq;
   }
 }
 
@@ -495,32 +604,46 @@ __global__ void __launch_bounds__(kThreads, 2) resample_rrc_kernel(Args p) {
   }
 }
 
-template <bool kSplit>
-__global__ void __launch_bounds__(kThreads) resample_mix_kernel(Args p) {
-  extern __shared__ float smem[];
-  float* sh = smem;                        // taps
-  float* sxi = sh + p.taps;                // mixed I window (x_cap)
-  float* sxq = sxi + p.x_cap;              // mixed Q window
-  float* sri = sxq + p.x_cap;              // outputs I of the tile
-  float* srq = sri + p.n_slots_cap;        // outputs Q of the tile
+// K6: the block owns resampler outputs [m0, m0 + own) of stacked row
+// (segment, channel); see the note at the top.
+template <bool kPair>
+__global__ void __launch_bounds__(kThreads, 2) resample_mix_kernel(Args p) {
+  extern __shared__ __align__(16) float smem[];
+  float* sri = smem;                       // outputs I of the tile
+  float* srq = sri + p.tile;               // outputs Q
+  float* sxi = srq + p.tile;               // mixed I, transposed (down, lcap)
+  float* sxq = sxi + p.lcap * p.down;      // mixed Q
+  float* shp = sxq + p.lcap * p.down;      // phase taps (up, qp)
 
-  const int c = blockIdx.x / p.n_tiles;
-  const int m0 = (blockIdx.x % p.n_tiles) * p.tile;   // first output owned
-  const int own = min(p.tile, p.m - m0);
-  const int mhi = m0 + own;
-  const int ilo = x_first(p, m0);
-  const int ihi = (int)(((long long)(mhi - 1) * p.down) / p.up);
-  stage_mixed(p, c, ilo, ihi - ilo + 1, sh, sxi, sxq);
+  const int tid = threadIdx.x;
+  const int row = blockIdx.x / p.n_tiles;
+  const int tile_idx = blockIdx.x % p.n_tiles;
+  const int rows_per_seg = p.n_ch / p.n_seg;
+  const int seg = row / rows_per_seg, c = row % rows_per_seg;
+  const int m0 = tile_idx * p.tile;
+  const int m_end = m0 + min(p.tile, p.m - m0);
+  const int t1 = p.taps - 1;
+  const int ilo = (int)(((long long)m0 * p.down) / p.up) -
+                  (t1 + p.up - 1) / p.up;
+
+  stage_phase_taps(p, shp);
+  const size_t xrow = (size_t)row * p.n;
+  // a segment after the first reads its left neighbour's inputs in place
+  stage_window(p, xrow,
+               seg > 0 ? (long long)(row - rows_per_seg) * p.n : -1, ilo,
+               sxi, sxq);
   __syncthreads();
-  resample_stage<kSplit>(p, sh, sxi, sxq, ilo, m0, mhi, m0, sri, srq);
+  resample_units<kPair>(p, shp, sxi, sxq, ilo, m0, m_end, m0, sri, srq);
   __syncthreads();
-  add_carried(p, c, sh, m0, mhi, m0, sri, srq);
-  __syncthreads();
-  const size_t yrow = (size_t)c * 2 * p.m + m0;
-  for (int o = threadIdx.x; o < own; o += kThreads) {
+  if (seg == 0 && (long long)m0 * p.down < t1)
+    add_carried_rows(p, (size_t)c * 2 * t1, sxi, m0, m_end, m0, sri, srq);
+  const size_t yrow = (size_t)row * 2 * p.m + m0;
+  for (int o = tid; o < m_end - m0; o += kThreads) {
     p.y[yrow + o] = sri[o] * p.gain;
     p.y[yrow + p.m + o] = srq[o] * p.gain;
   }
+  if (seg == p.n_seg - 1 && tile_idx == p.n_tiles - 1)
+    write_mixed_tail(p, xrow, p.zi_out + (size_t)c * 2 * t1);
 }
 
 cudaError_t allow_smem(const void* kernel, size_t smem) {
@@ -530,6 +653,13 @@ cudaError_t allow_smem(const void* kernel, size_t smem) {
                               (int)smem);
 }
 
+// The window rows (odd) for a block whose outputs span `span` x samples,
+// at least half a carried zi branch (the window's memory also holds one).
+int window_rows(const Args& p, long long span) {
+  int lcap = (int)(span / p.down) + 2;
+  lcap = max(lcap, (p.taps - 1 + 2 * p.down - 1) / (2 * p.down));
+  return lcap + 1 - lcap % 2;
+}
 
 // The plan of a resample_rrc block that owns `tile` RRC outputs; returns
 // its dynamic shared memory in bytes.
@@ -540,14 +670,23 @@ size_t rrc_plan(Args& p, int tile) {
   p.q_r = (p.rtaps + 3) / 4 * 4;
   p.qp = t1 / p.up + 1;
   p.s_cap = tile + p.q_r + 4;
-  const long long span = ((long long)(p.s_cap - 1) * p.down) / p.up + 2 +
-                         (t1 + p.up - 1) / p.up;
-  p.lcap = (int)(span / p.down) + 2;
-  // the window's memory also holds one branch of the carried zi
-  p.lcap = max(p.lcap, (t1 + 2 * p.down - 1) / (2 * p.down));
-  p.lcap += 1 - p.lcap % 2;
+  p.lcap = window_rows(p, ((long long)(p.s_cap - 1) * p.down) / p.up + 2 +
+                              (t1 + p.up - 1) / p.up);
   return sizeof(float) * (2 * (size_t)p.lcap * p.down +
                           (size_t)p.up * p.qp + 2 * (size_t)p.s_cap + p.q_r);
+}
+
+// The plan of a resample_mix block that owns `tile` outputs; returns its
+// dynamic shared memory in bytes.
+size_t mix_plan(Args& p, int tile) {
+  const int t1 = p.taps - 1;
+  p.tile = tile;
+  p.n_tiles = (p.m + tile - 1) / tile;
+  p.qp = t1 / p.up + 1;
+  p.lcap = window_rows(p, ((long long)(tile - 1) * p.down) / p.up + 2 +
+                              (t1 + p.up - 1) / p.up);
+  return sizeof(float) * (2 * (size_t)p.lcap * p.down +
+                          (size_t)p.up * p.qp + 2 * (size_t)tile);
 }
 
 // the current device's SM count, cached per device
@@ -606,43 +745,57 @@ extern "C" int rtsdr_resample_rrc(const float* e, const float* ni,
   return (int)cudaGetLastError();
 }
 
-// e, ni, nq: (C, n); h: (taps,); zi: (C, 2, taps-1); y: (C, 2, m),
-// m = n*up/down.  All float32.  Needs n*up % down == 0 and n*up >= taps-1.
-// split != 0 launches the one-thread-per-branch instance.  Returns
-// cudaGetLastError().
+// e, ni, nq: (R, n) rows, R = n_seg * C (segment-major when n_seg > 1);
+// h: (taps,); zi, zi_out: (C, 2, taps-1); y: (R, 2, m), m = n*up/down.  All
+// float32.  Rows of segment s > 0 read segment s-1's row of the same channel
+// as their left halo, segment 0's rows read zi; zi_out is the last
+// segment's tail.  Needs n*up % down == 0 and n*up >= taps-1 (so a row
+// holds the ceil((taps-1)/up) inputs its right neighbour reads).  split != 0
+// launches the one-branch-per-unit instance.  Returns cudaGetLastError().
 extern "C" int rtsdr_resample_mix(const float* e, const float* ni,
                                   const float* nq, const float* h,
-                                  const float* zi, float* y, int n_ch, int n,
-                                  int m, int taps, int up, int down,
-                                  int lane_stride, int split, float gain,
-                                  void* stream) {
-  if (n_ch <= 0 || n <= 0 || taps < 1 || up < 1 || down < 1 ||
-      lane_stride < 1 || (long long)n * up != (long long)m * down ||
-      (long long)n * up < taps - 1)
+                                  const float* zi, float* y, float* zi_out,
+                                  int n_rows, int n_seg, int n, int m,
+                                  int taps, int up, int down, int split,
+                                  float gain, void* stream) {
+  if (n_rows <= 0 || n_seg < 1 || n_rows % n_seg != 0 || n <= 0 ||
+      taps < 1 || up < 1 || down < 1 ||
+      (long long)n * up != (long long)m * down ||
+      (long long)n * up < taps - 1 || (long long)n * up >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   Args p = {};
   p.e = e; p.ni = ni; p.nq = nq; p.h = h; p.zi = zi; p.y = y;
-  p.n_ch = n_ch; p.n = n; p.m = m; p.taps = taps; p.up = up; p.down = down;
-  p.lane_stride = lane_stride; p.gain = gain;
-  p.tile = kTile;
-  while (p.tile > kTile / 8 &&
-         (long long)n_ch * ((m + p.tile - 1) / p.tile) < kMinBlocks)
-    p.tile /= 2;
-  p.n_tiles = (m + p.tile - 1) / p.tile;
-  p.n_slots_cap = p.tile;
-  p.x_cap = (int)(((long long)p.tile * down + (taps - 1)) / up) + 2;
-  const size_t smem = sizeof(float) * ((size_t)taps + 2 * (size_t)p.x_cap +
-                                       2 * (size_t)p.n_slots_cap);
-  const void* kernel = split ? (const void*)resample_mix_kernel<true>
-                             : (const void*)resample_mix_kernel<false>;
+  p.zi_out = zi_out;
+  p.n_ch = n_rows; p.n_seg = n_seg; p.n = n; p.m = m; p.taps = taps;
+  p.up = up; p.down = down; p.gain = gain;
+  // tiles of equal width, as few as give two blocks per SM with every unit
+  // of a tile in one pass of the block and the shared memory of two blocks
+  // per SM; at least 8 outputs
+  const long long want = 2LL * sm_count();
+  const int n_out = split ? 2 * kR : kR;
+  int n_t = (m + kMixTileMax - 1) / kMixTileMax;
+  size_t smem = 0;
+  for (;; ++n_t) {
+    const int tile = (m + n_t - 1) / n_t;
+    smem = mix_plan(p, tile);
+    const int n_q = (tile + up - 1) / up;
+    const long long units =
+        (split ? 2LL : 1LL) * up * ((n_q + n_out - 1) / n_out);
+    if ((units <= kThreads && smem <= kSmemTwoBlocks &&
+         (long long)n_rows * p.n_tiles >= want) ||
+        tile <= 8 || n_t >= m)
+      break;
+  }
+  const void* kernel = split ? (const void*)resample_mix_kernel<false>
+                             : (const void*)resample_mix_kernel<true>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)(n_ch * p.n_tiles);
+  const unsigned blocks = (unsigned)(n_rows * p.n_tiles);
   if (split)
-    resample_mix_kernel<true><<<blocks, kThreads, smem,
-                                (cudaStream_t)stream>>>(p);
-  else
     resample_mix_kernel<false><<<blocks, kThreads, smem,
                                  (cudaStream_t)stream>>>(p);
+  else
+    resample_mix_kernel<true><<<blocks, kThreads, smem,
+                                (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

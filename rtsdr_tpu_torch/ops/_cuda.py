@@ -60,11 +60,14 @@ _ARGTYPES = {
     # e, nco_i, nco_q, h, zi, rrc_h, rrc_zi, y, rrc_zi_out, zi_out, C, N, M,
     # taps, up, down, rrc_taps, gain, stream
     "rtsdr_resample_rrc": [_P] * 10 + [_I] * 7 + [_F, _P],
-    # e, nco_i, nco_q, h, zi, y, C, N, M, taps, up, down, lane_stride,
-    # split, gain, stream
-    "rtsdr_resample_mix": [_P] * 6 + [_I] * 8 + [_F, _P],
-    # raw, zi, g (taps, K, 2), y, zi_out, B, n_pairs, K, taps, d, stream
-    "rtsdr_channelize_composed": [_P] * 5 + [_I] * 5 + [_P],
+    # e, nco_i, nco_q, h, zi, y, zi_out, rows, segments, N, M, taps, up,
+    # down, split, gain, stream
+    "rtsdr_resample_mix": [_P] * 7 + [_I] * 8 + [_F, _P],
+    # raw, zi, proto, twiddle, shared list, own taps, own list, y, zi_out,
+    # B, n_pairs, K, taps, d, a_sp, P, tile, n_tiles, nb, pitch, n_sh,
+    # n_own, own_lanes, n_og, ns_sh, ns_own, g_sh, g_own, plane_elems, smem,
+    # stream
+    "rtsdr_channelize_composed": [_P] * 9 + [_I] * 21 + [_P],
 }
 
 #: launches per kernel entry since the last ``reset_launch_counts``

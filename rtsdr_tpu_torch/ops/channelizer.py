@@ -34,6 +34,7 @@ bytes where 128 stands for 0), so chained blocks equal one long call.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -337,15 +338,198 @@ def _check_composed(raw_u8, g, zi_raw, d: int) -> None:
             f"zi_raw: expected {want}, got {tuple(zi_raw.shape)}")
 
 
-def _g_on(g: np.ndarray, device) -> torch.Tensor:
-    """(L, K, 2) float32 taps on ``device``, scaled by 1/128 (exact: the
-    kernel multiplies them with un-normalized b-128 values), laid out tap
-    major so that the K stations of one tap are contiguous."""
-    def build():
-        gt = g.T * (1.0 / 128.0)                                  # (L, K)
-        return np.stack([gt.real, gt.imag], axis=-1)
+#: the kernel's compiled-in taps per polyphase plane (K = 8, 16, 32 at
+#: decim 10 with 16 taps per branch and the 151-tap RF filter all give 17)
+FIXED_TAPS_PER_PLANE = 17
+#: outputs per thread, threads per block, shared memory of a block that
+#: leaves room for two per SM (227 KB of an H100 SM)
+K5_R, K5_THREADS, K5_SMEM = 8, 256, 113 * 1024
+_K5_TAP_BUFFER = 16 * 1024        # taps of one sub-step, at most
+_K5_TILES = (64, 32, 16, 8)
+#: a station shares the prototype when its de-rotated taps are within this
+#: of the prototype's, and real within it too (relative to max |c|)
+SHARED_MATCH_REL = 1e-9
 
-    return _derived_from(g, ("kernel",), build, device)
+
+@dataclasses.dataclass(frozen=True)
+class ComposedPlan:
+    """What ``composed_channelize_u8`` hands its kernel for one ``g``.
+
+    With c_k[t] = g_k[t] * exp(-2j*pi*k*t/K) and d = decim*K, a station
+    whose c_k is one real prototype c shared with others (every station
+    without a residual offset) is
+
+        y_k[p] = sum_{r<K} W^{k*r} u_r[p],   W = exp(2j*pi/K),
+        u_r[p] = sum_{b = r mod K, b < d} sum_{a<A} c[d*a + b] * plane_b[p-a]
+
+    with plane_b[q] = X[d*q - b] (d divides by K, so W^{k*t} = W^{k*b}):
+    d real A-tap FIRs over the polyphase planes, summed by residue, then a
+    K-point DFT per output, for all such stations at once.  Every other
+    station is an "own-taps" station: its complex taps, plane by plane.
+    """
+
+    k: int
+    taps: int
+    decim: int
+    a_sp: int                 # taps per plane as the kernel walks them
+    shared: tuple             # stations on the shared prototype
+    own: tuple                # stations with their own taps
+    proto: np.ndarray | None  # (d, a_sp | 1) f32: c[d*a + b] / 128 at [b, a]
+    twiddle: np.ndarray       # (K, 2) float32: W^m = cos / sin(2 pi m / K)
+    own_taps: np.ndarray | None   # (d, a_sp, n_own, 2) float32, g / 128
+
+    @property
+    def d(self) -> int:
+        return self.decim * self.k
+
+
+def _derotated(g: np.ndarray) -> np.ndarray:
+    """c_k[t] = g_k[t] * exp(-2j*pi*k*t/K), in float64 (the angle reduced
+    mod K exactly in integers)."""
+    k, g_l = g.shape
+    kt = (np.arange(k)[:, None] * np.arange(g_l)[None, :]) % k
+    return g * np.exp(-2j * np.pi * kt / k)
+
+
+def _planes_of(taps: np.ndarray, d: int, a_sp: int) -> np.ndarray:
+    """(..., L) -> (..., d, a_sp): tap d*a + b at [b, a], zeros past L."""
+    pad = np.zeros((*taps.shape[:-1], d * a_sp), taps.dtype)
+    pad[..., :taps.shape[-1]] = taps
+    return np.swapaxes(pad.reshape(*taps.shape[:-1], a_sp, d), -1, -2)
+
+
+def composed_plan(g: np.ndarray, decim: int) -> ComposedPlan:
+    """The station-by-station route of ``composed_channelize_u8`` for the
+    (K, L) taps ``g``, made once per array (``g`` must not change once
+    passed).  A station takes the shared route when its de-rotated taps
+    are real and equal those of the largest group of such stations, both
+    within ``SHARED_MATCH_REL * max|c|``; every other station takes its
+    own taps.  The kernel's shared role needs K <= 256 (a thread per
+    residue and group of outputs): a larger K puts every station on its
+    own taps."""
+    return derived_from(g, ("composed_plan", decim),
+                        lambda: _build_plan(np.asarray(g), decim))
+
+
+def _build_plan(g: np.ndarray, decim: int) -> ComposedPlan:
+    k, g_l = g.shape
+    d = decim * k
+    a = -(-g_l // d)
+    a_sp = a if a == FIXED_TAPS_PER_PLANE else -(-a // 4) * 4
+    c = _derotated(np.asarray(g, np.complex128))
+    lim = SHARED_MATCH_REL * float(np.abs(c).max())
+    shared = ()
+    real = np.flatnonzero(np.abs(c.imag).max(axis=1) <= lim)
+    if k <= K5_THREADS and real.size:
+        cr = c.real[real]
+        near = np.stack([np.abs(cr - row).max(axis=1) <= lim for row in cr])
+        shared = tuple(int(j) for j in real[near[np.argmax(near.sum(1))]])
+    own = tuple(j for j in range(k) if j not in shared)
+    proto = None
+    if shared:
+        proto = np.zeros((d, a_sp | 1), np.float32)      # odd pitch
+        proto[:, :a_sp] = _planes_of(c[shared[0]].real / 128.0, d, a_sp)
+    # W^{k r} = W^{(k r) mod K}: the K-entry table, float64 rounded once
+    ang = 2.0 * np.pi * np.arange(k) / k
+    twiddle = np.stack([np.cos(ang), np.sin(ang)], -1).astype(np.float32)
+    own_taps = None
+    if own:
+        gp = _planes_of(g[list(own)] / 128.0, d, a_sp)     # (n_own, d, a_sp)
+        gp = np.moveaxis(gp, 0, -1)                        # (d, a_sp, n_own)
+        own_taps = np.stack([gp.real, gp.imag], -1).astype(np.float32)
+    return ComposedPlan(k, g_l, decim, a_sp, shared, own, proto, twiddle,
+                        own_taps)
+
+
+@dataclasses.dataclass(frozen=True)
+class ComposedGeometry:
+    """How one launch cuts the work: tiles of ``tile`` outputs (grid x:
+    capture and tile); grid y: ``n_og`` own-taps groups of ``own_lanes``
+    stations, then the shared role if any.  A block stages its tile's
+    byte window as polyphase planes, ``nb`` planes per pass (``pitch``
+    rows each); a thread owns R outputs of one lane and one slice of the
+    planes (the shared role: K residues; the own role: ``ns_own`` slices)
+    and walks them ``g_sh`` / ``g_own`` planes per sub-step, whose taps
+    are staged first.  The shared role's ``ns_sh`` slices are K residues
+    times the splits of each residue's planes that fill the block."""
+
+    tile: int
+    n_tiles: int
+    nb: int
+    pitch: int
+    own_lanes: int
+    n_og: int
+    ns_sh: int
+    ns_own: int
+    g_sh: int
+    g_own: int
+    plane_elems: int          # float2 slots before the tap buffer
+    smem: int                 # bytes of dynamic shared memory
+    shared_role: bool
+
+    @property
+    def roles(self) -> int:
+        return self.n_og + self.shared_role
+
+
+def composed_geometry(plan: ComposedPlan, n_cap: int, p_out: int,
+                      n_sm: int = 132) -> ComposedGeometry:
+    """The widest tile whose planes fit one pass and whose grid gives two
+    blocks per SM; else the widest that fits one pass; else the narrowest,
+    with the planes staged in several passes."""
+    k, d, a_sp = plan.k, plan.d, plan.a_sp
+    n_sh, n_own = len(plan.shared), len(plan.own)
+    own_lanes = 0
+    if n_own:
+        own_lanes = 1
+        while own_lanes < min(n_own, 16):
+            own_lanes *= 2
+    n_og = -(-n_own // own_lanes) if n_own else 0
+    tpitch = a_sp | 1
+    options = []
+    for tile in _K5_TILES:
+        groups = tile // K5_R
+        if n_sh and k * groups > K5_THREADS:
+            continue
+        ns_sh = k * max(1, K5_THREADS // (k * groups))
+        ns_own = max(1, K5_THREADS // (own_lanes * groups)) if n_own else 1
+        pitch = (tile + a_sp - 1) | 1
+        part = max(ns_sh if n_sh else 0, ns_own * own_lanes) * (tile + 1)
+        # taps of one sub-step: the shared role ns_sh planes (real), the own
+        # role ns_own planes (complex, own_lanes stations) at least
+        sh_b, own_b = 4 * ns_sh * tpitch, 8 * ns_own * a_sp * own_lanes
+        nb = min(d, (K5_SMEM - max(sh_b if n_sh else 0, own_b)) // (8 * pitch))
+        plane_elems = max(nb * pitch, part)
+        left = min(K5_SMEM - 8 * plane_elems, _K5_TAP_BUFFER)
+        if nb < 1 or left < (sh_b if n_sh else own_b):
+            continue
+        g_sh = min(d, ns_sh * max(1, left // sh_b))
+        g_own = min(d, ns_own * max(1, left // max(own_b, 1)))
+        taps_b = max(4 * g_sh * tpitch if n_sh else 0,
+                     8 * g_own * a_sp * own_lanes)
+        n_tiles = -(-p_out // tile)
+        geo = ComposedGeometry(tile, n_tiles, nb, pitch, own_lanes, n_og,
+                               ns_sh, ns_own, g_sh, g_own, plane_elems,
+                               8 * plane_elems + taps_b, bool(n_sh))
+        options.append(geo)
+        if nb == d and n_cap * n_tiles * geo.roles >= 2 * n_sm:
+            return options[-1]
+    if not options:
+        raise ValueError(
+            f"composed_channelize_u8: {a_sp} taps per plane do not fit the "
+            "kernel's window")
+    whole = [o for o in options if o.nb == d]
+    return whole[0] if whole else options[-1]
+
+
+_n_sm: dict = {}
+
+
+def _sm_count(dev) -> int:
+    if dev not in _n_sm:
+        _n_sm[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _n_sm[dev]
 
 
 def composed_channelize_u8(raw_u8: torch.Tensor, g: np.ndarray,
@@ -367,7 +551,9 @@ def composed_channelize_u8(raw_u8: torch.Tensor, g: np.ndarray,
     receivers built with ``frontend_impl='if'``.  Any K, L and P are taken.
 
     A CUDA tensor launches the kernel (``csrc/channelizer.cu``) or raises;
-    a CPU tensor runs ``composed_channelize_u8_ref``.
+    the route of each station (shared prototype + in-kernel DFT, or its
+    own taps) is chosen on the host from ``g`` alone (``composed_plan``).
+    A CPU tensor runs ``composed_channelize_u8_ref``.
     """
     if not raw_u8.is_cuda:
         return composed_channelize_u8_ref(raw_u8, g, zi_raw, decim)
@@ -382,13 +568,40 @@ def composed_channelize_u8(raw_u8: torch.Tensor, g: np.ndarray,
     lead = tuple(raw_u8.shape[:-1])
     n = raw_u8.shape[-1] // 2
     p_out = n // d
+    plan = composed_plan(g, decim)
+    n_sm = _sm_count(dev)
+    geo = derived_from(
+        g, ("composed_geometry", decim, math.prod(lead), p_out, n_sm),
+        lambda: composed_geometry(plan, math.prod(lead), p_out, n_sm))
     y = torch.empty((*lead, k, 2, p_out), dtype=torch.float32, device=dev)
     new_zi = torch.empty_like(zi_raw)
+    on = _plan_on(g, plan, dev)
     _cuda.launch(
         "rtsdr_channelize_composed", "channelizer.composed",
-        _cuda.ptr(raw_u8), _cuda.ptr(zi_raw), _cuda.ptr(_g_on(g, dev)),
-        _cuda.ptr(y), _cuda.ptr(new_zi), math.prod(lead), n, k, g_l, d)
+        _cuda.ptr(raw_u8), _cuda.ptr(zi_raw), *map(_cuda.ptr, on),
+        _cuda.ptr(y), _cuda.ptr(new_zi), math.prod(lead), n, k, g_l, d,
+        plan.a_sp, p_out, geo.tile, geo.n_tiles, geo.nb, geo.pitch,
+        len(plan.shared), len(plan.own), geo.own_lanes, geo.n_og, geo.ns_sh,
+        geo.ns_own, geo.g_sh, geo.g_own, geo.plane_elems, geo.smem)
     return y, new_zi
+
+
+def _plan_on(g: np.ndarray, plan: ComposedPlan, dev) -> tuple:
+    """The plan's arrays on ``dev`` (made once per ``g`` and device): the
+    prototype planes, the twiddles, the shared stations, the own taps, the
+    own stations (None where a route has no station)."""
+    def build():
+        def f32(a):
+            return None if a is None else torch.as_tensor(
+                np.ascontiguousarray(a, np.float32)).to(dev)
+
+        def i32(a):
+            return None if not a else torch.as_tensor(
+                np.asarray(a, np.int32)).to(dev)
+        return (f32(plan.proto), f32(plan.twiddle), i32(plan.shared),
+                f32(plan.own_taps), i32(plan.own))
+
+    return derived_from(g, ("composed_plan_on", plan.decim, str(dev)), build)
 
 
 def channel_center_freqs(n_channels: int, fs: float) -> np.ndarray:

@@ -12,12 +12,13 @@ Counterpart of ``rtsdr_tpu/ops/pallas_fir.py`` (``resample_mul2_rrc``,
 and the (..., 2, N) mixed streams and the (..., 2, M) resampler stream never
 reach device memory; ``resample_mul2`` stops after the resampler and writes
 its (..., 2, M) output (the time-sharded receiver's route, which runs the
-RRC after the halo exchange).  ``zi`` is the carried tail of the zero-stuffed mixed
-stream (upsampled domain, arbitrary floats).  ``resample_mul2_rrc``'s kernel
-writes ``new_zi`` itself (one launch, no stock ops);
-``resample_mul2``'s is made here from the last ceil((taps-1)/up) inputs
-with a few stock ops (``resample_mul2_tail``), as the reference computes it
-outside its kernel; the two are equal bit for bit.
+RRC after the halo exchange).  ``zi`` is the carried tail of the zero-stuffed
+mixed stream (upsampled domain, arbitrary floats).  Both kernels write
+``new_zi`` themselves (one launch, no stock ops), equal bit for bit to
+``resample_mul2_tail`` of the last ceil((taps-1)/up) inputs, which is how
+the reference computes it outside its kernel.  ``resample_mul2(...,
+segments=T)`` is the time-sharded receiver's form: T stacked chunks, each
+reading its left neighbour's inputs in place as its halo.
 
 What the kernel replaces, what bounds it on an H100 and what its design
 does about that is in the note at the top of ``csrc/resample_rrc.cu``.  Any
@@ -79,22 +80,6 @@ def resample_mul2_ref(extract, nco_i, nco_q, h, zi, up: int, down: int,
                         gain=gain)
 
 
-def _lane_stride(up: int, down: int) -> int:
-    """How far apart (in outputs) neighbouring threads of a warp work.
-
-    Output m reads x from index m*down//up downwards, so threads on
-    neighbouring outputs walk shared memory ``down/up`` words apart (4.2 at
-    x19/80: four threads on every bank).  Threads L outputs apart walk
-    L*down/up words apart; the L in 1..8 that brings this closest to an odd
-    integer spreads a warp over all 32 banks (L = 5 at x19/80: 21.05).
-    """
-    def miss(L):
-        s = L * down / up
-        odd = 2 * math.floor(s / 2) + 1
-        return abs(s - odd)
-    return min(range(1, 9), key=miss)
-
-
 def resample_mul2_rrc(extract, nco_i, nco_q, h, zi, rrc_h, rrc_zi,
                       up: int, down: int, gain: float | None = None
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -150,11 +135,44 @@ def resample_mul2_rrc(extract, nco_i, nco_q, h, zi, rrc_h, rrc_zi,
 
 
 #: ``resample_mul2``'s kernel instances: launch-count name, ``split`` flag
-_MIX_IMPLS = {"auto": ("resample_mix", 1), "pair": ("resample_mix.pair", 0)}
+#: (None: by the ratio, ``_AUTO_SPLIT``).
+_MIX_IMPLS = {"auto": ("resample_mix", None),
+              "pair": ("resample_mix.pair", 0),
+              "split": ("resample_mix.split", 1)}
+#: "auto"'s arm by (up, down): the faster on an H100 at the time-sharded
+#: receivers' shapes (tools/torch_profile_resample.py, PERF.md): ``split``
+#: at MODE1_RDS's x57/250, ``pair`` at MODE0's x19/80.  Only these two
+#: ratios were measured; any other takes ``pair`` unmeasured.  A warp's
+#: window reads (tests/test_torch_cuda_resample.py,
+#: test_mix_window_spreads_banks) put at most 2 words per bank under
+#: ``pair`` and 4 under ``split`` at x19/80, 4 under both at x57/250: a
+#: candidate for the rule, not yet tested at a third ratio.
+_AUTO_SPLIT = {(57, 250): 1}
+
+
+def _segment_halo(extract, nco_i, nco_q, zi, t1: int, up: int):
+    """The carried zi of each of the T stacked chunks (T, ..., 2, t1):
+    chunk 0 the block's ``zi``, chunk s > 0 the zero-stuffed mixed tail of
+    chunk s-1, in stock ops."""
+    tails = resample_mul2_tail(extract[:-1], nco_i[:-1], nco_q[:-1], t1, up)
+    return torch.cat([zi.unsqueeze(0).to(tails.dtype), tails], dim=0)
+
+
+def resample_mul2_segments_ref(extract, nco_i, nco_q, h, zi, up: int,
+                               down: int, gain: float | None = None):
+    """Plain PyTorch version of ``resample_mul2(..., segments=T)``: the halo
+    zis built with stock ops, then ``resample_mul2_ref`` over the stacked
+    chunks; the new zi is the last chunk's."""
+    y, new_zi = resample_mul2_ref(
+        extract, nco_i, nco_q, h,
+        _segment_halo(extract, nco_i, nco_q, zi, len(h) - 1, up),
+        up, down, gain)
+    return y, new_zi[-1]
 
 
 def resample_mul2(extract, nco_i, nco_q, h, zi, up: int, down: int,
-                  gain: float | None = None, impl: str = "auto"
+                  gain: float | None = None, impl: str = "auto",
+                  segments: int | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused RDS mixer + rational resampler, one kernel launch.
 
@@ -164,49 +182,68 @@ def resample_mul2(extract, nco_i, nco_q, h, zi, up: int, down: int,
     Args:
       extract, nco_i, nco_q: (..., N) float32.
       h: (taps,) filter at the rate ``fs * up``; zi: (..., 2, taps-1)
-        upsampled-domain carry (arbitrary floats: a time shard's is its left
-        neighbour's tail).
-      impl: "auto" (the production instance: one thread per output and
-        branch) or "pair" (one thread makes both branches' outputs from one
-        tap read; the layout probe's other arm,
-        ``tools/torch_profile_resample.py``).  A CPU tensor runs the plain
+        upsampled-domain carry (arbitrary floats).
+      impl: "auto" (the faster arm at the receiver's shapes), "pair" (a
+        thread makes both branches' outputs from one tap read) or "split"
+        (a thread per branch); the layout probe's arms,
+        ``tools/torch_profile_resample.py``.  A CPU tensor runs the plain
         version either way.
+      segments: T (the time-sharded receiver's form): the inputs are T
+        consecutive chunks stacked along the first dimension, (T, ..., N),
+        and ``zi`` is the carry of the first, (..., 2, taps-1).  Chunk s > 0
+        reads the last ceil((taps-1)/up) inputs of chunk s-1 as its halo,
+        in place; the new zi is the last chunk's.  Equal to
+        ``resample_mul2_segments_ref``.
 
-    Returns (y (..., 2, N*up/down), new_zi (..., 2, taps-1)).
+    Returns (y (..., 2, N*up/down), new_zi (..., 2, taps-1)); with
+    segments, y is (T, ..., 2, M) and new_zi (..., 2, taps-1).
     """
     if impl not in _MIX_IMPLS:
         raise ValueError(f"resample_mul2: unknown impl {impl!r}")
     if gain is None:
         gain = float(up)
     if not extract.is_cuda:
+        if segments is not None:
+            return resample_mul2_segments_ref(extract, nco_i, nco_q, h, zi,
+                                              up, down, gain)
         return resample_mul2_ref(extract, nco_i, nco_q, h, zi, up, down,
                                  gain)
-    if extract.dim() < 1:
+    if extract.dim() < (1 if segments is None else 2):
         raise ValueError(
             f"extract: expected (..., N), got {tuple(extract.shape)}")
     lead, n = tuple(extract.shape[:-1]), extract.shape[-1]
-    c = math.prod(lead)
-    if c < 1 or n < 1:
+    rows = math.prod(lead)
+    if rows < 1 or n < 1:
         raise ValueError(f"extract: empty input {tuple(extract.shape)}")
     if up < 1 or down < 1 or (n * up) % down:
         raise ValueError(
             f"resample_mul2: {n} samples x{up} do not divide by {down}")
     taps = len(h)
-    if n * up < taps - 1:
+    if n * up < taps - 1:      # then a chunk also holds its halo's inputs
         raise ValueError(
             f"resample_mul2: a block of {n} samples is shorter than the "
             "carried tail")
+    zi_lead = lead
+    if segments is not None:
+        if lead[0] != segments:
+            raise ValueError(f"extract: expected {segments} stacked chunks "
+                             f"first, got {tuple(extract.shape)}")
+        zi_lead = lead[1:]
     dev = extract.device
     _cuda.check(extract, "extract", dtype=_F32)
     _cuda.check(nco_i, "nco_i", (*lead, n), _F32, dev)
     _cuda.check(nco_q, "nco_q", (*lead, n), _F32, dev)
-    _cuda.check(zi, "zi", (*lead, 2, taps - 1), _F32, dev)
+    _cuda.check(zi, "zi", (*zi_lead, 2, taps - 1), _F32, dev)
     m = n * up // down
     y = torch.empty((*lead, 2, m), dtype=_F32, device=dev)
+    new_zi = torch.empty_like(zi)
     name, split = _MIX_IMPLS[impl]
+    if split is None:
+        split = _AUTO_SPLIT.get((up, down), 0)
     _cuda.launch(
         "rtsdr_resample_mix", name,
         _cuda.ptr(extract), _cuda.ptr(nco_i), _cuda.ptr(nco_q),
         _cuda.ptr(_taps_on([h], dev)), _cuda.ptr(zi), _cuda.ptr(y),
-        c, n, m, taps, up, down, _lane_stride(up, down), split, float(gain))
-    return y, resample_mul2_tail(extract, nco_i, nco_q, taps - 1, up)
+        _cuda.ptr(new_zi), rows, segments or 1, n, m, taps, up, down, split,
+        float(gain))
+    return y, new_zi

@@ -43,10 +43,7 @@ from rtsdr_tpu_torch.device import require_kernel_dtype
 from rtsdr_tpu_torch.ops import coeffs
 from rtsdr_tpu_torch.ops.cuda_fir import fir_bank_carried, fir_block_pre
 from rtsdr_tpu_torch.ops.cuda_pll import stacked_state
-from rtsdr_tpu_torch.ops.cuda_resample import (
-    resample_mul2,
-    resample_mul2_tail,
-)
+from rtsdr_tpu_torch.ops.cuda_resample import resample_mul2
 from rtsdr_tpu_torch.ops.demod import fm_discriminator
 from rtsdr_tpu_torch.ops.fir import (
     _upsampled_tail_of,
@@ -232,7 +229,6 @@ def make_time_sharded_receiver(
         squared_h = coeffs.bandpass_taps(cfg.rf.if_fs, r.squared_lo,
                                          r.squared_hi, r.taps)
         comb_h = composed_resampler_taps(cfg)
-        comb_t1 = len(comb_h) - 1
         rrc_h = coeffs.rrc_taps(r.rrc_fs, r.rrc_taps, r.rrc_beta,
                                 r.symbol_rate)
         rrc_t1 = len(rrc_h) - 1
@@ -382,13 +378,12 @@ def make_time_sharded_receiver(
 
         rds_state = frame_state = rds_out = None
         if enable_rds:
-            # mixers + resampler (K6 on a CUDA tensor); the halo is the left
-            # neighbour's carry, made by the op's own tail helper
-            r_i, r_q = nco_i[1], nco_q[1]
-            mix_tail = resample_mul2_tail(extract, r_i, r_q, comb_t1, r.up)
+            # mixers + resampler (K6 on a CUDA tensor) over the stacked
+            # chunks: each reads its left neighbour's inputs in place as its
+            # halo, chunk 0 the carried zi; the new zi is the last chunk's
             resamp, resamp_zi = resample_mul2(
-                extract, r_i, r_q, comb_h,
-                ax.halo(state.rds.resamp_zi, mix_tail), r.up, r.down)
+                extract, nco_i[1], nco_q[1], comb_h, state.rds.resamp_zi,
+                r.up, r.down, segments=T)
             rrc, rrc_zi = fir_block(
                 resamp, rrc_h,
                 ax.halo(state.rds.rrc_zi, resamp[..., -rrc_t1:]))
@@ -396,7 +391,7 @@ def make_time_sharded_receiver(
                 extract_zi=if_tail,
                 squared_zi=ax.from_last(squared_zi).contiguous(),
                 pll=PLLState(*(v[1] for v in st)),
-                resamp_zi=ax.from_last(resamp_zi).contiguous(),
+                resamp_zi=resamp_zi,
                 rrc_zi=ax.from_last(rrc_zi).contiguous())
             rrc = ax.all_gather(rrc)                        # (C, 2, rds_len)
             if frame_fn is not None:

@@ -194,68 +194,6 @@ def test_composed_plain_matches_jax_xla_and_two_stage_oracle(with_offsets):
                                atol=5e-5)
 
 
-def _kernel_rehearsal(raw, zi, g, d, chan_lanes, p_lanes, r_out, chunk):
-    """The CUDA kernel's own index arithmetic in numpy, block by block:
-    tiles of ``p_lanes * r_out`` outputs, taps in chunks, the window of a
-    chunk staged from ext = [zi | raw] with the zero level past its end."""
-    k, taps = g.shape
-    t1 = taps - 1
-    n = raw.shape[-1] // 2
-    p_out = n // d
-    ext = np.concatenate([zi, raw], axis=-1).astype(np.float64) - 128.0
-    ext = ext[..., 0::2] + 1j * ext[..., 1::2]
-    gs = g / 128.0
-    tile_p = p_lanes * r_out
-    y = np.zeros((raw.shape[0], k, 2, p_out))
-    for b in range(raw.shape[0]):
-        for p0 in range(0, p_out, tile_p):
-            acc = np.zeros((tile_p, k), np.complex128)
-            for t0 in range(0, taps, chunk):
-                tc = min(chunk, taps - t0)
-                base = d * p0 + taps - t0 - tc
-                length = d * (tile_p - 1) + tc
-                assert base >= 0
-                idx = base + np.arange(length)
-                sx = np.where(idx < t1 + n,
-                              ext[b][np.minimum(idx, t1 + n - 1)], 0.0)
-                for q in range(tile_p):
-                    xs = d * q + tc - 1
-                    for tt in range(tc):
-                        acc[q] += gs[:, t0 + tt] * sx[xs - tt]
-            for pl in range(p_lanes):
-                for r in range(r_out):
-                    p = p0 + pl + p_lanes * r
-                    if p < p_out:
-                        y[b, :, 0, p] = acc[pl + p_lanes * r].real
-                        y[b, :, 1, p] = acc[pl + p_lanes * r].imag
-    tail = np.concatenate([zi, raw], axis=-1)[..., 2 * n:]
-    return y, tail
-
-
-@pytest.mark.parametrize("chunk,p_lanes,r_out", [(40, 2, 2), (7, 3, 1),
-                                                 (13, 1, 4)])
-def test_composed_kernel_index_math_equals_plain(chunk, p_lanes, r_out):
-    """What ``csrc/channelizer.cu`` computes, rehearsed index for index in
-    numpy at a tiny size (tap chunks, ragged last tile, the window running
-    past the end of the block, the carried byte tail), equals the plain
-    version: the kernel itself runs only on the card."""
-    rng = np.random.default_rng(3)
-    k, decim, taps_rf = 3, 2, 5
-    h = tch.channelizer_taps(k, 4)
-    g = tch.composed_rf_taps(k, h, np.hanning(taps_rf), decim)
-    d = decim * k
-    assert g.shape == (k, (taps_rf - 1) * k + 4 * k)
-    c, p_out = 2, 7
-    zi = rng.integers(0, 256, (c, 2 * (g.shape[1] - 1)), np.uint8)
-    raw = rng.integers(0, 256, (c, 2 * d * p_out), np.uint8)
-    want, want_tail = tch.composed_channelize_u8(
-        torch.as_tensor(raw), g, torch.as_tensor(zi), decim)
-    got, tail = _kernel_rehearsal(raw, zi, g, d, 4, p_lanes, r_out, chunk)
-    np.testing.assert_allclose(got, want.numpy(), rtol=0, atol=2e-6)
-    assert np.array_equal(tail, want_tail.numpy())
-    assert tuple(want.shape) == (c, k, 2, p_out)      # a ragged P is taken
-
-
 def test_composed_short_block_keeps_part_of_the_old_tail(rng):
     k, decim = 2, 10
     g = tch.composed_rf_taps(k, tch.channelizer_taps(k, 16),
@@ -282,7 +220,8 @@ def test_composed_on_a_device_tensor_launches_or_raises(monkeypatch, rng):
     seen = []
     monkeypatch.setattr(
         _cuda, "launch",
-        lambda entry, count_as, *a: seen.append((entry, count_as, a[5:])))
+        lambda entry, count_as, *a: seen.append((entry, count_as, a[9:])))
+    monkeypatch.setattr(tch, "_sm_count", lambda dev: 132)   # an H100's
     monkeypatch.setattr(
         tch, "composed_channelize_u8_ref",
         lambda *a, **k: pytest.fail("the plain version ran for a device "
@@ -295,16 +234,24 @@ def test_composed_on_a_device_tensor_launches_or_raises(monkeypatch, rng):
                       ).as_subclass(OnCard)
     zi = tch.composed_zi_u8(taps, (2,), "cpu")
     y, new_zi = tch.composed_channelize_u8(raw, g, zi, decim)
-    assert seen == [("rtsdr_channelize_composed", "channelizer.composed",
-                     (2, decim * k * 32, k, taps, decim * k))]
+    plan = tch.composed_plan(g, decim)
+    geo = tch.composed_geometry(plan, 2, 32, 132)
+    ((entry, count_as, ints),) = seen
+    assert (entry, count_as) == ("rtsdr_channelize_composed",
+                                 "channelizer.composed")
+    assert ints[:7] == (2, decim * k * 32, k, taps, decim * k, plan.a_sp, 32)
+    assert ints[7:] == (geo.tile, geo.n_tiles, geo.nb, geo.pitch, k, 0,
+                        geo.own_lanes, geo.n_og, geo.ns_sh, geo.ns_own,
+                        geo.g_sh, geo.g_own, geo.plane_elems, geo.smem)
     assert tuple(y.shape) == (2, k, 2, 32) and y.dtype == torch.float32
     assert tuple(new_zi.shape) == (2, 2 * (taps - 1))
-    gk = tch._g_on(g, torch.device("cpu"))
-    assert tuple(gk.shape) == (taps, k, 2) and gk.dtype == torch.float32
-    assert gk.is_contiguous()       # the kernel reads it as (L, K) float2
-    np.testing.assert_array_equal(
-        gk.numpy()[..., 0], (g.real.T / 128.0).astype(np.float32))
-    assert tch._g_on(g, torch.device("cpu")) is gk      # made once per array
+    proto, tw, sh, own_taps, own = tch._plan_on(g, plan, torch.device("cpu"))
+    assert own_taps is None and own is None          # no own-taps station
+    assert proto.dtype == torch.float32 and proto.is_contiguous()
+    assert tuple(proto.shape) == (decim * k, plan.a_sp | 1)
+    assert sh.dtype == torch.int32 and sh.tolist() == list(range(k))
+    assert tuple(tw.shape) == (k, 2)
+    assert tch._plan_on(g, plan, torch.device("cpu"))[0] is proto  # once
     for bad_raw, bad_zi, err in (
             (raw.to(torch.float32).as_subclass(OnCard), zi, TypeError),
             (raw[:, :-2], zi, ValueError),

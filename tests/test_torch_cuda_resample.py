@@ -88,23 +88,29 @@ def _fma(a, b, acc):
 def _carried(h, zi_b, pos, t1):
     """sum_{k = pos+1 .. t1} h[k] * zi_b[pos + t1 - k] as a warp sums it:
     lane l takes k = pos+1+l, +32, ... in four running sums (k, k+32, k+64,
-    k+96 per round of 128), adds them pairwise, then a shuffle tree."""
+    k+96 per round of 128), adds them pairwise, then a shuffle tree.  The
+    32 lanes side by side, each in its own order."""
     c = zi_b.shape[0]
-    lanes = np.zeros((32, c), np.float32)
-    for lane in range(32):
-        a = [np.zeros(c, np.float32) for _ in range(4)]
-        k = pos + 1 + lane
-        while k + 96 <= t1:
-            for q in range(4):
-                kk = k + 32 * q
-                a[q] = _fma(np.float32(h[kk]), zi_b[:, pos + t1 - kk], a[q])
-            k += 128
-        while k <= t1:
-            a[0] = _fma(np.float32(h[k]), zi_b[:, pos + t1 - k], a[0])
-            k += 32
-        lanes[lane] = (a[0] + a[1]) + (a[2] + a[3])
+    h32 = np.asarray(h, np.float32)
+    lane = np.arange(32)
+    a = np.zeros((4, 32, c), np.float32)
+    k = pos + 1 + lane
+
+    def step(q, kk, act):
+        kc = np.where(act, kk, pos + 1)
+        upd = _fma(h32[kc][:, None], zi_b[:, pos + t1 - kc].T, a[q])
+        a[q] = np.where(act[:, None], upd, a[q])
+
+    while (act := k + 96 <= t1).any():
+        for q in range(4):
+            step(q, k + 32 * q, act)
+        k = np.where(act, k + 128, k)
+    while (act := k <= t1).any():
+        step(0, k, act)
+        k = np.where(act, k + 32, k)
+    lanes = (a[0] + a[1]) + (a[2] + a[3])
     for d in (16, 8, 4, 2, 1):
-        lanes = lanes + lanes[np.arange(32) ^ d]
+        lanes = lanes + lanes[lane ^ d]
     return lanes[0]
 
 
@@ -286,3 +292,218 @@ def test_geometry_fills_the_card():
     lcap = plan(2048, 3001, 19, 80, 151)[3]
     assert lcap % 2 == 1
     assert len({(lane * lcap) % 32 for lane in range(32)}) == 32
+
+
+# ------------------------------------------------------------------- K6
+# The mixer + resampler kernel (``resample_mul2``, K6) is K4's block without
+# the RRC stage: a block owns outputs [m0, m0 + tile) of one stacked row; the
+# units of a phase are not padded (q_w = q_s); `pair` makes R outputs of both
+# branches per unit, `split` 2R outputs of one branch (the branch outermost).
+# Segmented form (segments = T, rows (segment, channel)): x < 0 of a row of
+# segment s > 0 is its left neighbour's x[n + i], mixed in the window;
+# segment 0's rows add the carried zi; the last segment's rows write new_zi.
+
+MIX_TILE_MAX = 1024
+
+
+def mix_plan(tile, taps, up, down):
+    """(qp, lcap, shared bytes) of a K6 block that owns ``tile`` outputs."""
+    t1 = taps - 1
+    qp = t1 // up + 1
+    span = ((tile - 1) * down) // up + 2 + -(-t1 // up)
+    lcap = max(span // down + 2, (t1 + 2 * down - 1) // (2 * down))
+    lcap += 1 - lcap % 2
+    return qp, lcap, 4 * (2 * lcap * down + up * qp + 2 * tile)
+
+
+def mix_geometry(rows, m, taps, up, down, split, n_sm=N_SM):
+    """The tile ``rtsdr_resample_mix`` picks: equal tiles, as few as give
+    two blocks per SM with every unit in one pass of the block's 256
+    threads and the shared memory of two blocks per SM; at least 8."""
+    n_out = 2 * R if split else R
+    n_t = -(-m // MIX_TILE_MAX)
+    while True:
+        tile = -(-m // n_t)
+        smem = mix_plan(tile, taps, up, down)[2]
+        units = (2 if split else 1) * up * -(-(-(-tile // up)) // n_out)
+        if ((units <= 256 and smem <= SMEM_TWO_BLOCKS
+             and rows * -(-m // tile) >= 2 * n_sm) or tile <= 8 or n_t >= m):
+            return tile
+        n_t += 1
+
+
+def rehearse_mix(e, ni, nq, h, zi, up, down, gain, tile, segments, split):
+    """What K6 writes for (T*C, N) rows: (y (T*C, 2, M), new_zi (C, 2, t1))."""
+    h = np.asarray(h, np.float64).astype(np.float32)
+    rows, n = e.shape
+    seg_n = segments or 1
+    c = rows // seg_n
+    taps = len(h)
+    t1 = taps - 1
+    m_tot = n * up // down
+    n_out = 2 * R if split else R
+    qp, lcap, _ = mix_plan(tile, taps, up, down)
+    hp = np.zeros((up, qp), np.float32)
+    for p in range(up):
+        js = np.arange(qp)
+        ok = p + up * js <= t1
+        hp[p, ok] = h[p + up * js[ok]]
+    mixed = [(np.float32(2.0) * e) * ni, (np.float32(2.0) * e) * nq]
+    y = np.full((rows, 2, m_tot), np.nan, np.float32)
+    gain = np.float32(gain)
+    for s in range(seg_n):
+        rs = slice(s * c, (s + 1) * c)
+        for m0 in range(0, m_tot, tile):
+            m_end = min(m0 + tile, m_tot)
+            ilo = (m0 * down) // up - -(-t1 // up)
+            assert ((m_end - 1) * down // up - ilo) // down + 1 <= lcap
+            rel = np.arange(lcap * down)
+            xi = ilo + rel
+            xs = []
+            for mb in mixed:
+                v = np.zeros((c, lcap * down), np.float32)
+                own = (xi >= 0) & (xi < n)
+                v[:, own] = mb[rs][:, xi[own]]
+                if s > 0:                 # the left neighbour's inputs
+                    halo = xi < 0
+                    v[:, halo] = mb[s * c - c:s * c][:, n + xi[halo]]
+                t = np.zeros((c, down * lcap), np.float32)
+                t[:, (rel % down) * lcap + rel // down] = v
+                xs.append(t)
+            slots = [np.full((c, tile), np.nan, np.float32) for _ in (0, 1)]
+            n_q = -(-(m_end - m0) // up)
+            q_s = -(-n_q // n_out)
+            for pp in range(up):
+                mb0 = m0 + pp
+                ph = (mb0 * down) % up
+                rel0 = (mb0 * down) // up - ilo
+                col0, row0 = rel0 % down, rel0 // down
+                nj = (t1 - ph) // up + 1 if ph <= t1 else 0
+                q = np.arange(q_s)[:, None] + q_s * np.arange(n_out)[None, :]
+                mm = mb0 + up * q
+                valid = mm < m_end
+                rowk = row0 + np.where(valid, q, q[:, :1])
+                for b in (0, 1):     # pair: both per unit, split: one each
+                    acc = np.zeros((c,) + q.shape, np.float32)
+                    col, wraps = col0, 0
+                    for j in range(nj):
+                        acc = _fma(hp[ph, j], xs[b][:, col * lcap + rowk
+                                                    - wraps], acc)
+                        col -= 1
+                        if col < 0:
+                            col, wraps = down - 1, wraps + 1
+                    slots[b][:, mm[valid] - m0] = acc[:, valid]
+            if s == 0:
+                for mm in range(m0, min(m_end, -(-t1 // down))):
+                    for b in (0, 1):
+                        slots[b][:, mm - m0] = slots[b][:, mm - m0] + _carried(
+                            h, zi[:, b], mm * down, t1)
+            for b in (0, 1):
+                y[rs, b, m0:m_end] = slots[b][:, :m_end - m0] * gain
+    new_zi = np.zeros((c, 2, t1), np.float32)
+    pos = n * up - t1 + np.arange(t1)
+    on = pos % up == 0
+    last = slice((seg_n - 1) * c, seg_n * c)
+    for b in (0, 1):
+        new_zi[:, b, on] = mixed[b][last][:, pos[on] // up]
+    return y, new_zi
+
+
+@pytest.mark.parametrize("segments,c,n,comb,up,down,split,n_sm", [
+    (None, 2, 1600, COMB0, 19, 80, False, N_SM),   # a block, dense zi
+    (None, 1, 15360, COMB0, 19, 80, True, 2),      # 4 tiles of 912, split
+    (3, 2, 480, COMB0, 19, 80, False, N_SM),       # segmented, 3 chunks
+    (2, 1, 4000, COMB1, 57, 250, True, 2),         # segmented x57/250
+    (4, 1, 3840, COMB0, 19, 80, True, N_SM)])      # T = 4, one station
+def test_mix_plan_equals_plain(segments, c, n, comb, up, down, split, n_sm):
+    rng = np.random.default_rng(n + up + (segments or 0))
+    rows = c * (segments or 1)
+    e, ni, nq, _, _ = _inputs(rng, rows, n, len(comb), True)
+    zi = _inputs(rng, c, n, len(comb), True)[3]
+    m = n * up // down
+    tile = mix_geometry(rows, m, len(comb), up, down, split, n_sm)
+    got = rehearse_mix(e, ni, nq, comb, zi, up, down, float(up), tile,
+                       segments, split)
+    t = torch.as_tensor
+    lead = (segments, c) if segments else (c,)
+    sh = lambda a: t(a.reshape(*lead, n))
+    if segments:
+        ref = tres.resample_mul2_segments_ref(sh(e), sh(ni), sh(nq), comb,
+                                              t(zi), up, down)
+    else:
+        ref = tres.resample_mul2_ref(t(e), t(ni), t(nq), comb, t(zi), up,
+                                     down)
+    want = ref[0].numpy().reshape(rows, 2, m)
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got[0], want, rtol=0, atol=5e-6 * scale)
+    assert got[1].tobytes() == ref[1].numpy().tobytes()
+
+
+def test_mix_geometry_fills_the_card():
+    """Equal tiles with every unit in one pass: the stacked T = 4 rows take
+    one tile of 912, a 15,360-sample block four; one station at T = 4
+    still gives two blocks per SM."""
+    assert mix_geometry(4096, 912, 3001, 19, 80, False) == 912
+    assert mix_geometry(4096, 912, 3001, 19, 80, True) == 912
+    assert mix_geometry(1024, 3648, 3001, 19, 80, False) == 912
+    assert mix_geometry(4096, 912, 9003, 57, 250, False) == 912
+    tile = mix_geometry(4, 912, 3001, 19, 80, False)
+    assert 4 * -(-912 // tile) >= 264
+    for rows, m, taps, up, down in ((4096, 912, 3001, 19, 80),
+                                    (4096, 912, 9003, 57, 250),
+                                    (1024, 3648, 3001, 19, 80)):
+        for split in (False, True):
+            tile = mix_geometry(rows, m, taps, up, down, split)
+            assert mix_plan(tile, taps, up, down)[2] <= SMEM_TWO_BLOCKS
+            n_out = 2 * R if split else R
+            assert (2 if split else 1) * up * -(-(-(-tile // up))
+                                                // n_out) <= 256
+
+
+def _mix_warp_banks(rows, m, taps, up, down, split):
+    """(lcap, most distinct words a warp's first window reads put on one
+    bank) over every tile and warp of K6's block at this shape: unit (pp,
+    qb) of branch br reads word col * lcap + row + qb of its branch's
+    transposed window, as ``resample_units`` does."""
+    tile = mix_geometry(rows, m, taps, up, down, split)
+    lcap = mix_plan(tile, taps, up, down)[1]
+    t1, n_out = taps - 1, 2 * R if split else R
+    worst = 0
+    for m0 in range(0, m, tile):
+        m_end = min(m0 + tile, m)
+        ilo = (m0 * down) // up - -(-t1 // up)
+        q_s = -(-(-(-(m_end - m0) // up)) // n_out)
+        words = []
+        for unit in range((2 if split else 1) * up * q_s):
+            br, uu = divmod(unit, up * q_s)
+            pp, qb = divmod(uu, q_s)
+            if m0 + pp + up * qb >= m_end:
+                words.append(None)
+                continue
+            rel = (m0 + pp) * down // up - ilo
+            words.append(br * lcap * down + (rel % down) * lcap
+                         + rel // down + qb)
+        for w in range(0, len(words), 32):
+            lanes = {a for a in words[w:w + 32] if a is not None}
+            per_bank = np.bincount([a % 32 for a in lanes], minlength=32)
+            worst = max(worst, int(per_bank.max()))
+    return lcap, worst
+
+
+@pytest.mark.parametrize("rows,m,taps,up,down,split,most", [
+    (4096, 912, 3001, 19, 80, False, 2),    # T = 4 stacked, pair
+    (4096, 912, 3001, 19, 80, True, 4),     # split
+    (4096, 912, 9003, 57, 250, False, 4),   # MODE1_RDS T = 4, pair
+    (4096, 912, 9003, 57, 250, True, 4),    # split
+    (1024, 3648, 3001, 19, 80, False, 2),   # 1,024 x 15,360, pair
+    (1024, 3648, 3001, 19, 80, True, 4)])   # split
+def test_mix_window_spreads_banks(rows, m, taps, up, down, split, most):
+    """K6's transposed window at the receivers' shapes: an odd row count
+    puts a warp's staging writes (consecutive x indices, lcap words apart)
+    on 32 distinct banks, and a warp's window reads (consecutive rows
+    within a phase, phases down/up columns apart) on at most ``most``
+    distinct words per bank."""
+    lcap, worst = _mix_warp_banks(rows, m, taps, up, down, split)
+    assert lcap % 2 == 1
+    assert len({(lane * lcap) % 32 for lane in range(32)}) == 32
+    assert worst == most

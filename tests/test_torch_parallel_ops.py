@@ -5,7 +5,9 @@ against the JAX functions on the same numpy inputs:
   with offsets broadcast over the batch: atol 1e-6 (angles compared mod
   4 pi; the extrapolation is a handful of float32 operations);
 * ``resample_mul2_ref`` (the plain version of the mixer + resampler kernel
-  K6) against ``resample_mul2(impl='xla')`` at 1e-6 * max|ref| (float32
+  K6), and its segmented form ``resample_mul2_segments_ref`` (T stacked
+  chunks, each behind its left neighbour's inputs), against
+  ``resample_mul2(impl='xla')`` given the halo zi at 1e-6 * max|ref| (float32
   sums of ~158 taps and of the dense zi terms in two orders, as
   tests/test_torch_resample.py), and against ``impl='pallas'`` in
   interpret mode at tests/test_pallas_fir.py's shape and bf16 tolerance
@@ -174,15 +176,130 @@ def test_resample_mul2_block_seam(rng, cfg_name):
 
 
 def test_resample_mul2_split_impl_and_checks(rng):
-    """Both instances run the plain version on the CPU; unknown impls
+    """Every instance runs the plain version on the CPU; unknown impls
     raise."""
     h = j_comb(JMODE0)
     e, ni, nq, zi = _mix_inputs(rng, 2, 3840, len(h), 19)
     a = (_t(e), _t(ni), _t(nq), h, _t(zi), 19, 80)
-    auto, pair = tres.resample_mul2(*a), tres.resample_mul2(*a, impl="pair")
-    assert all(torch.equal(x, y) for x, y in zip(auto, pair))  # CPU: plain
+    auto = tres.resample_mul2(*a)
+    for impl in ("pair", "split"):
+        other = tres.resample_mul2(*a, impl=impl)
+        assert all(torch.equal(x, y) for x, y in zip(auto, other))
     with pytest.raises(ValueError, match="unknown impl"):
         tres.resample_mul2(*a, impl="pallas")
+
+
+def _halo_zi(e, ni, nq, zi, t1, up):
+    """JAX's form of the time shards' carry: chunk 0 the block's zi, chunk
+    s > 0 the zero-stuffed mixed tail of chunk s-1 (jpf's own helper)."""
+    tails = [np.asarray(jpf.resample_mul2_tail(
+        jnp.asarray(e[s]), jnp.asarray(ni[s]), jnp.asarray(nq[s]), t1, up))
+        for s in range(e.shape[0] - 1)]
+    return np.concatenate([zi[None]] + [t_[None] for t_ in tails])
+
+
+@pytest.mark.parametrize("cfg_name,t_shards,c,n", [("MODE0", 4, 3, 3840),
+                                                   ("MODE1_RDS", 4, 2, 4000),
+                                                   ("MODE0", 2, 2, 160)])
+def test_resample_mul2_segments_match_xla_route(rng, cfg_name, t_shards, c,
+                                                 n):
+    """The segmented plain version against the JAX function over the
+    stacked (T*C, n) chunks given the halo zi: y at 1e-6 * max|ref|, the
+    last chunk's carry bit for bit."""
+    cfg = {"MODE0": JMODE0, "MODE1_RDS": JMODE1_RDS}[cfg_name]
+    h = j_comb(cfg)
+    up, down = cfg.rds.up, cfg.rds.down
+    e, ni, nq, _ = _mix_inputs(rng, t_shards * c, n, len(h), up)
+    e, ni, nq = (a.reshape(t_shards, c, n) for a in (e, ni, nq))
+    zi = _mix_inputs(rng, c, n, len(h), up)[3]
+    ty, tz = tres.resample_mul2(_t(e), _t(ni), _t(nq), h, _t(zi), up, down,
+                                segments=t_shards)
+    halo = _halo_zi(e, ni, nq, zi, len(h) - 1, up)
+    flat = lambda a: jnp.asarray(a.reshape(t_shards * c, *a.shape[2:]))
+    jy, jz = jpf.resample_mul2(flat(e), flat(ni), flat(nq), h, flat(halo),
+                               up, down, impl="xla")
+    jy = np.asarray(jy).reshape(t_shards, c, 2, -1)
+    assert ty.shape == jy.shape and tz.shape == (c, 2, len(h) - 1)
+    np.testing.assert_allclose(ty.numpy(), jy, rtol=0,
+                               atol=1e-6 * float(np.abs(jy).max()))
+    assert np.array_equal(tz.numpy(),
+                          np.asarray(jz).reshape(t_shards, c, 2, -1)[-1])
+
+
+def test_resample_mul2_segments_match_pallas_interpret(rng):
+    """The same against JAX's Pallas route in interpret mode at
+    tests/test_pallas_fir.py's shape (32 rows of 3,840: 4 chunks of 8
+    stations) and its bf16 tolerance."""
+    h = j_comb(JMODE0)
+    e, ni, nq, _ = _mix_inputs(rng, 32, 3840, len(h), 19)
+    e, ni, nq = (a.reshape(4, 8, 3840) for a in (e, ni, nq))
+    zi = _mix_inputs(rng, 8, 3840, len(h), 19)[3]
+    ty, tz = tres.resample_mul2(_t(e), _t(ni), _t(nq), h, _t(zi), 19, 80,
+                                segments=4)
+    halo = _halo_zi(e, ni, nq, zi, len(h) - 1, 19)
+    flat = lambda a: jnp.asarray(a.reshape(32, *a.shape[2:]))
+    jy, jz = jpf.resample_mul2(flat(e), flat(ni), flat(nq), h, flat(halo),
+                               19, 80, impl="pallas")
+    jy = np.asarray(jy).reshape(4, 8, 2, -1)
+    np.testing.assert_allclose(ty.numpy(), jy, rtol=0,
+                               atol=2e-2 * float(np.abs(jy).max()) + 1e-6)
+    assert np.array_equal(tz.numpy(), np.asarray(jz).reshape(4, 8, 2, -1)[-1])
+
+
+def test_resample_mul2_segments_equal_chained_blocks(rng):
+    """Chunk s behind its left neighbour's inputs is chunk s chained from
+    chunk s-1's carry: the segmented form equals four chained calls (the
+    plain version's float32 sums of another batch shape: 1e-6 * max|y|),
+    the carry bit for bit."""
+    h = j_comb(JMODE0)
+    e, ni, nq, zi = _mix_inputs(rng, 8, 3840, len(h), 19)
+    e, ni, nq = (a.reshape(4, 2, 3840) for a in (e, ni, nq))
+    zi = zi[:2]
+    ty, tz = tres.resample_mul2(_t(e), _t(ni), _t(nq), h, _t(zi), 19, 80,
+                                segments=4)
+    z = _t(zi)
+    for s in range(4):
+        y, z = tres.resample_mul2(_t(e[s]), _t(ni[s]), _t(nq[s]), h, z, 19,
+                                  80)
+        np.testing.assert_allclose(ty[s].numpy(), y.numpy(), rtol=0,
+                                   atol=1e-6 * float(y.abs().max()))
+    assert torch.equal(tz, z)
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that claims to lie on a CUDA device."""
+
+    is_cuda = property(lambda self: True)
+
+
+def test_resample_mul2_segments_launch_or_raise(monkeypatch, rng):
+    """A CUDA tensor reaches K6's one launch with the stacked rows and the
+    segment count; the plain version never runs for it; a chunk shorter
+    than the carried tail, or a zi of the wrong rows, raises."""
+    from rtsdr_tpu_torch.ops import _cuda
+
+    seen = []
+    monkeypatch.setattr(_cuda, "launch",
+                        lambda entry, count_as, *a: seen.append(
+                            (entry, count_as, a[7:])))
+    monkeypatch.setattr(tres, "resample_mul2_segments_ref",
+                        lambda *a, **k: pytest.fail("plain version ran"))
+    h = j_comb(JMODE0)
+    x = torch.zeros(4, 3, 3840).as_subclass(_OnCard)
+    zi = torch.zeros(3, 2, len(h) - 1)
+    y, nz = tres.resample_mul2(x, x, x, h, zi, 19, 80, segments=4,
+                               impl="split")
+    assert tuple(y.shape) == (4, 3, 2, 912) and tuple(nz.shape) == (
+        3, 2, len(h) - 1)
+    assert seen == [("rtsdr_resample_mix", "resample_mix.split",
+                     (12, 4, 3840, 912, len(h), 19, 80, 1, 19.0))]
+    with pytest.raises(ValueError, match="shorter"):
+        short = torch.zeros(4, 3, 80).as_subclass(_OnCard)
+        tres.resample_mul2(short, short, short, h, zi, 19, 80, segments=4)
+    with pytest.raises(ValueError, match="zi"):
+        tres.resample_mul2(x, x, x, h, torch.zeros(4, 3, 2, len(h) - 1),
+                           19, 80, segments=4)
+    assert len(seen) == 1
 
 
 def _segment_rows(rng, c, n_pairs, segments):

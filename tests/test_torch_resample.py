@@ -188,19 +188,6 @@ def test_resample_mul2_rrc_ref_matches_pallas_interpret(rng):
     assert np.array_equal(t[1].numpy(), np.asarray(j[1]))
 
 
-def test_lane_stride_spreads_banks():
-    """The launch parameter the wrapper computes: threads L outputs apart
-    walk L*down/up words apart, which must be near an odd number."""
-    for up, down in ((19, 80), (57, 250), (3, 4), (24, 125)):
-        lane = tres._lane_stride(up, down)
-        assert 1 <= lane <= 8
-        s = lane * down / up
-        assert abs(s - (2 * np.floor(s / 2) + 1)) <= min(
-            abs(k * down / up - (2 * np.floor(k * down / up / 2) + 1))
-            for k in range(1, 9)) + 1e-12
-    assert tres._lane_stride(19, 80) == 5
-
-
 def test_short_block_raises_on_the_kernel_route(monkeypatch):
     from rtsdr_tpu_torch.ops import _cuda
 

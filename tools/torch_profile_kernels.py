@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
-"""The fused-ingest (K1), FIR-bank (K2), PLL (K3) and mixer + resampler +
-RRC (K4) kernels alone, at the shapes the receivers give them, on one GPU.
+"""The fused-ingest (K1), FIR-bank (K2), PLL (K3), mixer + resampler + RRC
+(K4), composed-channelizer (K5) and mixer + resampler (K6) kernels alone,
+at the shapes the receivers give them, on one GPU.
 
     python3 tools/torch_profile_kernels.py [--repo DIR] [--label NAME]
-        [--only K1,K2,K3,K4] [--check] [--host-breakdown] [--out FILE]
+        [--only K1,K2,K3,K4,K5,K6] [--check] [--host-breakdown] [--out FILE]
 
 Imports ``rtsdr_tpu_torch`` from ``--repo`` (default: this checkout), so
 that the same script times another tree's kernels, such as a ``git
 archive`` of a parent commit, through the same wrapper signatures
 (``ingestfir.ingest_fir_*``, ``cuda_fir.fir_bank_carried``,
-``cuda_pll.pll_cuda``, ``cuda_resample.resample_mul2_rrc``).  K1's inputs
-are 16 synthetic stations under +-8 LSB of noise, tiled to the rows, with
-the states their previous block leaves; K4's a band-limited extract and a
-carrier of unit modulus.  Per shape:
+``cuda_pll.pll_cuda``, ``cuda_resample.resample_mul2_rrc``,
+``channelizer.composed_channelize_u8``, ``cuda_resample.resample_mul2``; a
+tree without K6's segmented form runs the time-sharded receiver's former
+route, the halo zi made in stock ops).  K1's inputs are 16 synthetic
+stations under +-8 LSB of noise, tiled to the rows, with the states their
+previous block leaves; K4's and K6's a band-limited extract and a carrier
+of unit modulus; K5's random bytes at K = 16 with no offsets, one, and
+every station offset.  Per shape:
 
   * ``wrapper_ms``: CUDA events around one wrapper call, median of 7;
   * ``burst_ms``: events around a burst of 10 calls, / 10, median of 5;
@@ -34,12 +39,14 @@ With ``--check`` each case is also held against its plain version (K1:
 I/Q 3e-6, fm 5e-6 rad, audio and bank 2e-6 max|ref| plus what the fm
 difference passes on, state 1e-6; K2: 2e-6 max|ref|; K3 over 2 lanes of a
 locked pilot and carrier: NCO 5e-5; K4: rrc and its state 5e-6 max|ref|,
-``new_zi`` bit for bit).
+``new_zi`` bit for bit; K5: 8e-6 max sum|g|, the byte tail equal; K6:
+5e-6 max|ref|, ``new_zi`` bit for bit).
 Prints one JSON line per case and a last line with the card's name and power
 limit; ``--out`` appends the lines to a file too.
 """
 
 import argparse
+import inspect
 import json
 import os
 import statistics
@@ -55,7 +62,7 @@ def main() -> int:
     ap.add_argument("--repo", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument("--label", default="")
-    ap.add_argument("--only", default="K1,K2,K3,K4",
+    ap.add_argument("--only", default="K1,K2,K3,K4,K5,K6",
                     help="comma-separated kernels to time")
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--host-breakdown", action="store_true")
@@ -454,6 +461,105 @@ def main() -> int:
                 {"rrc": 5e-6 * sc, "new_zi": 0.0, "new_rrc_zi": 5e-6 * sc})
         emit(row)
         del ext, ni, nq, zi, rzi
+        torch.cuda.empty_cache()
+    # K5: the composed channelizer at K = 16 (the wideband receiver's
+    # taps), 8 and 1 captures, with no offsets (every station on the shared
+    # prototype), the smoke's one offset (15 + 1) and every station offset
+    # (own taps only); random bytes (the work does not depend on them)
+    from rtsdr_tpu_torch.ops import channelizer
+    wb_k = 16
+    h_proto = channelizer.channelizer_taps(wb_k, 16)
+    one = np.zeros(wb_k)
+    one[4] = 150e3
+    k5_offsets = (("no offsets", None), ("one offset (15 + 1)", one),
+                  ("all offset", np.linspace(-90e3, 90e3, wb_k) + 1e3))
+    for label, offs in (k5_offsets if "K5" in only else ()):
+        g = channelizer.composed_rf_taps(wb_k, h_proto, rf_h, cfg.rf.decim,
+                                         offsets_hz=offs, fs_ch=cfg.rf.fs)
+        for ncap in (8, 1):
+            raw = torch.randint(0, 256, (ncap, wb_k * cfg.block_size),
+                                generator=gen, device=dev, dtype=torch.uint8)
+            zi = torch.randint(0, 256, (ncap, 2 * (g.shape[1] - 1)),
+                               generator=gen, device=dev, dtype=torch.uint8)
+            a = (raw, g, zi, cfg.rf.decim)
+            fn = lambda a=a: channelizer.composed_channelize_u8(*a)
+            row = {"label": args.label, "kernel": "K5", "case": label,
+                   "captures": ncap, "shape": list(raw.shape),
+                   **timings(fn, "composed_kernel", ncap == 1)}
+            if hasattr(channelizer, "composed_plan"):
+                plan = channelizer.composed_plan(g, cfg.rf.decim)
+                row["shared"], row["own"] = len(plan.shared), len(plan.own)
+            if args.check:
+                got = fn()
+                want = channelizer.composed_channelize_u8_ref(*a, block=32)
+                tol = 8e-6 * float(np.abs(g).sum(axis=1).max())
+                e = float((got[0] - want[0]).abs().max())
+                row["errors"] = {"y": e, "new_zi_bytes_differing":
+                                 int((got[1] != want[1]).sum())}
+                row["ok"] = e <= tol and row["errors"][
+                    "new_zi_bytes_differing"] == 0
+            emit(row)
+            del raw, zi
+            torch.cuda.empty_cache()
+
+    # K6: mixers + resampler at the time-sharded receiver's shapes, each
+    # arm: T = 4 stacked chunks (MODE0, MODE1_RDS) and one 15,360-sample
+    # block of 1,024 channels.  A tree whose resample_mul2 has no segments
+    # (the parent) runs the receiver's former route: the halo zi of each
+    # chunk made in stock ops, then the kernel over the stacked rows; both
+    # the kernel's device time and the route's (wrapper_ms / burst_ms)
+    segmented = "segments" in inspect.signature(
+        cuda_resample.resample_mul2).parameters
+    arms = (("pair", "pair"), ("split", "split" if segmented else "auto"))
+    k6_cases = [("T=4 stacked MODE0 (4 x 1024 x 3840)", 4, MODE0, 3840),
+                ("1024 x 15360 (T = 1)", 1, MODE0, 15360),
+                ("T=4 stacked MODE1_RDS (4 x 1024 x 4000)", 4, MODE1_RDS,
+                 4000)]
+    for label, t_sh, cfg_, n in (k6_cases if "K6" in only else []):
+        comb = composed_resampler_taps(cfg_)
+        up, down = cfg_.rds.up, cfg_.rds.down
+        lead = (t_sh, 1024)
+        t = torch.arange(n, device=dev, dtype=torch.float64)
+        ph = 2 * np.pi * 57e3 / cfg_.rf.if_fs * t
+        off = torch.rand((*lead, 1), generator=gen, device=dev,
+                         dtype=torch.float64) * 6
+        ext = (0.3 * torch.cos(ph + off) + 0.01 * torch.randn(
+            (*lead, n), generator=gen, device=dev, dtype=torch.float64)
+               ).float()
+        ni = torch.cos(ph + 2 * off).float()
+        nq = torch.sin(ph + 2 * off).float()
+        zi = cuda_resample.resample_mul2_tail(ext[0], ni[0], nq[0],
+                                              len(comb) - 1, up)
+        for arm, impl in arms:
+            if segmented:
+                fn = (lambda impl=impl: cuda_resample.resample_mul2(
+                    ext, ni, nq, comb, zi, up, down, impl=impl,
+                    segments=t_sh))
+            else:
+                def fn(impl=impl):
+                    tails = cuda_resample.resample_mul2_tail(
+                        ext[:-1], ni[:-1], nq[:-1], len(comb) - 1, up)
+                    halo = torch.cat([zi.unsqueeze(0), tails], 0)
+                    y, z = cuda_resample.resample_mul2(
+                        ext, ni, nq, comb, halo, up, down, impl=impl)
+                    return y, z[-1]
+            row = {"label": args.label, "kernel": "K6", "case": label,
+                   "arm": arm, "segmented": segmented,
+                   "shape": [*lead, n], "up": up, "down": down,
+                   **timings(fn, "resample_mix_kernel", False)}
+            if args.check:
+                got = fn()
+                tails = cuda_resample.resample_mul2_tail(
+                    ext[:-1], ni[:-1], nq[:-1], len(comb) - 1, up)
+                want = cuda_resample.resample_mul2_ref(
+                    ext, ni, nq, comb, torch.cat([zi.unsqueeze(0), tails]),
+                    up, down)
+                sc = float(want[0].abs().max())
+                row["errors"], row["ok"] = errs_of(
+                    ("y", "new_zi"), got, (want[0], want[1][-1]),
+                    {"y": 5e-6 * sc, "new_zi": 0.0})
+            emit(row)
+        del ext, ni, nq, zi
         torch.cuda.empty_cache()
     emit({"label": args.label, "card": card, "repo": args.repo,
           "torch": torch.__version__})

@@ -8,18 +8,21 @@ The port's counterpart of ``tools/profile_resample.py``, which asked two
 layout questions of the TPU kernel: does refetching the taps every grid
 step cost time, and does computing both branches against one filter read
 pay.  On this card the taps sit in shared memory once per block, and the
-second question is asked by K6's two instances:
+second question is asked by K6's two arms:
 
-  split   one thread per (output, branch): two tap reads for two
-          multiply-adds (``impl="auto"``, the receiver's instance);
-  pair    one thread makes the I and Q outputs of one output index from one
-          tap read (``impl="pair"``);
-  plain   the plain PyTorch version (materialized mixer + ``fir_resample``).
+  pair    a thread makes 4 outputs of one phase for both branches: one tap
+          read per 8 multiply-adds (``impl="pair"``);
+  split   a thread makes 8 outputs of one phase for one branch: one tap
+          read per 8 multiply-adds, other rows of the window
+          (``impl="split"``);
+  plain   the plain PyTorch version (materialized mixer + ``fir_resample``;
+          the segmented form's behind the halo zi made in stock ops).
 
-Each runs at MODE0's ↑19/↓80 with the 3,001-tap composed filter, on C rows
-of a full 15,360-sample block and on the T = 4 time-sharded receiver's
-stacked shape (4·C rows of 3,840), with a non-zero carried ``zi``; each is
-checked against the plain version and timed with CUDA events in turns
+Each runs on C rows of a full MODE0 block (15,360 samples, ↑19/↓80, the
+3,001-tap composed filter) and on the T = 4 time-sharded receiver's stacked
+chunks in the segmented form (4 x C rows of 3,840; MODE1_RDS: 4 x C rows
+of 4,000 at ↑57/↓250 with 9,003 taps), with a non-zero carried ``zi``; each
+is checked against the plain version and timed with CUDA events in turns
 (plain, split, pair, pair, split, plain ...), median over ``--reps``.  Each
 timing spans ``--burst`` back-to-back calls and is divided by their number,
 so that the queue runs ahead of the host and the wrapper's host work drops
@@ -30,6 +33,7 @@ limit.  Needs a CUDA device.
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -39,7 +43,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from rtsdr_tpu_torch.config import MODE0  # noqa: E402
+from rtsdr_tpu_torch.config import MODE0, MODE1_RDS  # noqa: E402
 from rtsdr_tpu_torch.ops import cuda_resample  # noqa: E402
 from rtsdr_tpu_torch.pipeline.rds import composed_resampler_taps  # noqa: E402
 
@@ -63,19 +67,26 @@ def main() -> int:
     ).stdout.strip()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    h = composed_resampler_taps(MODE0)
-    up, down = MODE0.rds.up, MODE0.rds.down
-    variants = {
-        "plain": lambda a: cuda_resample.resample_mul2_ref(*a),
-        "split": lambda a: cuda_resample.resample_mul2(*a),
-        "pair": lambda a: cuda_resample.resample_mul2(*a, impl="pair"),
-    }
-    for rows, n in ((args.channels, MODE0.if_len),
-                    (4 * args.channels, MODE0.if_len // 4)):
-        e, ni, nq = (torch.randn(rows, n, generator=gen, device=dev)
+    for cfg, t_sh, n in ((MODE0, None, MODE0.if_len),
+                         (MODE0, 4, MODE0.if_len // 4),
+                         (MODE1_RDS, 4, MODE1_RDS.if_len // 4)):
+        h = composed_resampler_taps(cfg)
+        up, down = cfg.rds.up, cfg.rds.down
+        plain = (cuda_resample.resample_mul2_ref if t_sh is None else
+                 cuda_resample.resample_mul2_segments_ref)
+        variants = {
+            "plain": lambda a: plain(*a),
+            "split": lambda a: cuda_resample.resample_mul2(
+                *a, impl="split", segments=t_sh),
+            "pair": lambda a: cuda_resample.resample_mul2(
+                *a, impl="pair", segments=t_sh),
+        }
+        lead = (args.channels,) if t_sh is None else (t_sh, args.channels)
+        rows = math.prod(lead)
+        e, ni, nq = (torch.randn(*lead, n, generator=gen, device=dev)
                      for _ in range(3))
         zi = cuda_resample.resample_mul2_tail(
-            *(torch.randn(rows, n, generator=gen, device=dev)
+            *(torch.randn(args.channels, n, generator=gen, device=dev)
               for _ in range(3)), len(h) - 1, up)
         a = (e, ni, nq, h, zi, up, down)
         ref = variants["plain"](a)[0]
@@ -95,14 +106,15 @@ def main() -> int:
                 torch.cuda.synchronize()
                 times[name].append(start.elapsed_time(stop) / args.burst)
         m = n * up // down
-        n_bytes = 4 * (3 * rows * n + zi.numel() + rows * 2 * m)
+        n_bytes = 4 * (3 * rows * n + 2 * zi.numel() + rows * 2 * m)
         flop = rows * 2 * m * 2 * -(-len(h) // up) + rows * 2 * n * 2
         bound = max(n_bytes / H100_MEM_BYTES_PER_S,
                     flop / H100_F32_FLOP_PER_S) * 1e3
         for name, fn in variants.items():
             y = fn(a)[0]
             print(json.dumps({
-                "variant": name, "shape": f"3 x f32 ({rows}, {n})",
+                "variant": name, "shape": f"3 x f32 {(*lead, n)}",
+                "segments": t_sh,
                 "up": up, "down": down, "taps": len(h),
                 "ms": statistics.median(times[name]), "burst": args.burst,
                 "ms_all": times[name],
