@@ -97,7 +97,33 @@ git-ignored ``rtsdr_tpu_torch/build``), then
      ``resync``: the encoded PI decoded; ``timeshard_routes`` (not counted)
      — the ``split`` ingest against ``fused`` at T = 2, MODE1 at T = 4
      against the serial MODE1 receiver;
- 10. for each counted window the launch counts, set to 0 just before, must
+ 10. ``checkpoint`` — ``utils/checkpoint.py`` on the card: MODE0 at
+     C = 1,024 (stereo + RDS + frame), the time-sharded receiver at
+     C = 1,024 and T = 4, and the wideband receiver at 16 x 8 each run 4
+     steps, and again 2 steps, ``save_state``, ``load_state`` into a fresh
+     ``init_fn()`` on the card, 2 steps: the last two steps' outputs bit
+     for bit those of the continuous run; the keys those of the JAX
+     package's checkpoint; each counted on its own;
+     ``stage_timings`` — ``utils/profiling.py`` at C = 1,024, one line per
+     stage with the card's name and power limit; ``trace`` — one MODE0 step
+     at C = 1,024 under ``utils/trace.py``, whose Chrome trace must show the
+     kernels of K1-K4 as device events;
+ 11. what had never run on the card: ``batch_runner_1024`` —
+     ``BatchRunner`` over 1,024 capture files, 3 blocks, each station's
+     audio and frame outputs equal to its row of the batched receiver
+     (counted); ``wideband_pipe`` — 4 blocks of the wideband capture
+     through ``cli 0 --wideband 16`` from a file and from a pipe, the same
+     wav bytes; ``wideband_other_k`` — the wideband receiver at K = 8 and
+     K = 32 over 3 blocks of captures with 2 and 3 stations: each station's
+     tones in its own channel; each other slot's reading of a live
+     station's tone under 0.15 and within ``TOL_STRAY`` of the port's
+     plain path's (float64, CPU) on the same capture (counted);
+ 12. ``campaign`` — ``tools/torch_decode_campaign.py`` on the card at 12
+     blocks: clean and 15 dB SNR at CLI defaults (groups >= transmitted
+     - 2), +200 Hz pilot detune at CLI defaults (<= 1 group) and with the
+     robust clock (>= 3), the thresholds of
+     ``tests/test_torch_golden_campaign.py`` (counted);
+ 13. for each counted window the launch counts, set to 0 just before, must
      equal steps x launches per step.
 
 Every line printed is one JSON object, except the line with the card's name
@@ -198,6 +224,44 @@ MODE1_PI, MODE1_PS = 0x1B2C, "MODE ONE"
 # each of ~1,800 windows matches one of 5 offset words by chance with
 # probability 5/1024: ~9 false positives expected)
 STATION_PI, STATION_PS = 0x3A5C, "H100 FM "
+
+# the auxiliary modules' phases (checkpoint, stage table, trace, the
+# receivers never run on the card before, the decode campaign)
+N_CKPT_STEPS = 2              # steps before and after the checkpoint
+CKPT_TS_SHARDS = 4
+N_RUNNER_1024_BLOCKS = 3
+N_PIPE_BLOCKS = 4
+WB_OTHER_K = {8: {1: {}, 5: dict(mono_hz=700.0, stereo_hz=1.7e3)},
+              32: {3: {}, 17: dict(mono_hz=700.0, stereo_hz=1.7e3),
+                   30: dict(mono_hz=1500.0, stereo_hz=3.1e3)}}
+N_WB_OTHER_BLOCKS = 3
+# an other slot's reading of a live station's tone against the port's plain
+# path (float64, on the CPU) on the same capture: with two or three stations
+# in the band their quantization products FM-capture an empty slot's
+# discriminator, which reads them at ~0.1 and amplifies rounding
+TOL_STRAY = 0.02
+N_CAMPAIGN_BLOCKS = 12
+# the checkpoint keys of a MODE0 receiver state with RDS and the frame
+# layer: those of rtsdr_tpu.utils.checkpoint (tests/test_torch_checkpoint.py
+# holds the port's and the JAX package's keys to this list)
+CHECKPOINT_KEYS = [
+    "frontend/zi_i", "frontend/zi_q", "frontend/prev_i", "frontend/prev_q",
+    "audio/mono_zi", "audio/pilot_zi", "audio/chan_zi", "audio/stereo_zi",
+    *(f"audio/pll/{f}" for f in ("integrator", "phase_est", "fb_i", "fb_q",
+                                 "nco_i", "nco_q", "theta")),
+    "rds/extract_zi", "rds/squared_zi",
+    *(f"rds/pll/{f}" for f in ("integrator", "phase_est", "fb_i", "fb_q",
+                               "nco_i", "nco_q", "theta")),
+    "rds/resamp_zi", "rds/rrc_zi",
+    *(f"frame/{f}" for f in ("offset", "start_pos", "lonely_bit", "prebit",
+                             "first_block", "carry", "carry_len", "base_pos",
+                             "last_position", "bad_count", "offset_frac",
+                             "derot_phase")),
+]
+# the CUDA kernels of K1-K4 (their __global__ names), which a trace of one
+# MODE0 step must show as device events
+TRACE_KERNELS = {"K1": "ingest_kernel", "K2": "fir_bank_kernel",
+                 "K3": "pll_kernel", "K4": "resample_rrc_kernel"}
 MIN_STREAM_SYNCS = 40
 MAX_STREAM_FALSE_POSITIVES = 25
 
@@ -220,6 +284,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
+    # the port stands alone: JAX and the JAX package are unimportable in
+    # this process, so that a path which reaches either fails the run
+    for name in ("jax", "jaxlib", "rtsdr_tpu"):
+        if name not in sys.modules:
+            sys.modules[name] = None
 
     import numpy as np
     import torch.nn.functional as F
@@ -248,6 +317,10 @@ def main() -> int:
     from rtsdr_tpu_torch.pipeline.receiver import Receiver
     from rtsdr_tpu_torch.pipeline.scan import classify, make_band_scanner
     from rtsdr_tpu_torch.pipeline.wideband import make_wideband_receiver
+    from rtsdr_tpu_torch.utils.checkpoint import (
+        load_state, save_state, state_keys)
+    from rtsdr_tpu_torch.utils.profiling import stage_timings
+    from rtsdr_tpu_torch.utils.trace import trace
     from rtsdr_tpu_torch.utils.signals import (
         encode_rds_blocks, fm_multiplex_iq, ps_station_words, rds_baseband,
         wideband_capture_iq)
@@ -2248,6 +2321,374 @@ def main() -> int:
         raise SystemExit(f"chip_smoke: a time-sharded route is wrong: "
                          f"{rep_routes}")
     del fused_outs, split_outs, m1a_ser, m1a_ts, m1a_blocks
+
+    # ===== 12. checkpoint / resume on the card: each receiver's run of
+    # 2 x N_CKPT_STEPS steps against N_CKPT_STEPS steps, save_state,
+    # load_state into a fresh init_fn() on the card, N_CKPT_STEPS more —
+    # every output bit for bit; each counted on its own
+    def resume_check(label, init, step, blocks, per_step):
+        """Continuous run against the resumed one; returns the report."""
+        t0 = time.perf_counter()
+        _cuda.reset_launch_counts()
+        st, cont = init(), []
+        for raw in blocks:
+            st, out = step(st, raw)
+            cont.append(out)
+        st = init()
+        for raw in blocks[:N_CKPT_STEPS]:
+            st, _ = step(st, raw)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "state.npz")
+            t_io = time.perf_counter()
+            save_state(path, st)
+            keys = state_keys(st)
+            st = load_state(path, init())
+            io_s = time.perf_counter() - t_io
+            file_bytes = os.path.getsize(path)
+        resumed = []
+        for raw in blocks[N_CKPT_STEPS:]:
+            st, out = step(st, raw)
+            resumed.append(out)
+        counts = expect_counts(f"checkpoint {label}", 4 * N_CKPT_STEPS,
+                               per_step)
+        same = all(trees_equal(a, b) for a, b in
+                   zip(cont[N_CKPT_STEPS:], resumed))
+        on_card = all(leaf.is_cuda for leaf in _leaf_list(st))
+        rep = {"steps_before": N_CKPT_STEPS, "steps_after": N_CKPT_STEPS,
+               "outputs_bit_identical": same, "state_on_card": on_card,
+               "keys": len(keys), "file_bytes": file_bytes,
+               "save_load_seconds": io_s, "launches": counts,
+               "seconds": time.perf_counter() - t0}
+        if not same or not on_card:
+            raise SystemExit(f"chip_smoke: checkpoint {label}: the resumed "
+                             f"run differs from the continuous one: {rep}")
+        return rep, keys
+
+    def _leaf_list(tree):
+        if tree is None:
+            return []
+        if isinstance(tree, torch.Tensor):
+            return [tree]
+        return [x for v in tree for x in _leaf_list(v)]
+
+    t_ck = time.perf_counter()
+    ck_blocks = [batch_block(b) for b in range(2 * N_CKPT_STEPS)]
+    rx_ck = Receiver(cfg, (N_BATCH_CHANNELS,))
+    rep_ck_mode0, ck_keys = resume_check(
+        f"MODE0 C = {N_BATCH_CHANNELS}", rx_ck.init, rx_ck.step, ck_blocks,
+        rds_per_step)
+    rep_ck_mode0["channels"] = N_BATCH_CHANNELS
+    if ck_keys != CHECKPOINT_KEYS:
+        raise SystemExit(f"chip_smoke: checkpoint keys {ck_keys} are not "
+                         f"the JAX package's {CHECKPOINT_KEYS}")
+    ts_ck = make_time_sharded_receiver(cfg, make_mesh(1, CKPT_TS_SHARDS),
+                                       N_BATCH_CHANNELS)
+    rep_ck_ts, ts_keys = resume_check(
+        f"time-sharded T = {CKPT_TS_SHARDS}", *ts_ck, ck_blocks,
+        ts_per_step(CKPT_TS_SHARDS))
+    rep_ck_ts.update(channels=N_BATCH_CHANNELS, time_shards=CKPT_TS_SHARDS,
+                     keys_equal_serial=ts_keys == CHECKPOINT_KEYS)
+    if ts_keys != CHECKPOINT_KEYS:
+        raise SystemExit("chip_smoke: the time-sharded state's checkpoint "
+                         f"keys are not the serial ones: {ts_keys}")
+    del rx_ck, ts_ck, ck_blocks
+    # the wideband phase's captures again (its blocks were freed): capture
+    # 0 the band itself, captures 1.. under their own +-2 LSB of noise
+    wb_ck_blocks = []
+    for b in range(2 * N_CKPT_STEPS):
+        rows = torch.as_tensor(wb_host[b]).to(dev).expand(
+            WB_CAPTURES, -1).to(torch.int16)
+        noise = torch.randint(-2, 3, rows.shape, generator=gen, device=dev,
+                              dtype=torch.int16)
+        noise[0] = 0
+        wb_ck_blocks.append((rows + noise).clamp_(0, 255).to(torch.uint8))
+    del rows, noise
+    wb_ck = make_wideband_receiver(cfg, WB_K, (WB_CAPTURES,), **wb_kw)
+    rep_ck_wb, _ = resume_check(
+        f"wideband {WB_K} x {WB_CAPTURES}", *wb_ck, wb_ck_blocks,
+        {"channelizer.composed": 1, "fir_bank.none": 2, "fir_bank.square": 1,
+         "fir_bank.mul2": 1, "pll": 1, "resample_rrc": 1})
+    rep_ck_wb.update(slots=WB_K, captures=WB_CAPTURES)
+    del wb_ck, wb_ck_blocks
+    torch.cuda.empty_cache()
+    emit({"checkpoint": {"mode0": rep_ck_mode0, "timeshard": rep_ck_ts,
+                         "wideband": rep_ck_wb, "keys": CHECKPOINT_KEYS,
+                         "seconds": time.perf_counter() - t_ck},
+          "card": card})
+
+    # ===== 13. the per-stage table (utils/profiling.py) at C = 1,024
+    t_st = time.perf_counter()
+    st_recs = stage_timings(cfg, N_BATCH_CHANNELS, device="cuda")
+    for rec in st_recs:
+        rec["card"] = card
+        emit({"stage_timings": rec})
+    if (len(st_recs) != 8 or not all(
+            np.isfinite(r["sec_per_block_batch"]) for r in st_recs)):
+        raise SystemExit(f"chip_smoke: stage_timings wrong: {st_recs}")
+    emit({"stage_timings_seconds": time.perf_counter() - t_st, "card": card})
+    torch.cuda.empty_cache()
+
+    # ===== 14. one MODE0 step under utils/trace.py: the Chrome trace holds
+    # K1-K4 as device events
+    t_tr = time.perf_counter()
+    rx_tr = Receiver(cfg, (N_BATCH_CHANNELS,))
+    tr_raw = batch_block(0)
+    st_tr, _ = rx_tr.step(rx_tr.init(), tr_raw)            # warm-up
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp):
+            rx_tr.step(st_tr, batch_block(1))
+        files = [f for f in os.listdir(tmp) if f.endswith(".json")]
+        with open(os.path.join(tmp, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+    device_events = [e for e in events if e.get("cat") == "kernel"]
+    seen = {k: sum(1 for e in device_events if name in e.get("name", ""))
+            for k, name in TRACE_KERNELS.items()}
+    rep_tr = {"channels": N_BATCH_CHANNELS, "trace_files": len(files),
+              "events": len(events), "device_kernel_events":
+              len(device_events), "kernel_events_by_kernel": seen,
+              "kernel_names": TRACE_KERNELS,
+              "seconds": time.perf_counter() - t_tr}
+    emit({"trace": rep_tr, "card": card})
+    if len(files) != 1 or not all(seen.values()):
+        raise SystemExit(f"chip_smoke: the trace does not show K1-K4 on "
+                         f"the card: {rep_tr}")
+    del rx_tr, st_tr
+
+    # ===== 15. what had never run on the card: BatchRunner at 1,024
+    # stations (one capture file per station), a wideband capture from a
+    # pipe through the CLI, the wideband receiver at K = 8 and 32
+    import resource
+
+    t_br = time.perf_counter()
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    want_fds = N_BATCH_CHANNELS + 256
+    if soft != resource.RLIM_INFINITY and soft < want_fds:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (
+            want_fds if hard == resource.RLIM_INFINITY
+            else min(want_fds, hard), hard))
+    br_blocks = [batch_block(b) for b in range(N_RUNNER_1024_BLOCKS)]
+    br_host = torch.stack(br_blocks, dim=1).cpu().numpy()     # (C, b, B)
+    got = [[] for _ in range(N_BATCH_CHANNELS)]
+    frames = [[] for _ in range(N_BATCH_CHANNELS)]
+    with tempfile.TemporaryDirectory() as tmp:
+        files = []
+        try:
+            for c in range(N_BATCH_CHANNELS):
+                path = os.path.join(tmp, f"station{c}.iq")
+                br_host[c].tofile(path)
+                files.append(open(path, "rb"))
+            with BatchRunner(cfg, [f.fileno() for f in files]) as runner:
+                # ============ the 1,024-station BatchRunner: counts from 0
+                _cuda.reset_launch_counts()
+                t0 = time.perf_counter()
+                br_stats = runner.run(
+                    emit=lambda c, left, right: got[c].append(
+                        (left.copy(), right.copy())),
+                    rds_hook=lambda c, fo: frames[c].append(
+                        type(fo)(*(np.array(x) for x in fo))))
+                br_s = time.perf_counter() - t0
+                br_counts = expect_counts("BatchRunner 1,024",
+                                          N_RUNNER_1024_BLOCKS, rds_per_step)
+                # ============ end of the 1,024-station BatchRunner
+        finally:
+            for f in files:
+                f.close()
+    rx_br = Receiver(cfg, (N_BATCH_CHANNELS,))
+    st_br, br_equal, frames_equal = rx_br.init(), True, True
+    for b, raw in enumerate(br_blocks):
+        st_br, out = rx_br.step(st_br, raw)
+        left, right = out.left.cpu().numpy(), out.right.cpu().numpy()
+        fo = [x.cpu().numpy() for x in out.rds]
+        for c in range(N_BATCH_CHANNELS):
+            br_equal = (br_equal and np.array_equal(got[c][b][0], left[c])
+                        and np.array_equal(got[c][b][1], right[c]))
+            frames_equal = frames_equal and all(
+                np.array_equal(x, y[c]) for x, y in zip(frames[c][b], fo))
+    rep_br = {"stations": N_BATCH_CHANNELS, "blocks": N_RUNNER_1024_BLOCKS,
+              "stats": br_stats, "every_station_equals_its_row":
+              br_equal, "frames_equal_rows": frames_equal,
+              "syncs_all_stations": int(sum(
+                  fo.is_sync.sum() for fr in frames for fo in fr)),
+              "ms_per_block": br_s * 1e3 / N_RUNNER_1024_BLOCKS,
+              "launches": br_counts, "rlimit_nofile": resource.getrlimit(
+                  resource.RLIMIT_NOFILE)[0],
+              "seconds": time.perf_counter() - t_br}
+    emit({"batch_runner_1024": rep_br, "card": card})
+    if (br_stats != {"blocks": N_RUNNER_1024_BLOCKS,
+                     "stations": N_BATCH_CHANNELS}
+            or not br_equal or not frames_equal):
+        raise SystemExit(f"chip_smoke: BatchRunner at {N_BATCH_CHANNELS} "
+                         f"stations wrong: {rep_br}")
+    del rx_br, st_br, br_blocks, br_host, got, frames
+    torch.cuda.empty_cache()
+
+    # a wideband capture through `cli 0 --wideband 16` from a file and
+    # from a pipe (written in 64 KiB pieces): the same wavs
+    t_pp = time.perf_counter()
+    wb_flags = ("--wideband", str(WB_K), "--no-rds")
+
+    def wav_bytes(d):
+        out = {}
+        for c in range(WB_K):
+            with wave_mod.open(os.path.join(d, f"channel{c}.wav"), "rb") as wv:
+                out[c] = wv.readframes(wv.getnframes())
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d_file, d_pipe = os.path.join(tmp, "file"), os.path.join(tmp, "pipe")
+        os.makedirs(d_file)
+        os.makedirs(d_pipe)
+        iq_path = os.path.join(tmp, "band.iq")
+        wb_host[:N_PIPE_BLOCKS].tofile(iq_path)
+        cli_file = run_cli(iq_path, *wb_flags, cwd=d_file)
+        env = dict(os.environ)
+        env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+        payload = wb_host[:N_PIPE_BLOCKS].tobytes()
+        err_path = os.path.join(tmp, "pipe.err")
+        with open(err_path, "wb") as err_f:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "rtsdr_tpu_torch.cli", "0",
+                 *wb_flags], stdin=subprocess.PIPE,
+                stdout=subprocess.DEVNULL, stderr=err_f, cwd=d_pipe, env=env)
+            try:
+                for i in range(0, len(payload), 1 << 16):
+                    proc.stdin.write(payload[i:i + (1 << 16)])
+            finally:
+                proc.stdin.close()
+            pipe_rc = proc.wait(timeout=600)
+        with open(err_path, "rb") as f:
+            pipe_err = f.read()
+        same_wavs = (cli_file.returncode == 0 and pipe_rc == 0
+                     and wav_bytes(d_file) == wav_bytes(d_pipe))
+        wav_len = (len(wav_bytes(d_file)[0])
+                   if cli_file.returncode == 0 else 0)
+    rep_pipe = {"slots": WB_K, "blocks": N_PIPE_BLOCKS,
+                "file_returncode": cli_file.returncode,
+                "pipe_returncode": pipe_rc, "wav_bytes_identical": same_wavs,
+                "wav_bytes_per_channel": wav_len,
+                "expected_wav_bytes_per_channel": N_PIPE_BLOCKS * n_audio * 4,
+                "pipe_stderr_tail": pipe_err.decode().splitlines()[-2:],
+                "seconds": time.perf_counter() - t_pp}
+    emit({"wideband_pipe": rep_pipe, "card": card})
+    if not same_wavs or wav_len != N_PIPE_BLOCKS * n_audio * 4:
+        raise SystemExit(f"chip_smoke: the wideband capture from a pipe "
+                         f"differs from the file's: {rep_pipe} "
+                         f"{cli_file.stderr.decode()[-1000:]}")
+
+    # the wideband receiver at K = 8 and 32: each station's tones in its
+    # own channel; in every other slot a live station's tone reads what the
+    # plain path reads there, and stays under the K = 16 phase's limit
+    def stray_tones(left_k, stations):
+        return {c: max(tone(left_k[c], kw.get("mono_hz", 1.1e3))
+                       for kw in stations.values())
+                for c in range(left_k.shape[0]) if c not in stations}
+
+    wb_other = {}
+    for k_, stations in WB_OTHER_K.items():
+        t_k = time.perf_counter()
+        cap = wideband_capture_iq(N_WB_OTHER_BLOCKS * cfg.iq_len, k_,
+                                  stations, cfg.rf.fs
+                                  ).reshape(N_WB_OTHER_BLOCKS, -1)
+        syn_s = time.perf_counter() - t_k
+        init_k, step_k = make_wideband_receiver(cfg, k_)
+        cap_dev = torch.as_tensor(cap).to(dev)
+        step_k(init_k(), cap_dev[0])                        # warm-up
+        torch.cuda.synchronize()
+        # ==================== the wideband K path: counts from 0 here
+        _cuda.reset_launch_counts()
+        st_k, ls, rs = init_k(), [], []
+        for b in range(N_WB_OTHER_BLOCKS):
+            st_k, out = step_k(st_k, cap_dev[b])
+            ls.append(out.left.cpu().numpy())
+            rs.append(out.right.cpu().numpy())
+        k_counts = expect_counts(
+            f"wideband K = {k_}", N_WB_OTHER_BLOCKS,
+            {"channelizer.composed": 1, "fir_bank.none": 2,
+             "fir_bank.square": 1, "fir_bank.mul2": 1, "pll": 1,
+             "resample_rrc": 1})
+        # ============================== end of the wideband K path
+        left = np.concatenate(ls, axis=-1)[:, n_audio:]
+        right = np.concatenate(rs, axis=-1)[:, n_audio:]
+        tones_k, ok_k = {}, bool(np.isfinite(left).all())
+        for slot, kw in stations.items():
+            got_t = {"mono_in_L+R": tone(left[slot] + right[slot],
+                                         kw.get("mono_hz", 1.1e3)),
+                     "stereo_in_L-R": tone(left[slot] - right[slot],
+                                           kw.get("stereo_hz", 2.3e3))}
+            want_t = {"mono_in_L+R": 0.88, "stereo_in_L-R": 0.83}
+            tones_k[slot] = got_t
+            ok_k = ok_k and all(abs(got_t[n] - want_t[n]) < 0.1 * want_t[n]
+                                for n in got_t)
+        t_plain = time.perf_counter()
+        init_p, step_p = make_wideband_receiver(cfg, k_, dtype=torch.float64,
+                                                device="cpu")
+        st_p, ls_p = init_p(), []
+        for b in range(N_WB_OTHER_BLOCKS):
+            st_p, out_p = step_p(st_p, torch.as_tensor(cap[b]))
+            ls_p.append(out_p.left.numpy())
+        plain_s = time.perf_counter() - t_plain
+        strays = stray_tones(left, stations)
+        strays_plain = stray_tones(
+            np.concatenate(ls_p, axis=-1)[:, n_audio:], stations)
+        stray_k = max(strays.values())
+        stray_vs_plain = max(abs(strays[c] - strays_plain[c])
+                             for c in strays)
+        wb_other[k_] = {"slots": k_, "blocks": N_WB_OTHER_BLOCKS,
+                        "live_slots": sorted(stations),
+                        "tone_amplitudes": tones_k,
+                        "expected": {"mono_in_L+R": 0.88,
+                                     "stereo_in_L-R": 0.83,
+                                     "within": "10%"},
+                        "max_live_tone_in_an_other_slot_left": stray_k,
+                        "other_slot_limit": 0.15,
+                        "live_tone_by_other_slot": strays,
+                        "live_tone_by_other_slot_plain_f64": strays_plain,
+                        "max_abs_err_vs_plain": stray_vs_plain,
+                        "tolerance_vs_plain": TOL_STRAY,
+                        "launches": k_counts, "synthesis_seconds": syn_s,
+                        "plain_cpu_seconds": plain_s,
+                        "seconds": time.perf_counter() - t_k}
+        if not ok_k or stray_k >= 0.15 or not stray_vs_plain <= TOL_STRAY:
+            raise SystemExit(f"chip_smoke: wideband K = {k_} wrong: "
+                             f"{wb_other[k_]}")
+        del init_k, step_k, st_k, cap_dev
+    emit({"wideband_other_k": wb_other, "card": card})
+    torch.cuda.empty_cache()
+
+    # ===== 16. the decode campaign (tools/torch_decode_campaign.py) on the
+    # card: clean and 15 dB SNR at CLI defaults, +200 Hz pilot detune at
+    # CLI defaults and with the robust clock; the CPU tests' thresholds
+    # (tests/test_torch_golden_campaign.py)
+    t_cp = time.perf_counter()
+    sys.path.insert(0, os.path.join(here, "tools"))
+    import torch_decode_campaign as dcamp
+
+    cp_names = ["clean", "snr15", "detune+200"]
+    cp_streams = {n: dcamp.synth_impaired(N_CAMPAIGN_BLOCKS,
+                                          dcamp.SCENARIOS[n])
+                  for n in cp_names}
+    cp_syn_s = time.perf_counter() - t_cp
+    _cuda.reset_launch_counts()
+    cp_rows = dcamp.campaign(cp_names, N_CAMPAIGN_BLOCKS, device="cuda",
+                             streams=cp_streams)
+    cp_rows += dcamp.campaign(["detune+200"], N_CAMPAIGN_BLOCKS,
+                              clock="gardner", derotate=True, device="cuda",
+                              streams=cp_streams)
+    cp_counts = expect_counts("campaign", 2 * N_CAMPAIGN_BLOCKS, rds_per_step)
+    cp = {r["scenario"]: r for r in cp_rows}
+    cp_ok = (all(cp[n]["rx_groups"] >= cp[n]["tx_groups"] - 2
+                 for n in ("clean", "snr15"))
+             and cp["detune+200"]["rx_groups"] <= 1
+             and cp["detune+200/robust"]["rx_groups"] >= 3)
+    emit({"campaign": {"rows": cp_rows, "blocks": N_CAMPAIGN_BLOCKS,
+                       "thresholds": "clean, snr15: groups >= tx - 2; "
+                       "detune+200: <= 1 at CLI defaults, >= 3 robust",
+                       "synthesis_seconds": cp_syn_s, "launches": cp_counts,
+                       "seconds": time.perf_counter() - t_cp},
+          "card": card})
+    if not cp_ok:
+        raise SystemExit(f"chip_smoke: the decode campaign is off: {cp_rows}")
 
     # -------------------------------------------------- the kernels line
     # name -> (source, the TPU kernel it replaces, launches in the window

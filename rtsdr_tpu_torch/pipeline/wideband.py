@@ -51,6 +51,12 @@ class WidebandState(NamedTuple):
     #                            channel_sharding: one per shard)
     mix_phase: torch.Tensor | None = None  # (K,) carried residual-NCO phase
 
+    def shard_axis(self, field: str) -> int:
+        """The row axis of the shard tuple in ``field`` (only ``rx`` holds
+        one): each shard's stations lie on the axis after the batch dims,
+        ``chan_zi``'s (``(*batch, tail)``)."""
+        return self.chan_zi.dim() - 1
+
 
 def make_wideband_receiver(
     cfg: ReceiverConfig,

@@ -1,7 +1,8 @@
 """Test-signal generators (reference src/genfunc.cpp:13-41, used for kernel
 bring-up in the labs) plus an FM multiplex synthesizer for end-to-end
 self-test without recorded captures (own copy of
-``rtsdr_tpu/utils/signals.py``), an RDS encoder + pulse shaper so the
+``rtsdr_tpu/utils/signals.py``), the same station under a real capture's
+impairments (clock error, pilot detune and phase noise), an RDS encoder + pulse shaper so the
 synthetic station can carry known groups, and a wideband-capture
 synthesizer (K such stations side by side in one capture at K x the RF
 rate) for the channelizer, the wideband receiver and the band scanner."""
@@ -80,6 +81,58 @@ def fm_multiplex_iq(n_pairs: int, rf_fs: float = 2.4e6, **station
     iq = np.empty(2 * n_pairs)
     iq[0::2] = np.cos(phase)
     iq[1::2] = np.sin(phase)
+    return np.clip(np.round(iq * 100.0 + 128.0), 0, 255).astype(np.uint8)
+
+
+def synth_multiplex_iq(n_samples: int, rf_fs: float = 2.4e6,
+                       mono_hz: float = 1.1e3, stereo_hz: float = 2.3e3,
+                       pilot_amp: float = 0.1, mono_amp: float = 0.45,
+                       stereo_amp: float = 0.45, rds_wave=None,
+                       rds_amp: float = 0.25, deviation: float = 75e3,
+                       pilot_phase: float = 0.0, quantize: bool = True,
+                       rng=None, pilot_hz: float = 19e3,
+                       pilot_drift_hz_per_s: float = 0.0,
+                       phase_noise_std: float = 0.0,
+                       carrier_offset_hz: float = 0.0,
+                       ppm: float = 0.0) -> np.ndarray:
+    """Interleaved IQ of a synthetic FM stereo station under the
+    impairments of a real capture: the same stream, value for value, as
+    the multiplex synthesizer of ``tests/oracles.py`` (uint8, or float64
+    in [-1, 1] without ``quantize``).
+
+    ``pilot_hz`` detunes the pilot (the 38 and 57 kHz carriers stay
+    coherent with it); ``pilot_drift_hz_per_s`` drifts it linearly;
+    ``phase_noise_std`` adds a per-sample random-walk phase (radians,
+    drawn from ``rng``) to the pilot and its harmonics;
+    ``carrier_offset_hz`` detunes the RF carrier; ``ppm`` is a receiver
+    sample-clock error, which scales the whole station.
+    """
+    clock = 1.0 + ppm * 1e-6
+    t = np.arange(n_samples) / rf_fs * clock
+    pilot_arg = (2 * np.pi * (pilot_hz * t
+                              + 0.5 * pilot_drift_hz_per_s * t * t)
+                 + pilot_phase)
+    if phase_noise_std:
+        if rng is None:
+            raise ValueError("phase_noise_std needs rng")
+        pilot_arg = pilot_arg + np.cumsum(
+            phase_noise_std * rng.standard_normal(n_samples))
+    m = (mono_amp * np.sin(2 * np.pi * mono_hz * t)
+         + pilot_amp * np.cos(pilot_arg)
+         + stereo_amp * np.sin(2 * np.pi * stereo_hz * t) * np.cos(2 * pilot_arg))
+    if rds_wave is not None:
+        t57 = np.arange(len(rds_wave)) / 57e3
+        rds_rf = np.interp(t, t57, rds_wave, left=0.0, right=0.0)
+        m = m + rds_amp * rds_rf * np.cos(3 * pilot_arg)
+    phase = 2 * np.pi * deviation * np.cumsum(m) / rf_fs
+    if carrier_offset_hz:
+        phase = phase + (2 * np.pi * carrier_offset_hz
+                         * np.arange(n_samples) / rf_fs)
+    iq = np.empty(2 * n_samples)
+    iq[0::2] = np.cos(phase)
+    iq[1::2] = np.sin(phase)
+    if not quantize:
+        return iq
     return np.clip(np.round(iq * 100.0 + 128.0), 0, 255).astype(np.uint8)
 
 
