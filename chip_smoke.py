@@ -22,7 +22,11 @@ git-ignored ``rtsdr_tpu_torch/build``), then
      at T = 1 (1,024 x 15,360) and T = 4 (4 x 1,024 stacked rows of 3,840;
      MODE1_RDS: 4 x 1,024 x 4,000 at x57/250), in its segmented form (each
      arm) and as rows behind the halo zi made in stock ops, and of the
-     ingest kernel's iq entry in its segmented form) and holds the result
+     ingest kernel's iq entry in its segmented form; the spread route's
+     calls at T = 4, C = 1,024 on shard 1: of both behind shard 0's halo as
+     zi, of the FIR bank at each of its (1,024, 3,840) shapes, and of the
+     PLL's loop pair from the handed-over state, ``exact`` and ``stale``)
+     and holds the result
      against its plain PyTorch version on the same inputs, within the
      stated tolerance; times the kernel (CUDA events, median),
      the plain version, and for the FIR bank and the ingest kernel's iq
@@ -75,8 +79,8 @@ git-ignored ``rtsdr_tpu_torch/build``), then
      (identical bytes, tones right), then MODE1_RDS: a stream at C = 1 that
      must decode its PI / PS, and 1024 channels with row 0 equal to its
      C = 1 twin; each counted on its own;
-  9. ``timeshard`` — ``make_time_sharded_receiver(MODE0, make_mesh(1, T),
-     C)``, stereo + RDS + frame, counted on its own: C = 1 with the
+  9. ``timeshard`` — ``make_time_sharded_receiver(MODE0,
+     make_mesh(1, T, devices=[cuda:0]), C)`` (the stacked route), stereo + RDS + frame, counted on its own: C = 1 with the
      ``exact`` handoff at T = 1, 2, 4, 8 (6 blocks of the RDS station;
      audio and frame outputs against the serial receiver's on the card),
      ``stale`` and ``iterate`` at T = 4 (left-channel SNR against the serial
@@ -93,6 +97,18 @@ git-ignored ``rtsdr_tpu_torch/build``), then
      twice what the witness parts by; T = 2 against T = 1 in every row at
      the exact tolerance); ms per block of each beside the serial
      receiver's;
+     ``timeshard_spread`` — the spread route, each time shard on its own
+     CUDA stream over a mesh that names this card T times
+     (``make_mesh(1, T, devices=[cuda:0] * T)``), counted on its own: C = 1
+     ``exact`` at T = 2 and 4 over 8 blocks with ``resync`` (against the
+     serial receiver at the exact tolerances, and against the stacked
+     route from this run: audio bit for bit, the RDS path at the exact
+     tolerances), C = 1,024 at T = 4 ``exact`` (the C = 1,024 limits
+     above) and ``stale`` (SNR above 38 dB), the ``exact`` run once more
+     with ``torch.cuda._sleep`` queued on the maker's stream before every
+     hand-over (outputs bit for bit the undelayed run's), MODE1_RDS at
+     T = 4 over 8 blocks (PI decoded); ms per block beside the stacked
+     route's, launches per step, ``distinct_devices: 1``;
      ``timeshard_mode1_rds`` — MODE1_RDS at T = 4 over 16 blocks with
      ``resync``: the encoded PI decoded; ``timeshard_routes`` (not counted)
      — the ``split`` ingest against ``fused`` at T = 2, MODE1 at T = 4
@@ -189,6 +205,12 @@ TS_BATCH_T = 2                # exact handoff at C = 1024
 N_TS_BATCH_STEPS = 4
 N_TS_M1_BLOCKS = 16
 TS_SNR_FLOOR_DB = {"stale": 38.0, "iterate": 60.0}   # tests/test_timeshard.py
+# the spread route: one stream per time shard on the one card
+SPREAD_SHARDS = (2, 4)        # exact handoff at C = 1, resync on
+N_SPREAD_BLOCKS = 8
+SPREAD_BATCH_T = 4            # C = 1,024 (exact, stale), MODE1_RDS
+N_SPREAD_M1_BLOCKS = 8
+SPREAD_SLEEP_CYCLES = 1_000_000  # x (T - t) on shard t before a hand-over
 N_CHANNELS_STEPS = 2
 TOL_RESAMP_REL = 5e-6  # x max|ref|: float32 sums of 158 (x57/250: 158) taps
 #                        and of the dense zi terms, FMA vs multiply-then-add
@@ -317,6 +339,7 @@ def main() -> int:
     from rtsdr_tpu_torch.pipeline.receiver import Receiver
     from rtsdr_tpu_torch.pipeline.scan import classify, make_band_scanner
     from rtsdr_tpu_torch.pipeline.wideband import make_wideband_receiver
+    from rtsdr_tpu_torch.utils import shards as shards_mod
     from rtsdr_tpu_torch.utils.checkpoint import (
         load_state, save_state, state_keys)
     from rtsdr_tpu_torch.utils.profiling import stage_timings
@@ -1084,31 +1107,40 @@ def main() -> int:
 
     replayed = set()
 
-    def replay(seen, gate=None, **extra):
+    def pll_label(x):
+        x0 = x[0] if isinstance(x, tuple) else x
+        label = "(" + ", ".join(map(str, x0.shape[:-1])) + ", N)"
+        return f"{len(x)} parts of {label}" if isinstance(x, tuple) else label
+
+    def replay(seen, gate=None, done=replayed, pick=0, **extra):
         """Each distinct FIR-bank, PLL and resampler call among ``seen``
-        once more on the kernel and on its plain version."""
+        once more on the kernel and on its plain version: the ``pick``-th
+        call of each kind (the spread route makes one per time shard)."""
+        kinds = {}
         for a in seen.get("fir_bank_carried", []):
-            key = ("fir_bank", a["pre"], len(a["h_list"]), a["stride"],
-                   tuple(a["x"].shape))
-            if key not in replayed:
-                replayed.add(key)
+            kinds.setdefault(("fir_bank", a["pre"], len(a["h_list"]),
+                              a["stride"], tuple(a["x"].shape)), []).append(a)
+        for a in seen.get("pll_cuda", []):
+            x = a["x"]
+            kinds.setdefault(
+                ("pll", pll_label(x),
+                 (x[0] if isinstance(x, tuple) else x).shape[-1],
+                 a["loop_div"]), []).append(a)
+        for a in seen.get("resample_mul2_rrc", []):
+            kinds.setdefault(("resample_rrc", tuple(a["extract"].shape),
+                              a["up"]), []).append(a)
+        for key, calls in kinds.items():
+            if key in done:
+                continue
+            done.add(key)
+            a = dict(calls[min(pick, len(calls) - 1)])
+            if key[0] == "fir_bank":
                 bank_case(a["pre"], a["h_list"], a["stride"], a["x"],
                           a["x2"], a["zi"], **extra)
-        for a in seen.get("pll_cuda", []):
-            a = dict(a)
-            x, st, div = a.pop("x"), a.pop("state"), a.pop("loop_div")
-            x0 = x[0] if isinstance(x, tuple) else x
-            label = "(" + ", ".join(map(str, x0.shape[:-1])) + ", N)"
-            if isinstance(x, tuple):
-                label = f"{len(x)} parts of {label}"
-            key = ("pll", label, x0.shape[-1], div)
-            if key not in replayed:
-                replayed.add(key)
-                pll_case(label, x, st, div, gate=gate, extra=extra, **a)
-        for a in seen.get("resample_mul2_rrc", []):
-            key = ("resample_rrc", tuple(a["extract"].shape), a["up"])
-            if key not in replayed:
-                replayed.add(key)
+            elif key[0] == "pll":
+                x, st, div = a.pop("x"), a.pop("state"), a.pop("loop_div")
+                pll_case(key[1], x, st, div, gate=gate, extra=extra, **a)
+            else:
                 resample_case(
                     a, a["extract"].shape[-1] * a["up"] // a["down"],
                     **extra)
@@ -1194,9 +1226,10 @@ def main() -> int:
 
     def mix_case(a, impl="auto", rows_form=False, **extra):
         """The receiver's call of K6 (the segmented form over its stacked
-        chunks) once more on the kernel and its plain version; with
-        ``rows_form`` the same chunks as (T*C, n) rows behind the halo zi
-        built in stock ops (the unsegmented form, the parent's route)."""
+        chunks, or one spread shard's call behind its halo zi) once more on
+        the kernel and its plain version; with ``rows_form`` the stacked
+        chunks as (T*C, n) rows behind the halo zi built in stock ops (the
+        unsegmented form, the parent's route)."""
         a = {n: a[n] for n in mix_names}
         t_sh = a["segments"]
         if rows_form:
@@ -1218,7 +1251,8 @@ def main() -> int:
         check(mix_count[impl], f"3 x f32 {shape_of(x)}",
               {"y": max_err(k[0], r[0]), "new_zi": max_err(k[1], r[1])},
               {"y": TOL_RESAMP_REL * scale, "new_zi": 0.0},
-              form="rows" if rows_form else "segmented", time_shards=t_sh,
+              form="rows" if rows_form else "segmented" if t_sh else "zi",
+              time_shards=extra.pop("time_shards", t_sh),
               up=a["up"], down=a["down"], taps=taps_, y_max_abs=scale,
               carried_zi_max_abs=float(a["zi"].abs().max()),
               kernel_ms=time_ms(
@@ -1236,7 +1270,8 @@ def main() -> int:
 
     def ts_third_step_calls(cfg_, t_shards, block, **kw):
         init, step = make_time_sharded_receiver(
-            cfg_, make_mesh(1, t_shards), N_BATCH_CHANNELS, **kw)
+            cfg_, make_mesh(1, t_shards, devices=[dev]),
+            N_BATCH_CHANNELS, **kw)
         st = init()
         for b in range(2):
             st, _ = step(st, block(b))
@@ -1255,6 +1290,43 @@ def main() -> int:
             ingest_iq_case(ia["raw_u8"], ia["zi_i"], ia["zi_q"], t_shards,
                            time_shards=t_shards)
         del seen, ma
+        torch.cuda.empty_cache()
+    # the spread route's own calls at T = 4, C = 1,024 (one stream per
+    # shard on this card), third step, shard 1's of each kind (its inputs
+    # handed over from shard 0): K1's iq entry on its chunk (1,024 x 76,800
+    # bytes) behind shard 0's raw tail normalized as its zi, K6 on its
+    # (1,024 x 3,840) behind shard 0's zero-stuffed mixed tail as its zi
+    # (the tail in stock ops, as the route makes it), K2's band-pass bank,
+    # squared band-pass, mono / stereo low-pass at stride 5 and RRC over
+    # (1,024, 3,840) rows, and K3's loop pair over 2 parts of (1,024, 3,840)
+    # from shard 0's end state (exact) and from the extrapolated one (stale)
+    sp_mesh = make_mesh(1, 4, devices=[dev] * 4)
+    sp_wrappers = TS_WRAPPERS + [(timeshard_mod, "fir_bank_carried"),
+                                 (cuda_fir, "fir_bank_carried"),
+                                 (cuda_pll, "pll_cuda")]
+    for handoff in ("exact", "stale"):
+        init, step = make_time_sharded_receiver(
+            cfg, sp_mesh, N_BATCH_CHANNELS, pll_handoff=handoff)
+        st = init()
+        for b in range(2):
+            st, _ = step(st, batch_block(b))
+        seen = calls_of(sp_wrappers, lambda: step(st, batch_block(2)))
+        torch.cuda.synchronize()
+        assert len(seen["pll_cuda"]) == 4
+        on = dict(route="spread", shard=1, time_shards=4,
+                  pll_handoff=handoff)
+        if handoff == "exact":
+            assert [a["segments"] for a in seen["resample_mul2"]] == [
+                None] * 4
+            mix_case(seen["resample_mul2"][1], rows_form=False, **on)
+            ia = seen["ingest_fir_decimate"][1]
+            assert ia["segments"] is None
+            ingest_iq_case(ia["raw_u8"], ia["zi_i"], ia["zi_q"], **on)
+            replay(seen, done=set(), pick=1, **on)
+            del ia
+        else:
+            replay({"pll_cuda": seen["pll_cuda"]}, done=set(), pick=1, **on)
+        del seen, st, init, step
         torch.cuda.empty_cache()
     seen = ts_third_step_calls(cfg1, 4, m1_block, enable_frame=False)
     (ma,) = seen["resample_mul2"]
@@ -1285,7 +1357,7 @@ def main() -> int:
             x64, x64, x64, mono_h, torch.stack([zi64, zi64], 1), 1, 2),
         "Receiver": lambda: Receiver(cfg, (), torch.float64),
         "make_time_sharded_receiver": lambda: make_time_sharded_receiver(
-            cfg, make_mesh(1, 2), 1, torch.float64),
+            cfg, make_mesh(1, 2, devices=[dev]), 1, torch.float64),
     }
     before = _cuda.launch_counts()
     for name, call in refusals.items():
@@ -1874,7 +1946,7 @@ def main() -> int:
     emit({"scan": rep_scan, "card": card})
 
     # ========= 7. channel- and wideband-sharded receivers, one-card mesh
-    mesh1 = make_mesh(1, 1)
+    mesh1 = make_mesh(1, 1, devices=[dev])
     rx_c = Receiver(cfg, (N_BATCH_CHANNELS,))
     ch_init, ch_step, ch_rows = make_channel_sharded_receiver(
         cfg, mesh1, N_BATCH_CHANNELS)
@@ -2010,7 +2082,7 @@ def main() -> int:
 
     def ts_run(cfg_, blocks, t_shards, c=1, **kw):
         return timed_run(*make_time_sharded_receiver(
-            cfg_, make_mesh(1, t_shards), c, **kw), blocks)
+            cfg_, make_mesh(1, t_shards, devices=[dev]), c, **kw), blocks)
 
     def vs_serial(outs, refs):
         """Audio and frame outputs of a run against the serial receiver's.
@@ -2190,11 +2262,10 @@ def main() -> int:
     # witness parts by.  The witness has the time-sharded route's
     # arithmetic: T = 1 and T = 2 are held to it in every row at the exact
     # tolerances, and T = 2 to T = 1 in every row
-    batch_outs = {}
-    for t_shards in (1, TS_BATCH_T):
-        outs, ms = ts_run(cfg, tsb_blocks, t_shards, c=N_BATCH_CHANNELS)
-        add_counts(ts_want, N_TS_BATCH_STEPS, ts_per_step(t_shards))
-        batch_outs[t_shards] = outs
+    def batch_check(outs, ms, t_shards, ref_t1=None):
+        """One C = 1,024 run of ``tsb_blocks`` held to the witness and to
+        the serial receiver (and to the T = 1 run ``ref_t1``, if given):
+        (report row, passed)."""
         tol_noisy = max(TOL_FUSED_SYMBOLS_REL, 2 * max(witness))
         flipped = audio_rows_over(outs, serb, TOL_FUSED_AUDIO)
         vs_w = vs_serial(outs, serb_fe)
@@ -2224,10 +2295,9 @@ def main() -> int:
                "ms_per_step_median": statistics.median(ms[1:]),
                "serial_ms_per_step_median": statistics.median(serb_ms[1:]),
                "step_ms": ms, "serial_step_ms": serb_ms}
-        if t_shards != 1:
+        if ref_t1 is not None:
             row["symbols_max_rel_err_vs_t1_all_rows_per_block"] = (
-                sym_rel_per_block(outs, batch_outs[1]))
-        ts_rows.append(row)
+                sym_rel_per_block(outs, ref_t1))
         # against the serial receiver: row 0 (noiseless) exact; the audio
         # of every other row exact but for a bounded count of flipped rows;
         # symbols within the witness's bound
@@ -2246,10 +2316,20 @@ def main() -> int:
             max(max_err(o.left[0], u.left[0]), max_err(o.right[0], u.right[0]),
                 max_err(o.mono[0], u.mono[0])) for o, u in zip(outs, serb))
         row0_ok = row["row0_audio_max_abs_err_vs_serial"] <= TOL_FUSED_AUDIO
-        if (not serial_ok or not witness_ok or not row0_ok
-                or not row["finite"]
-                or max(row.get("symbols_max_rel_err_vs_t1_all_rows_per_block",
-                               [0.0])) > TOL_FUSED_SYMBOLS_REL):
+        return row, (
+            serial_ok and witness_ok and row0_ok and row["finite"]
+            and max(row.get("symbols_max_rel_err_vs_t1_all_rows_per_block",
+                            [0.0])) <= TOL_FUSED_SYMBOLS_REL)
+
+    batch_outs = {}
+    for t_shards in (1, TS_BATCH_T):
+        outs, ms = ts_run(cfg, tsb_blocks, t_shards, c=N_BATCH_CHANNELS)
+        add_counts(ts_want, N_TS_BATCH_STEPS, ts_per_step(t_shards))
+        batch_outs[t_shards] = outs
+        row, ok = batch_check(outs, ms, t_shards,
+                              batch_outs[1] if t_shards != 1 else None)
+        ts_rows.append(row)
+        if not ok:
             ts_fail.append(row)
     del batch_outs
     ts_counts = _cuda.launch_counts()
@@ -2262,6 +2342,210 @@ def main() -> int:
     if ts_fail:
         raise SystemExit(f"chip_smoke: time-sharded receiver wrong: "
                          f"{ts_fail}")
+
+    # ===== 9b. the spread route: each time shard on its own CUDA stream,
+    # over a mesh that names this one card T times (every halo, PLL handoff
+    # and gather crosses streams as it would cross cards).  References
+    # first, outside the counted window: the serial receiver and the
+    # stacked route on the same blocks
+    sp_t0 = time.perf_counter()
+    card0 = torch.device("cuda", torch.cuda.current_device())
+
+    def _leaf_list(tree):
+        if tree is None:
+            return []
+        if isinstance(tree, torch.Tensor):
+            return [tree]
+        return [x for v in tree for x in _leaf_list(v)]
+
+    def spread_run(cfg_, blocks, t_shards, c=1, **kw):
+        mesh = make_mesh(1, t_shards, devices=[card0] * t_shards)
+        assert mesh.spread
+        return timed_run(*make_time_sharded_receiver(cfg_, mesh, c, **kw),
+                         blocks)
+
+    def spread_per_step(t_shards, handoff="exact", mode1=False):
+        """Launches per step: every stage once per shard."""
+        return {k: v * t_shards if k != "pll" else
+                {"exact": 1, "stale": 1, "iterate": 2}[handoff] * t_shards
+                for k, v in ts_per_step(t_shards, handoff, mode1).items()}
+
+    def outputs_equal(a_outs, b_outs):
+        return all(torch.equal(x, y) for o, u in zip(a_outs, b_outs)
+                   for x, y in zip(_leaf_list(o), _leaf_list(u)))
+
+    def vs_stacked(outs, refs):
+        """Audio bit for bit, the RDS path within the exact tolerances:
+        K6 adds each shard's halo as a carried zi here, where the stacked
+        route's segmented form reads it in place."""
+        rep = {k.replace("_vs_serial", "") + "_vs_stacked": v
+               for k, v in vs_serial(outs, refs).items()}
+        rep["audio_bit_equal_to_stacked"] = all(
+            torch.equal(getattr(o, n), getattr(u, n))
+            for o, u in zip(outs, refs) for n in ("left", "right", "mono"))
+        rep["all_outputs_bit_equal_to_stacked"] = outputs_equal(outs, refs)
+        return rep
+
+    def stacked_ok(rep):
+        return (rep["audio_bit_equal_to_stacked"]
+                and rep["symbols_max_rel_err_all_rows_vs_stacked"]
+                <= TOL_FUSED_SYMBOLS_REL
+                and rep["syndrome_ids_differing_vs_stacked"]
+                <= rep["syndrome_ids_compared_vs_stacked"] // 1000
+                and rep["symbol_and_window_counts_equal_vs_stacked"])
+
+    sp_blocks = [torch.as_tensor(station[b][None]).to(dev)
+                 for b in range(N_SPREAD_BLOCKS)]
+    sp_ser, sp_ser_ms = serial_run(cfg, sp_blocks, resync=True)
+    sp_stacked = {t: ts_run(cfg, sp_blocks, t, resync=True)
+                  for t in SPREAD_SHARDS}
+    spb_stacked = {h: ts_run(cfg, tsb_blocks, SPREAD_BATCH_T,
+                             c=N_BATCH_CHANNELS, pll_handoff=h)
+                   for h in ("exact", "stale")}
+    m1sp_blocks = [torch.as_tensor(m1_station[b][None]).to(dev)
+                   for b in range(N_SPREAD_M1_BLOCKS)]
+    for t_shards in SPREAD_SHARDS:                          # warm-up
+        spread_run(cfg, sp_blocks[:1], t_shards, resync=True)
+    spread_run(cfg, tsb_blocks[:1], SPREAD_BATCH_T, c=N_BATCH_CHANNELS)
+    spread_run(cfg1, m1sp_blocks[:1], SPREAD_BATCH_T, resync=True)
+    torch.cuda.synchronize()
+
+    # ==================== the spread path: counts from 0 here
+    # every place a shard of this window steps at, as the route enters it
+    real_on_place = timeshard_mod.on_place
+    sp_stepped = set()
+
+    def seen_on_place(place):
+        sp_stepped.add(str(place.device))
+        return real_on_place(place)
+
+    timeshard_mod.on_place = seen_on_place
+    _cuda.reset_launch_counts()
+    sp_want, sp_rows, sp_fail = {}, [], []
+    for t_shards in SPREAD_SHARDS:
+        outs, ms = spread_run(cfg, sp_blocks, t_shards, resync=True)
+        add_counts(sp_want, N_SPREAD_BLOCKS, spread_per_step(t_shards))
+        st_outs, st_ms = sp_stacked[t_shards]
+        row = {"channels": 1, "time_shards": t_shards, "handoff": "exact",
+               "resync": True, "blocks": N_SPREAD_BLOCKS,
+               **vs_serial(outs, sp_ser), **vs_stacked(outs, st_outs),
+               "ms_per_64ms_block": statistics.median(ms[1:]),
+               "stacked_ms_per_64ms_block": statistics.median(st_ms[1:]),
+               "serial_ms_per_64ms_block": statistics.median(sp_ser_ms[1:]),
+               "launches_per_step": spread_per_step(t_shards),
+               "stacked_launches_per_step": ts_per_step(t_shards),
+               "step_ms": ms}
+        sp_rows.append(row)
+        if not exact_ok(row) or not stacked_ok(row):
+            sp_fail.append(row)
+    sp_batch = {}
+    for handoff in ("exact", "stale"):
+        outs, ms = spread_run(cfg, tsb_blocks, SPREAD_BATCH_T,
+                              c=N_BATCH_CHANNELS, pll_handoff=handoff)
+        add_counts(sp_want, N_TS_BATCH_STEPS,
+                   spread_per_step(SPREAD_BATCH_T, handoff))
+        sp_batch[handoff] = outs
+        st_outs, st_ms = spb_stacked[handoff]
+        if handoff == "exact":
+            row, ok = batch_check(outs, ms, SPREAD_BATCH_T)
+        else:
+            snrs = [snr_db(o.left[0], u.left[0])
+                    for o, u in zip(outs[1:], serb[1:])]
+            row = {"channels": N_BATCH_CHANNELS, "time_shards":
+                   SPREAD_BATCH_T, "steps": N_TS_BATCH_STEPS,
+                   "left_snr_db_vs_serial_blocks_1_on": snrs,
+                   "snr_floor_db": TS_SNR_FLOOR_DB[handoff],
+                   "finite": all(bool(torch.isfinite(o.left).all())
+                                 for o in outs),
+                   "step_ms": ms}
+            ok = min(snrs) > TS_SNR_FLOOR_DB[handoff] and row["finite"]
+        row.update({"handoff": handoff, "route": "spread",
+                    **vs_stacked(outs, st_outs),
+                    "ms_per_64ms_block": statistics.median(ms[1:]),
+                    "stacked_ms_per_64ms_block": statistics.median(st_ms[1:]),
+                    "launches_per_step": spread_per_step(SPREAD_BATCH_T,
+                                                         handoff),
+                    "stacked_launches_per_step": ts_per_step(SPREAD_BATCH_T,
+                                                             handoff)})
+        sp_rows.append(row)
+        if not ok or not stacked_ok(row):
+            sp_fail.append(row)
+    # the delayed run: before every hand-over a shard makes, a sleep queued
+    # on its stream, the longer the further left the shard (T - t units),
+    # so that every maker runs behind its readers: a read that does not
+    # wait for its maker's event, or memory handed on before its reader is
+    # done, finds what was there before.  The outputs must not move by a
+    # bit
+    real_record = shards_mod.record
+    real_places = timeshard_mod.time_shard_places
+    sp_places = []
+
+    def keep_places(devices):
+        sp_places[:] = real_places(devices)
+        return tuple(sp_places)
+
+    def delayed_record(place):
+        if place in sp_places:
+            with torch.cuda.stream(place.stream):
+                torch.cuda._sleep(SPREAD_SLEEP_CYCLES * (
+                    len(sp_places) - sp_places.index(place)))
+        return real_record(place)
+
+    timeshard_mod.time_shard_places = keep_places
+    shards_mod.record = timeshard_mod.record = delayed_record
+    try:
+        outs, ms = spread_run(cfg, tsb_blocks, SPREAD_BATCH_T,
+                              c=N_BATCH_CHANNELS)
+    finally:
+        shards_mod.record = timeshard_mod.record = real_record
+        timeshard_mod.time_shard_places = real_places
+    add_counts(sp_want, N_TS_BATCH_STEPS, spread_per_step(SPREAD_BATCH_T))
+    row = {"channels": N_BATCH_CHANNELS, "time_shards": SPREAD_BATCH_T,
+           "handoff": "exact", "delayed_producers": True,
+           "sleep_cycles_per_hand_over_by_shard": [
+               SPREAD_SLEEP_CYCLES * (SPREAD_BATCH_T - t)
+               for t in range(SPREAD_BATCH_T)],
+           "outputs_bit_equal_to_undelayed": outputs_equal(
+               outs, sp_batch["exact"]),
+           "step_ms": ms}
+    sp_rows.append(row)
+    if not row["outputs_bit_equal_to_undelayed"]:
+        sp_fail.append(row)
+    del sp_batch
+    # MODE1_RDS at T = 4: the encoded PI decoded
+    outs, ms = spread_run(cfg1, m1sp_blocks, SPREAD_BATCH_T, resync=True)
+    add_counts(sp_want, N_SPREAD_M1_BLOCKS,
+               spread_per_step(SPREAD_BATCH_T, mode1=True))
+    dec = GroupDecoder()
+    for o in outs:
+        dec.feed(type(o.rds)(*(x[0].cpu().numpy() for x in o.rds)))
+    row = {"mode": "MODE1_RDS", "channels": 1, "time_shards": SPREAD_BATCH_T,
+           "handoff": "exact", "resync": True, "blocks": N_SPREAD_M1_BLOCKS,
+           "syncs": syncs(outs), "groups": len(dec.groups),
+           "decoded_pi": None if dec.pi is None else f"0x{dec.pi:04X}",
+           "encoded_pi": f"0x{MODE1_PI:04X}",
+           "ms_per_64ms_block": statistics.median(ms[1:]),
+           "launches_per_step": spread_per_step(SPREAD_BATCH_T, mode1=True)}
+    sp_rows.append(row)
+    if dec.pi != MODE1_PI:
+        sp_fail.append(row)
+    sp_counts = _cuda.launch_counts()
+    # ============================== end of the spread path
+    timeshard_mod.on_place = real_on_place
+    emit({"timeshard_spread": {
+        "runs": sp_rows, "launches": sp_counts,
+        "distinct_devices": len(sp_stepped),
+        "streams_per_row": SPREAD_BATCH_T,
+        "phase_seconds": time.perf_counter() - sp_t0}, "card": card})
+    if sp_counts != sp_want:
+        raise SystemExit(f"chip_smoke: launch counts {sp_counts} on the "
+                         f"spread path, expected {sp_want}")
+    if sp_fail:
+        raise SystemExit(f"chip_smoke: the spread route is wrong: {sp_fail}")
+    if sp_stepped != {str(card0)}:
+        raise SystemExit(f"chip_smoke: the spread route stepped on "
+                         f"{sorted(sp_stepped)}, not on {card0} alone")
+    del sp_ser, sp_stacked, spb_stacked, sp_blocks, m1sp_blocks
     del outs, ser1, ser_det, serb, serb_fe, tsb_blocks
     torch.cuda.empty_cache()
 
@@ -2364,13 +2648,6 @@ def main() -> int:
                              f"run differs from the continuous one: {rep}")
         return rep, keys
 
-    def _leaf_list(tree):
-        if tree is None:
-            return []
-        if isinstance(tree, torch.Tensor):
-            return [tree]
-        return [x for v in tree for x in _leaf_list(v)]
-
     t_ck = time.perf_counter()
     ck_blocks = [batch_block(b) for b in range(2 * N_CKPT_STEPS)]
     rx_ck = Receiver(cfg, (N_BATCH_CHANNELS,))
@@ -2381,8 +2658,8 @@ def main() -> int:
     if ck_keys != CHECKPOINT_KEYS:
         raise SystemExit(f"chip_smoke: checkpoint keys {ck_keys} are not "
                          f"the JAX package's {CHECKPOINT_KEYS}")
-    ts_ck = make_time_sharded_receiver(cfg, make_mesh(1, CKPT_TS_SHARDS),
-                                       N_BATCH_CHANNELS)
+    ts_ck = make_time_sharded_receiver(
+        cfg, make_mesh(1, CKPT_TS_SHARDS, devices=[dev]), N_BATCH_CHANNELS)
     rep_ck_ts, ts_keys = resume_check(
         f"time-sharded T = {CKPT_TS_SHARDS}", *ts_ck, ck_blocks,
         ts_per_step(CKPT_TS_SHARDS))
@@ -2765,6 +3042,8 @@ def main() -> int:
                      "launches_timeshard_path": ts_counts.get(name, 0),
                      "launches_timeshard_mode1_rds_path":
                          m1ts_counts.get(name, 0),
+                     "launches_timeshard_spread_path":
+                         sp_counts.get(name, 0),
                      "launches_sharded_path": sharded_counts.get(name, 0),
                      "shape": case["shape"],
                      "max_abs_err": case["max_abs_err"],

@@ -24,7 +24,11 @@ import numpy as np
 import torch
 
 from rtsdr_tpu_torch.ops import _cuda
-from rtsdr_tpu_torch.ops.fir import _conv1d_valid, derived_from_list
+from rtsdr_tpu_torch.ops.fir import (
+    DeviceCache,
+    _conv1d_valid,
+    derived_from_list,
+)
 
 _PRE = {"none": 0, "square": 1, "mul2": 2}
 
@@ -84,7 +88,7 @@ def fir_bank_carried_ref(x, h_list, zi, stride: int = 1, x2=None,
     return ys, xext[..., -t1:].contiguous()
 
 
-_plans: dict = {}
+_plans = DeviceCache()
 _F32 = torch.float32
 
 
@@ -110,8 +114,7 @@ def _plan(x, h_list, stride: int, pre: str, key):
         h_list, ("phase", stride, dev),
         lambda: torch.as_tensor(phase_taps(h_list, stride)).to(dev))
     y_shape = (*lead, m) if n_f == 1 else (n_f, *lead, m)
-    if len(_plans) > 64:
-        _plans.clear()
+    _plans.make_room()
     plan = _plans[key] = (tuple(h_list), dev, torch.Size((*lead, taps - 1)),
                           y_shape, hp.data_ptr(), hp, c, n, m, taps, n_f,
                           f"fir_bank.{pre}", _PRE[pre])

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from rtsdr_tpu_torch.ops import _cuda
+from rtsdr_tpu_torch.ops.fir import DeviceCache
 from rtsdr_tpu_torch.ops.pll import PLLState, loop_constants, pll_loop
 
 MAX_PARTS = 4
@@ -140,8 +141,8 @@ def pll_cuda(x, state: PLLState, *, freq, fs: float, nco_scale=1.0,
     return nco_i, nco_q, new_state
 
 
-_plans: dict = {}
-_by_id: dict = {}
+_plans = DeviceCache()
+_by_id = DeviceCache()
 
 
 def _plan(parts, is_tuple, args, fs, loop_div, ikey):
@@ -168,12 +169,10 @@ def _plan(parts, is_tuple, args, fs, loop_div, ikey):
         consts = _lane_consts(batch_shape, c, dev, *args[:1], fs, *args[1:],
                               loop_div)
         lanes = (ctypes.c_int * MAX_PARTS)(*([c // len(parts)] * len(parts)))
-        if len(_plans) > 64:
-            _plans.clear()
+        _plans.make_room()
         plan = _plans[key] = (
             dev, torch.Size(batch_shape), c, n, ctypes.addressof(lanes),
             len(parts), consts.data_ptr(), (args, consts, lanes))
-    if len(_by_id) > 64:
-        _by_id.clear()
+    _by_id.make_room()
     _by_id[ikey] = plan[:-1] + ((args,) + plan[-1][1:],)
     return _by_id[ikey]

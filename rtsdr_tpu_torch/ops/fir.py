@@ -165,7 +165,30 @@ def _resample_boundary_index(t1: int, up: int, down: int
     return np.clip(kz, 0, t1), valid
 
 
-_derived: dict = {}
+class DeviceCache(dict):
+    """A cache whose values hold device tensors, emptied when it holds more
+    than ``limit`` entries.  A kernel may still read a dropped value's
+    tensors: queued on another stream (the spread route's time shards share
+    their taps), or through a pointer its wrapper took before a later
+    lookup of the same call emptied the cache.  So the values of one
+    emptying are kept until the next, which first waits for the work
+    queued on every device."""
+
+    def __init__(self, limit: int = 64):
+        super().__init__()
+        self.limit, self.dropped = limit, []
+
+    def make_room(self) -> None:
+        if len(self) <= self.limit:
+            return
+        if torch.cuda.is_initialized():
+            for i in range(torch.cuda.device_count()):
+                torch.cuda.synchronize(i)
+        self.dropped = list(self.values())
+        self.clear()
+
+
+_derived = DeviceCache()
 
 
 def derived_from_list(arrays, key, build):
@@ -177,8 +200,7 @@ def derived_from_list(arrays, key, build):
     ids = tuple(map(id, arrays))
     entry = _derived.get(ids)
     if entry is None or any(a is not b for a, b in zip(entry[0], arrays)):
-        if len(_derived) > 64:
-            _derived.clear()
+        _derived.make_room()
         entry = _derived[ids] = (tuple(arrays), {})
     hit = entry[1].get(key)
     if hit is None:

@@ -4,7 +4,8 @@
 its own device with no communication.  ``time`` (sequence parallel): one
 station's block split into chunks; FIR overlap-save tails become halo
 exchanges and the PLL state pipelines (or is extrapolated) chunk to chunk.
-The time shards of one channel shard share its device
+The time shards of one channel shard stack on its device, or, on a grid
+of ``n_ch x n_t`` devices, each steps on its own device and stream
 (``parallel/mesh.py``).
 """
 

@@ -30,7 +30,8 @@ def make_channel_sharded_receiver(
     **kwargs,
 ):
     """Build ``(init_fn, step_fn, row_split)`` with the channels spread over
-    the mesh's channel shards (its time axis is not used).
+    the mesh's channel shards, each on its row's first device (the time
+    axis, and a grid mesh's other devices, are not used).
 
     ``row_split``: one ``slice`` of global rows per shard.  ``init_fn()``:
     a tuple with one ``ReceiverState`` per shard, on its device.

@@ -54,7 +54,8 @@ def host_channel_slice(n_channels: int) -> slice:
 def make_global_input(mesh: Mesh, n_channels: int, block_size: int,
                       local_blocks: np.ndarray) -> torch.Tensor:
     """This process's rows of the (n_channels, block_size) uint8 input, on
-    the mesh's first device.
+    the mesh's first device (a grid mesh's too: the time-sharded receiver
+    hands each time shard its chunk from there).
 
     PyTorch has no global array: the process's channel-sharded receiver
     takes exactly its own rows (``host_channel_slice``), so ingest rides

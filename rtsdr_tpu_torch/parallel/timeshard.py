@@ -8,10 +8,15 @@ its state chunk to chunk (``'exact'``) or runs all chunks at once from
 extrapolated seeds (``'stale'``, ``'iterate'``); the RDS bit layer runs
 once on the gathered 57 kS/s stream.
 
-Where JAX spreads the T chunks over the devices of the mesh's ``t`` axis,
-the port keeps the T chunks of one channel shard on that shard's device,
-stacked along a leading dimension, and each collective of the time axis
-becomes a tensor operation on that dimension (``_TimeAxis``):
+JAX runs each time shard on its own device of the mesh's ``t`` axis.  The
+port has two routes, chosen by the mesh (``parallel/mesh.py``), and one
+body of stage code that both call: each stage's local work goes through
+the axis's ``map`` and each collective of the time axis through its other
+methods.
+
+* The stacked route (``_TimeAxis``) keeps the T chunks of one channel
+  shard on that shard's device, stacked along a leading dimension; each
+  collective becomes a tensor operation on that dimension:
 
   =====================  =============================================
   JAX                    here
@@ -25,10 +30,22 @@ becomes a tensor operation on that dimension (``_TimeAxis``):
   ``all_gather(tiled)``  the stacked dimension folded into time
   =====================  =============================================
 
-The kernels see the stacked (T*C, N/T) rows in one launch each.  The two
-PLL loops (stereo pilot, RDS carrier) run as one launch, as in the serial
-receiver: ``'exact'`` launches T times, chunk after chunk, C lanes each;
-``'stale'`` once over T*C lanes; ``'iterate'`` twice.
+  The kernels see the stacked (T*C, N/T) rows in one launch each; the
+  ingest kernel and the RDS mixer + resampler read each chunk's left halo
+  in place (their segmented forms).  The two PLL loops (stereo pilot, RDS
+  carrier) run as one launch, as in the serial receiver: ``'exact'``
+  launches T times, chunk after chunk, C lanes each; ``'stale'`` once over
+  T*C lanes; ``'iterate'`` twice.
+
+* The spread route (``_SpreadAxis``) steps each time shard at its own
+  device and CUDA stream and moves each halo, PLL handoff and gathered
+  value between them after an event of the stream that made it
+  (``utils/shards.py::move``).  Every stage launches once per shard; the
+  ingest kernel's carried zi is the left neighbour's last t1 raw I/Q pairs,
+  the mixer + resampler's its zero-stuffed mixed tail; ``'exact'`` chains
+  T PLL launches, ``'stale'`` makes T independent ones, ``'iterate'`` 2T.
+  The carried state and the outputs stay on the channel shard's first
+  device in the serial layout, so a state resumes in either route.
 """
 
 from __future__ import annotations
@@ -43,7 +60,10 @@ from rtsdr_tpu_torch.device import require_kernel_dtype
 from rtsdr_tpu_torch.ops import coeffs
 from rtsdr_tpu_torch.ops.cuda_fir import fir_bank_carried, fir_block_pre
 from rtsdr_tpu_torch.ops.cuda_pll import stacked_state
-from rtsdr_tpu_torch.ops.cuda_resample import resample_mul2
+from rtsdr_tpu_torch.ops.cuda_resample import (
+    resample_mul2,
+    resample_mul2_tail,
+)
 from rtsdr_tpu_torch.ops.demod import fm_discriminator
 from rtsdr_tpu_torch.ops.fir import (
     _upsampled_tail_of,
@@ -74,15 +94,32 @@ from rtsdr_tpu_torch.pipeline.receiver import (
     ReceiverState,
     make_receiver,
 )
-from rtsdr_tpu_torch.utils.shards import step_shards
+from rtsdr_tpu_torch.utils.shards import (
+    caller_place,
+    move,
+    on_place,
+    record,
+    step_shards,
+    time_shard_places,
+)
 
 
 class _TimeAxis:
-    """The collectives of the time axis over T shards stacked along ``dim``
-    (0 unless said)."""
+    """The stacked route: the collectives of the time axis over T chunks
+    stacked along ``dim`` (0 unless said) on the channel shard's device.
+    A stage's local work runs once over the stacked chunks (``map``)."""
+
+    stacked = True
 
     def __init__(self, n_shards: int):
         self.n = n_shards
+
+    def map(self, fn, *xs):
+        return fn(*xs)
+
+    def chunks(self, raw_u8):
+        """(C, B) -> the T chunks (T, C, B/T), a view."""
+        return raw_u8.reshape(raw_u8.shape[0], self.n, -1).transpose(0, 1)
 
     def first_or(self, carried, received, dim=0):
         """Shard 0 takes ``carried`` (shaped as one shard), the others
@@ -108,6 +145,155 @@ class _TimeAxis:
         """(..T.., ..., n) -> (..., T*n): the chunks in time order."""
         x = x.movedim(dim, -2)
         return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+
+    def chain(self, fn, carry, xs, out_dim=0):
+        """``*ys, carry = fn([x[k] for x in xs], carry)`` chunk after chunk;
+        returns the ys stacked along ``out_dim`` and the last carry."""
+        outs = []
+        for k in range(self.n):
+            *ys, carry = fn([x[k] for x in xs], carry)
+            outs.append(ys)
+        return (*(torch.stack(y, out_dim) for y in zip(*outs)), carry)
+
+    def join(self):
+        pass
+
+
+class _Shards(tuple):
+    """The spread route's value of a stage: one tensor per time shard, each
+    at its shard's place."""
+
+
+def _unzip(outs):
+    """Per-shard results of one structure -> that structure of ``_Shards``."""
+    first = outs[0]
+    if isinstance(first, (tuple, list)):
+        parts = [_unzip([o[i] for o in outs]) for i in range(len(first))]
+        if hasattr(first, "_fields"):
+            return type(first)(*parts)
+        return type(first)(parts)
+    return _Shards(outs)
+
+
+class _SpreadAxis:
+    """The spread route: the collectives of the time axis over T shards,
+    each stepping at its own ``Place`` (device and stream), where JAX runs
+    each on its own chip.  A stage's value is a ``_Shards`` tuple; the
+    carried state and the gathered outputs live at ``home``, the caller's
+    stream on the channel shard's first device.  Every hand-over is a
+    ``move``: the reader's stream waits on an event of the maker's, then
+    copies or holds the value.
+
+      =====================  =============================================
+      JAX                    here
+      =====================  =============================================
+      ``ppermute`` right     shard t-1's value moved to shard t (``halo``;
+                             shard 0 takes the carried value from home)
+      ``where(t == 0, ..)``  shard 0 takes the carried value (``first_or``)
+      ``psum(where(last))``  shard T-1's value moved home (``from_last``)
+      ``psum``               each shard's value moved home, summed there
+      ``all_gather(tiled)``  each shard's value moved home, concatenated
+      =====================  =============================================
+    """
+
+    stacked = False
+
+    def __init__(self, places, home):
+        self.places, self.home, self.n = places, home, len(places)
+
+    def _take(self, x, t):
+        """Shard t's part of a stage's argument: its own value, a value at
+        home moved to it, a structure of either, or a constant."""
+        if isinstance(x, _Shards):
+            return x[t]
+        if isinstance(x, torch.Tensor):
+            return move(x, self.home, self.places[t])
+        if isinstance(x, (tuple, list)):
+            parts = [self._take(v, t) for v in x]
+            return type(x)(*parts) if hasattr(x, "_fields") else type(x)(parts)
+        return x
+
+    def map(self, fn, *xs):
+        """``fn`` on every shard's arguments, at that shard's place."""
+        outs = []
+        for t, place in enumerate(self.places):
+            args = [self._take(x, t) for x in xs]
+            with on_place(place):
+                outs.append(fn(*args))
+        return _unzip(outs)
+
+    def chunks(self, raw_u8):
+        """(C, B) at home -> shard t's (C, B/T), contiguous at its place."""
+        n = raw_u8.shape[-1] // self.n
+        return self.map(lambda r: r.contiguous(), _Shards(
+            move(raw_u8[:, t * n:(t + 1) * n], self.home, place)
+            for t, place in enumerate(self.places)))
+
+    def first_or(self, carried, received, dim=0):
+        """Shard 0 takes ``carried``, shard t > 0 its part of ``received``
+        (a tensor at home whose ``dim`` indexes the shards)."""
+        got = [move(carried, self.home, self.places[0])]
+        for t in range(1, self.n):
+            got.append(move(received.select(dim, t), self.home,
+                            self.places[t]))
+        return self._dense(got)
+
+    def halo(self, carried, local, dim=0, recv=None):
+        """Shard t > 0 takes shard t-1's ``local`` (``recv`` of it, at
+        shard t, if given), shard 0 the carried state from home."""
+        if recv is None:
+            carried = carried.to(local[0].dtype)
+        got = [move(carried, self.home, self.places[0])]
+        for t in range(1, self.n):
+            x = move(local[t - 1], self.places[t - 1], self.places[t])
+            if recv is not None:
+                with on_place(self.places[t]):
+                    x = recv(x)
+            got.append(x)
+        return self._dense(got)
+
+    def _dense(self, values):
+        """Each shard's value contiguous (as the stacked route's
+        concatenation leaves it: what the kernels read), copied on its
+        shard's stream where it is a view."""
+        out = []
+        for x, place in zip(values, self.places):
+            with on_place(place):
+                out.append(x.contiguous())
+        return _Shards(out)
+
+    def from_last(self, x, dim=0):
+        return move(x[-1], self.places[-1], self.home)
+
+    def psum(self, x, dim=0):
+        """The sum over shards at home, in the stacked route's order."""
+        return torch.stack([move(v, p, self.home)
+                            for v, p in zip(x, self.places)], dim).sum(dim)
+
+    def all_gather(self, x, dim=0):
+        return torch.cat([move(v, p, self.home)
+                          for v, p in zip(x, self.places)], -1)
+
+    def chain(self, fn, carry, xs, out_dim=0):
+        """``*ys, carry = fn([x[t] for x in xs], carry)`` at shard t after
+        shard t-1, the carry moved from each to the next (from home to
+        shard 0, from shard T-1 back home)."""
+        outs, at = [], self.home
+        for t, place in enumerate(self.places):
+            carry = type(carry)(*(move(v, at, place) for v in carry))
+            with on_place(place):
+                *ys, carry = fn([x[t] for x in xs], carry)
+            outs.append(ys)
+            at = place
+        carry = type(carry)(*(move(v, at, self.home) for v in carry))
+        return (*(_Shards(y) for y in zip(*outs)), carry)
+
+    def join(self):
+        """Home waits for each shard's work of the step, so what the
+        caller queues next follows all of it."""
+        if self.home.stream is not None:
+            for place in self.places:
+                self.home.stream.wait_event(record(place))
 
 
 def make_time_sharded_receiver(
@@ -152,9 +338,13 @@ def make_time_sharded_receiver(
       * ``'iterate'``: ``'stale'`` plus one pass in which chunk k is
         re-seeded from chunk k-1's end state of the first pass.
 
-    ``ingest_impl``: ``'fused'`` (the ingest kernel over every chunk and
-    its left neighbour's raw tail in place, ``ingest_fir_decimate(...,
-    segments=T)``) or ``'split'``
+    On a spread mesh (``mesh.spread``) each time shard steps on its own
+    device and stream; state and outputs are as on a stacked one.
+
+    ``ingest_impl``: ``'fused'`` (the ingest kernel: on the stacked route
+    over every chunk and its left neighbour's raw tail in place,
+    ``ingest_fir_decimate(..., segments=T)``; on the spread route per shard,
+    behind the neighbour's raw tail as its zi) or ``'split'``
     (normalize, then the FIR bank at stride ``decim``); ``'auto'`` is
     ``'fused'`` on a CUDA mesh and ``'split'`` on the CPU.
     """
@@ -188,8 +378,9 @@ def make_time_sharded_receiver(
             enable_rds and (chunk_if * cfg.rds.up) % cfg.rds.down):
         raise ValueError(f"if_len/T = {chunk_if} does not divide the "
                          "resampler grid; pick T dividing it")
-    for dev in mesh.devices:
-        require_kernel_dtype(dev, dtype)
+    for row in mesh.time_devices:
+        for dev in row:
+            require_kernel_dtype(dev, dtype)
     if ingest_impl == "auto":
         ingest_impl = "fused" if mesh.devices[0].type == "cuda" else "split"
     if ingest_impl not in ("fused", "split"):
@@ -254,116 +445,144 @@ def make_time_sharded_receiver(
               / pll_loop_div)[None, :, None]
     pll_passes = {"exact": 0, "stale": 1, "iterate": 2}[pll_handoff]
 
-    def run_pll(parts, st, batch_rank):
-        shape = (n_loops,) + (1,) * (batch_rank - 1)
+    comb_t1 = len(comb_h) - 1 if enable_rds else 0
+
+    def run_pll(parts, st):
+        shape = (n_loops,) + (1,) * (st.integrator.dim() - 1)
         return pll(tuple(parts), st, fs=cfg.rf.if_fs, impl=pll_impl,
                    loop_div=pll_loop_div,
                    **{k: v.reshape(shape) for k, v in loop_consts.items()})
 
-    def pll_chain(parts, st):
-        """parts: the loops' (T, C, n) inputs; st: PLLState (L, C).
-        Returns nco_i, nco_q (L, T, C, n) and the new (L, C) state."""
+    def tail(n):
+        return lambda x: x[..., -n:]
+
+    def pll_chain(ax, parts, st):
+        """parts: the loops' per-shard (C, n) inputs; st: PLLState (L, C).
+        Returns nco_i, nco_q per shard (L, C, n; stacked: (L, T, C, n))
+        and the new (L, C) state."""
         if pll_passes == 0:
-            outs = []
-            for k in range(T):
-                ni, nq, st = run_pll([p[k] for p in parts], st, 2)
-                outs.append((ni, nq))
-            return (torch.stack([o[0] for o in outs], 1),
-                    torch.stack([o[1] for o in outs], 1), st)
+            return ax.chain(run_pll, st, parts, out_dim=1)
         seed = pll_extrapolate_by(
             PLLState(*(leaf[:, None] for leaf in st)), adv_tab, ns_tab,
             nco_scale=loop_consts["nco_scale"][:, None, None],
             phase_adjust=loop_consts["phase_adjust"][:, None, None])
         start = PLLState(*(ax.first_or(a, b, 1) for a, b in zip(st, seed)))
         for p in range(pll_passes):
-            nco_i, nco_q, end = run_pll(parts, start, 3)
+            nco_i, nco_q, end = ax.map(run_pll, parts, start)
             if p + 1 < pll_passes:
                 start = PLLState(*(ax.halo(a, b, 1)
                                    for a, b in zip(st, end)))
         return (nco_i, nco_q,
                 PLLState(*(ax.from_last(e, 1).contiguous() for e in end)))
 
-    @torch.no_grad()
-    def shard_body(state: ReceiverState, raw_u8: torch.Tensor):
-        c = raw_u8.shape[0]
-        fe, au = state.frontend, state.audio
-
-        # ---- ingest + front end
-        if fused_ingest:
+    def ingest(ax, raw_u8, fe):
+        """Raw bytes -> each shard's decimated (if_i, if_q) and the block's
+        new RF zis."""
+        if fused_ingest and ax.stacked:
             # one launch reads every chunk and its left neighbour's raw tail
             # in place; the carried zi adds on shard 0 only
-            no_zi = torch.zeros((T, c, t1), dtype=dtype, device=fe.zi_i.device)
+            no_zi = torch.zeros((T, raw_u8.shape[0], t1), dtype=dtype,
+                                device=fe.zi_i.device)
             if_i, if_q, zi_i, zi_q = ingest_fir_decimate(
                 raw_u8, rf_h, ax.first_or(fe.zi_i, no_zi),
                 ax.first_or(fe.zi_q, no_zi), cfg.rf.decim, segments=T)
-            zi_i, zi_q = ax.from_last(zi_i), ax.from_last(zi_q)
-        else:
-            chunks = raw_u8.reshape(c, T, -1).transpose(0, 1)   # (T, C, B/T)
-            iq = normalize_deinterleave(chunks, dtype)      # (T, C, 2, n)
-            zi_fe = torch.stack([fe.zi_i, fe.zi_q], dim=-2)
-            iq_ds, zi_fe = fir_decimate(iq, rf_h,
-                                        ax.halo(zi_fe, iq[..., -t1:]),
-                                        cfg.rf.decim)
-            if_i, if_q = iq_ds[..., 0, :], iq_ds[..., 1, :]
-            zi_fe = ax.from_last(zi_fe)
-            zi_i, zi_q = zi_fe[..., 0, :], zi_fe[..., 1, :]
-        fm, (pi, pq) = fm_discriminator(
-            if_i, if_q, (ax.halo(fe.prev_i, if_i[..., -1]),
-                         ax.halo(fe.prev_q, if_q[..., -1])))
+            return if_i, if_q, ax.from_last(zi_i), ax.from_last(zi_q)
+        chunks = ax.chunks(raw_u8)
+        zi_fe = torch.stack([fe.zi_i, fe.zi_q], dim=-2)
+        if fused_ingest:
+            # the ingest kernel per shard: its carried zi is the left
+            # neighbour's last t1 raw I/Q pairs, normalized where they land
+            zi = ax.halo(zi_fe, ax.map(tail(2 * t1), chunks),
+                         recv=lambda r: normalize_deinterleave(r, dtype))
+            if_i, if_q, zi_i, zi_q = ax.map(
+                lambda r, z: ingest_fir_decimate(
+                    r, rf_h, z[..., 0, :].contiguous(),
+                    z[..., 1, :].contiguous(), cfg.rf.decim), chunks, zi)
+            return if_i, if_q, ax.from_last(zi_i), ax.from_last(zi_q)
+        iq = ax.map(lambda r: normalize_deinterleave(r, dtype), chunks)
+        iq_ds, zi_fe = ax.map(
+            lambda x, z: fir_decimate(x, rf_h, z, cfg.rf.decim), iq,
+            ax.halo(zi_fe, ax.map(tail(t1), iq)))
+        if_i, if_q = ax.map(lambda y: (y[..., 0, :], y[..., 1, :]), iq_ds)
+        zi_fe = ax.from_last(zi_fe)
+        return if_i, if_q, zi_fe[..., 0, :], zi_fe[..., 1, :]
+
+    def discriminate(i, q, prev_i, prev_q):
+        fm, (pi, pq) = fm_discriminator(i, q, (prev_i, prev_q))
+        return fm, pi, pq
+
+    def last(x):
+        return x[..., -1]
+
+    @torch.no_grad()
+    def shard_body(ax, state: ReceiverState, raw_u8: torch.Tensor):
+        fe, au = state.frontend, state.audio
+
+        # ---- ingest + front end
+        if_i, if_q, zi_i, zi_q = ingest(ax, raw_u8, fe)
+        fm, pi, pq = ax.map(discriminate, if_i, if_q,
+                            ax.halo(fe.prev_i, ax.map(last, if_i)),
+                            ax.halo(fe.prev_q, ax.map(last, if_q)))
         fe_state = FrontendState(
             zi_i=zi_i.contiguous(), zi_q=zi_q.contiguous(),
             prev_i=ax.from_last(pi).clone(), prev_q=ax.from_last(pq).clone())
 
         # ---- IF band-passes (pilot, stereo channel[, RDS extract]): one
         # launch over fm with one shared tail, as in the serial receiver
-        bank, if_tail = fir_block_bank(fm, bank_h,
-                                       ax.halo(au.pilot_zi, fm[..., -s_t1:]))
+        bank, if_tail = ax.map(lambda x, z: fir_block_bank(x, bank_h, z), fm,
+                               ax.halo(au.pilot_zi, ax.map(tail(s_t1), fm)))
         if_tail = ax.from_last(if_tail).contiguous()
         pilot, chan = bank[0], bank[1]
         parts = [pilot]
         if enable_rds:
             extract = bank[2]
-            sq_tail = extract[..., -s_t1:] * extract[..., -s_t1:]
-            pre_pll, squared_zi = fir_block_pre(
-                extract, squared_h, ax.halo(state.rds.squared_zi, sq_tail),
-                "square")
+            pre_pll, squared_zi = ax.map(
+                lambda x, z: fir_block_pre(x, squared_h, z, "square"),
+                extract, ax.halo(state.rds.squared_zi, ax.map(
+                    lambda x: x[..., -s_t1:] * x[..., -s_t1:], extract)))
             parts.append(pre_pll)
 
         # ---- the PLL loops, one launch per chunk / pass
         st = stacked_state((au.pll, state.rds.pll) if enable_rds
                            else (au.pll,))
-        nco_i, nco_q, st = pll_chain(parts, st)
+        nco_i, nco_q, st = pll_chain(ax, parts, st)
         pilot_st = PLLState(*(v[0] for v in st))
-        nco = nco_i[0]
+        nco = ax.map(lambda x: x[0], nco_i)
 
         # ---- mono + stereo
         if up == 1:
-            (mono,), mono_zi = fir_bank_carried(
-                fm, [mono_h], ax.halo(au.mono_zi, fm[..., -a_t1:]), down)
-            mix_tail = 2.0 * chan[..., -a_t1:] * nco[..., -a_t1:]
-            (stereo,), stereo_zi = fir_bank_carried(
-                chan, [mono_h], ax.halo(au.stereo_zi, mix_tail), down,
-                x2=nco, pre="mul2")
+            (mono,), mono_zi = ax.map(
+                lambda x, z: fir_bank_carried(x, [mono_h], z, down), fm,
+                ax.halo(au.mono_zi, ax.map(tail(a_t1), fm)))
+            (stereo,), stereo_zi = ax.map(
+                lambda x, n, z: fir_bank_carried(x, [mono_h], z, down, x2=n,
+                                                 pre="mul2"),
+                chan, nco, ax.halo(au.stereo_zi, ax.map(
+                    lambda x, n: 2.0 * x[..., -a_t1:] * n[..., -a_t1:],
+                    chan, nco)))
             mono_zi, stereo_zi = ax.from_last(mono_zi), ax.from_last(stereo_zi)
         else:
-            pair = torch.stack([fm, 2.0 * chan * nco], dim=-2)
+            pair = ax.map(lambda f, x, n: torch.stack([f, 2.0 * x * n],
+                                                      dim=-2), fm, chan, nco)
             pair_zi = torch.stack([au.mono_zi, au.stereo_zi], dim=-2)
-            ys, zi2 = fir_resample(
-                pair, mono_h,
-                ax.halo(pair_zi, _upsampled_tail_of(pair, a_t1, up)),
-                up, down)
-            mono, stereo = ys[..., 0, :], ys[..., 1, :]
+            ys, zi2 = ax.map(
+                lambda x, z: fir_resample(x, mono_h, z, up, down), pair,
+                ax.halo(pair_zi, ax.map(
+                    lambda x: _upsampled_tail_of(x, a_t1, up), pair)))
+            mono, stereo = ax.map(lambda y: (y[..., 0, :], y[..., 1, :]), ys)
             zi2 = ax.from_last(zi2)
             mono_zi, stereo_zi = zi2[..., 0, :], zi2[..., 1, :]
         if blend_range is not None:
             # pilot RMS over the whole block: per-chunk power sums, summed
             lo, hi = blend_range
-            p_ss = ax.psum(torch.sum(pilot * pilot, dim=-1, keepdim=True))
+            p_ss = ax.psum(ax.map(
+                lambda x: torch.sum(x * x, dim=-1, keepdim=True), pilot))
             p_rms = torch.sqrt(p_ss * (1.0 / cfg.if_len))
-            stereo = stereo * torch.clamp((p_rms - lo) * (1.0 / (hi - lo)),
-                                          0.0, 1.0)
-        left = ax.all_gather(0.5 * (mono + stereo))
-        right = ax.all_gather(0.5 * (mono - stereo))
+            stereo = ax.map(torch.mul, stereo, torch.clamp(
+                (p_rms - lo) * (1.0 / (hi - lo)), 0.0, 1.0))
+        left = ax.all_gather(ax.map(lambda m, x: 0.5 * (m + x), mono, stereo))
+        right = ax.all_gather(ax.map(lambda m, x: 0.5 * (m - x), mono,
+                                     stereo))
         mono = ax.all_gather(mono)
         de = None
         if deemphasis is not None:
@@ -378,15 +597,29 @@ def make_time_sharded_receiver(
 
         rds_state = frame_state = rds_out = None
         if enable_rds:
-            # mixers + resampler (K6 on a CUDA tensor) over the stacked
-            # chunks: each reads its left neighbour's inputs in place as its
-            # halo, chunk 0 the carried zi; the new zi is the last chunk's
-            resamp, resamp_zi = resample_mul2(
-                extract, nco_i[1], nco_q[1], comb_h, state.rds.resamp_zi,
-                r.up, r.down, segments=T)
-            rrc, rrc_zi = fir_block(
-                resamp, rrc_h,
-                ax.halo(state.rds.rrc_zi, resamp[..., -rrc_t1:]))
+            if ax.stacked:
+                # mixers + resampler (K6 on a CUDA tensor) over the stacked
+                # chunks: each reads its left neighbour's inputs in place as
+                # its halo, chunk 0 the carried zi; the new zi is the last
+                # chunk's
+                resamp, resamp_zi = resample_mul2(
+                    extract, nco_i[1], nco_q[1], comb_h, state.rds.resamp_zi,
+                    r.up, r.down, segments=T)
+            else:
+                # K6 per shard, its zi the left neighbour's zero-stuffed
+                # mixed tail (the value the kernel writes as new_zi)
+                ni, nq = ax.map(lambda a, b: (a[1], b[1]), nco_i, nco_q)
+                resamp, resamp_zi = ax.map(
+                    lambda e, a, b, z: resample_mul2(e, a, b, comb_h, z, r.up,
+                                                     r.down),
+                    extract, ni, nq, ax.halo(state.rds.resamp_zi, ax.map(
+                        lambda e, a, b: resample_mul2_tail(e, a, b, comb_t1,
+                                                           r.up),
+                        extract, ni, nq)))
+                resamp_zi = ax.from_last(resamp_zi)
+            rrc, rrc_zi = ax.map(
+                lambda x, z: fir_block(x, rrc_h, z), resamp,
+                ax.halo(state.rds.rrc_zi, ax.map(tail(rrc_t1), resamp)))
             rds_state = RDSState(
                 extract_zi=if_tail,
                 squared_zi=ax.from_last(squared_zi).contiguous(),
@@ -399,17 +632,28 @@ def make_time_sharded_receiver(
                                                 rrc[..., 1, :])
             else:
                 rds_out = (rrc[..., 0, :], rrc[..., 1, :])
+        ax.join()
         new_state = ReceiverState(frontend=fe_state, audio=au_state,
                                   rds=rds_state, frame=frame_state)
         return new_state, ReceiverOutputs(left=left, right=right, mono=mono,
                                           rds=rds_out)
+
+    if mesh.spread:
+        # one stream per (channel shard, time shard), made once
+        rows_places = [time_shard_places(row) for row in mesh.time_devices]
+        bodies = [
+            lambda st, raw, places=places: shard_body(
+                _SpreadAxis(places, caller_place(raw.device)), st, raw)
+            for places in rows_places]
+    else:
+        bodies = [lambda st, raw: shard_body(ax, st, raw)] * n_sh
 
     def init_fn() -> tuple:
         return tuple(init() for init in serial_inits)
 
     def step_fn(state: tuple, raw_u8):
         return step_shards(
-            [shard_body] * n_sh, state,
+            bodies, state,
             (rows_on(raw_u8, sl, dev) for sl, dev in zip(rows, mesh.devices)),
             mesh.devices[0])
 

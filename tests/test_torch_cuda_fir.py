@@ -8,6 +8,8 @@ at the JAX tests' own bound ``_bf16_tol`` (tests/test_pallas_fir.py); the
 port computes in float32.
 """
 
+import weakref
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +19,7 @@ from rtsdr_tpu.ops import coeffs
 from rtsdr_tpu.ops import fir as jfir
 from rtsdr_tpu.ops import pallas_fir as jpf
 from rtsdr_tpu_torch.ops import cuda_fir as tcf
+from rtsdr_tpu_torch.ops import fir as tfir
 
 torch.set_num_threads(1)
 
@@ -260,3 +263,31 @@ def test_phase_taps_cached_by_identity():
     assert t is tcf._taps_on(list(BANK_H), "cpu")
     np.testing.assert_array_equal(
         t.numpy(), np.stack(BANK_H).astype(np.float32))
+
+
+def test_taps_cache_keeps_dropped_taps_until_its_next_emptying(monkeypatch):
+    """A wrapper takes the pointers of several cached taps in one call
+    (K1's bank entry: three), and a later lookup may empty the cache: the
+    taps it drops stay alive, so their memory goes to no new tensor before
+    the kernel that reads them is queued, and go at the next emptying."""
+    cache = tfir.DeviceCache(limit=2)
+    first = torch.arange(4.0)
+    seen = weakref.ref(first)
+    cache["a"] = (first,)
+    cache["b"] = (torch.zeros(1),)
+    cache["c"] = (torch.ones(1),)
+    del first
+    cache.make_room()                   # 3 entries > 2: emptied
+    assert not cache and seen() is not None
+    for k in "def":
+        cache[k] = (torch.zeros(1),)
+    cache.make_room()
+    assert not cache and seen() is None
+    # the taps cache itself: the first of many new arrays outlives the
+    # emptying its followers cause
+    monkeypatch.setattr(tfir, "_derived", tfir.DeviceCache())
+    arrays = [np.full(3, float(k)) for k in range(80)]
+    for a in arrays:
+        tcf._taps_on([a], "cpu")
+    assert len(tfir._derived) == 80 - 65
+    assert any(v[0][0] is arrays[0] for v in tfir._derived.dropped)

@@ -3,7 +3,8 @@
 
     python3 tools/torch_profile_step.py [--channels 1024] [--steps 4]
         [--mode {0,1,1rds}] [--wideband K --captures B]
-        [--time-shards T [--handoff {exact,stale,iterate}]]
+        [--time-shards T [--handoff {exact,stale,iterate}]
+                         [--devices cuda:0,cuda:0,...]]
         [--no-rds] [--no-frame] [--resync] [--fuse-if-bank]
 
 Runs ``rtsdr_tpu_torch``'s ``Receiver(cfg, (C,))`` (``--mode 0``, the
@@ -15,15 +16,21 @@ MODE1, audio through the x24/125 resampler; ``--mode 1rds``: MODE1_RDS;
 with ``--wideband K --captures B``, ``make_wideband_receiver(cfg, K, (B,))``
 (B captures at K x the RF rate per step, K x B stations; five live slots in
 16, the rest empty) — or, with ``--time-shards T``, the time-sharded
-receiver ``make_time_sharded_receiver(cfg, make_mesh(1, T), C,
-pll_handoff=...)`` (each block split into T chunks stacked on the card) — on
+receiver ``make_time_sharded_receiver(cfg, make_mesh(1, T, devices=[dev]),
+C, pll_handoff=...)`` (each block split into T chunks stacked on the card;
+with ``--devices`` the mesh ``make_mesh(None, T, devices)`` over that list,
+the spread route for a grid of n_ch x T: ``cuda:0`` repeated T times puts
+each time shard on its own stream of one card) — on
 the GPU over noisy synthetic FM stations that carry RDS and traces
 ``--steps`` steady steps
 with ``torch.profiler`` (CPU + CUDA activities), after timing as many
 untraced steps on the host clock.  Prints one JSON line: the card's name
 and power limit, the host-clock time per step, and device time per step by
 kernel name (hand-written kernels and the stock PyTorch ops
-around them), with the device's idle share of the traced window.  If the
+around them), with the device's idle share of the traced window; from the
+trace's device events, each stream's busy time, the time in which any
+stream was busy (``device_busy_union_ms_per_step``, and the idle share
+from it) and the time two or more streams overlapped.  If the
 profiler reports no device time (CUPTI unavailable), says so instead.
 """
 
@@ -32,6 +39,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -57,6 +65,38 @@ from rtsdr_tpu_torch.utils.signals import (  # noqa: E402
 )
 
 
+def stream_times(prof, steps: int) -> dict:
+    """Per step, from the trace's device events (kernels, copies, sets):
+    each stream's busy time, the union over streams and the time two or
+    more streams ran at once (the sum over streams less the union)."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    spans, per_stream = [], {}
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        t0, t1 = float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))
+        spans.append((t0, t1))
+        key = str(e.get("args", {}).get("stream", e.get("tid")))
+        per_stream[key] = per_stream.get(key, 0.0) + (t1 - t0)
+    union, end = 0.0, None
+    for t0, t1 in sorted(spans):
+        if end is None or t0 > end:
+            union += t1 - t0
+            end = t1
+        elif t1 > end:
+            union += t1 - end
+            end = t1
+    total = sum(per_stream.values())
+    return {"stream_busy_ms_per_step": {k: v / 1e3 / steps
+                                        for k, v in per_stream.items()},
+            "device_busy_union_ms_per_step": union / 1e3 / steps,
+            "streams_overlap_ms_per_step": (total - union) / 1e3 / steps}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--channels", type=int, default=1024)
@@ -69,6 +109,10 @@ def main() -> int:
     ap.add_argument("--time-shards", type=int, default=None, metavar="T")
     ap.add_argument("--handoff", choices=("exact", "stale", "iterate"),
                     default="exact", help="with --time-shards: PLL handoff")
+    ap.add_argument("--devices", default=None, metavar="LIST",
+                    help="with --time-shards: the mesh's devices, comma-"
+                         "separated (cuda:0 repeated T times: the spread "
+                         "route on one card)")
     ap.add_argument("--no-rds", action="store_true")
     ap.add_argument("--no-frame", action="store_true")
     ap.add_argument("--resync", action="store_true")
@@ -99,6 +143,8 @@ def main() -> int:
         kwargs["fuse_if_bank"] = args.fuse_if_bank
     elif args.fuse_if_bank or args.wideband:
         ap.error("--time-shards takes neither --fuse-if-bank nor --wideband")
+    if args.devices and not args.time_shards:
+        ap.error("--devices goes with --time-shards")
     if args.no_rds or cfg.rds is None:
         kwargs["enable_rds"] = False
     if args.wideband:
@@ -122,9 +168,15 @@ def main() -> int:
         shape = {"channels": c}
         if args.time_shards:
             kwargs["pll_handoff"] = args.handoff
-            init_fn, step_fn = make_time_sharded_receiver(
-                cfg, make_mesh(1, args.time_shards), c, **kwargs)
-            shape["time_shards"] = args.time_shards
+            mesh = (make_mesh(None, args.time_shards,
+                              devices=args.devices.split(","))
+                    if args.devices else
+                    make_mesh(1, args.time_shards, devices=[dev]))
+            init_fn, step_fn = make_time_sharded_receiver(cfg, mesh, c,
+                                                          **kwargs)
+            shape.update(time_shards=args.time_shards, spread=mesh.spread,
+                         grid=[[str(d) for d in row]
+                               for row in mesh.time_devices])
         else:
             rx = Receiver(cfg, (c,), **kwargs)
             init_fn, step_fn = rx.init, rx.step
@@ -162,6 +214,7 @@ def main() -> int:
                 return float(getattr(e, name))
         return 0.0
 
+    streams = stream_times(prof, args.steps)
     kernels = {}
     for e in prof.key_averages():
         us = dev_us(e)
@@ -184,6 +237,9 @@ def main() -> int:
             "device_busy_ms_per_step": busy_ms,
             "device_idle_share_of_wall": max(
                 0.0, 1.0 - busy_ms / (wall_ms / args.steps)),
+            **streams,
+            "device_idle_share_of_wall_union": max(0.0, 1.0 - streams[
+                "device_busy_union_ms_per_step"] / (wall_ms / args.steps)),
             "by_kernel": top,
             "all_other_kernels": {
                 "ms_per_step": sum(k["ms_per_step"] for k in small),
