@@ -120,6 +120,31 @@ git-ignored ``rtsdr_tpu_torch/build``), then
      ``init_fn()`` on the card, 2 steps: the last two steps' outputs bit
      for bit those of the continuous run; the keys those of the JAX
      package's checkpoint; each counted on its own;
+     ``jit`` — the compiled step (``utils/jit.py``: one CUDA graph
+     replayed over donated state) against the eager step on the same
+     inputs, each path counted on its own: MODE0 C = 1 (the stream's 24
+     blocks, ``resync`` on; between its halves more than 2 x 64 new tap
+     sets through the FIR-bank and PLL wrappers, so every device cache
+     turns over twice, and the freed memory filled with NaN), MODE0 and
+     the audio-only receiver at C = 1,024 (6 steps), MODE1_RDS C = 1 with
+     ``resync`` (8 blocks; its cuBLAS resampler held to
+     ``TOL_JIT_MATMUL``), wideband 16 x 8, the channel-sharded receiver
+     on a one-card mesh and the stacked time-sharded receiver at C =
+     1,024, T = 4, ``exact``: outputs and state bit for bit, launches per
+     step per kernel equal, one eager step under
+     ``torch.cuda.set_sync_debug_mode("error")``, the host clock per step
+     of both forms (eager, compiled, compiled, eager) and the compiled
+     step's device time from events around a burst of replays; a donated
+     state raising and reading empty; a checkpoint loaded into the
+     compiled receiver resuming bit for bit; MODE0 at C = 4,096 (2 steps,
+     the same checks), then its host clock and device time per step
+     eager, compiled with the block written into the step's input buffer
+     beforehand, compiled given its own tensor and compiled ``borrowed``,
+     in turns and in reverse.  Every other phase that uses ``Receiver``,
+     ``StreamRunner``, ``BatchRunner``, the sharded receivers on one card
+     or the stacked time-sharded route runs the compiled step; the kernel
+     cases record the wrappers' calls of eager steps (``jit=False``: a
+     replayed graph runs no Python);
      ``stage_timings`` — ``utils/profiling.py`` at C = 1,024, one line per
      stage with the card's name and power limit; ``trace`` — one MODE0 step
      at C = 1,024 under ``utils/trace.py``, whose Chrome trace must show the
@@ -250,6 +275,16 @@ STATION_PI, STATION_PS = 0x3A5C, "H100 FM "
 # the auxiliary modules' phases (checkpoint, stage table, trace, the
 # receivers never run on the card before, the decode campaign)
 N_CKPT_STEPS = 2              # steps before and after the checkpoint
+N_JIT_FLOOD = 2 * 64 + 8      # new tap sets through the wrappers
+N_JIT_M1_BLOCKS = 8
+N_JIT_WB_STEPS = 6
+JIT_TS_T = 4
+JIT_HOST_STEPS = 8            # steps per host-clock timing of a form
+N_JIT_WIDE = 4096             # the device-bound width of the in-place row
+# MODE1's audio resampler is a torch.matmul: cuBLAS may pick another
+# algorithm for a captured call, which sums in another order (float32,
+# audio |x| < 1)
+TOL_JIT_MATMUL = 2e-6
 CKPT_TS_SHARDS = 4
 N_RUNNER_1024_BLOCKS = 3
 N_PIPE_BLOCKS = 4
@@ -336,9 +371,10 @@ def main() -> int:
     from rtsdr_tpu_torch.pipeline.frontend import rf_lpf_taps
     from rtsdr_tpu_torch.pipeline.groups import GroupDecoder, format_group
     from rtsdr_tpu_torch.pipeline.rds import composed_resampler_taps
-    from rtsdr_tpu_torch.pipeline.receiver import Receiver
+    from rtsdr_tpu_torch.pipeline.receiver import Receiver, make_receiver
     from rtsdr_tpu_torch.pipeline.scan import classify, make_band_scanner
     from rtsdr_tpu_torch.pipeline.wideband import make_wideband_receiver
+    from rtsdr_tpu_torch.utils import jit as jit_mod
     from rtsdr_tpu_torch.utils import shards as shards_mod
     from rtsdr_tpu_torch.utils.checkpoint import (
         load_state, save_state, state_keys)
@@ -1072,7 +1108,9 @@ def main() -> int:
 
     def third_step_calls(init, step, block):
         """The wrappers' calls in the third step of a receiver: every
-        carried state is a mid-stream one, the loops are past acquiring."""
+        carried state is a mid-stream one, the loops are past acquiring.
+        The receiver steps eagerly (``jit=False``): a replayed graph runs
+        no Python, so it calls no wrapper."""
         st = init()
         for b in range(2):
             st, _ = step(st, block(b))
@@ -1148,7 +1186,7 @@ def main() -> int:
     cfg1 = MODE1_RDS
     comb1_h = composed_resampler_taps(cfg1)
     for c in (N_BATCH_CHANNELS, 1):
-        rx = Receiver(cfg1, (c,), enable_frame=False)
+        rx = Receiver(cfg1, (c,), enable_frame=False, jit=False)
         seen = third_step_calls(rx.init, rx.step, lambda b: m1_block(b, c))
         (fa,) = seen["ingest_fir_demod"]
         fargs = tuple(fa.values())
@@ -1174,7 +1212,7 @@ def main() -> int:
         replay(seen, mode=1)
         # the audio-only receiver: pilot + stereo band-passes (2 filters),
         # the pilot loop alone
-        rx = Receiver(MODE1, (c,), enable_rds=False)
+        rx = Receiver(MODE1, (c,), enable_rds=False, jit=False)
         replay(third_step_calls(rx.init, rx.step, lambda b: m1_block(b, c)),
                mode=1)
         del rx, seen, fa, ra, fargs, k, r, raw
@@ -1271,7 +1309,7 @@ def main() -> int:
     def ts_third_step_calls(cfg_, t_shards, block, **kw):
         init, step = make_time_sharded_receiver(
             cfg_, make_mesh(1, t_shards, devices=[dev]),
-            N_BATCH_CHANNELS, **kw)
+            N_BATCH_CHANNELS, jit=False, **kw)
         st = init()
         for b in range(2):
             st, _ = step(st, block(b))
@@ -1954,6 +1992,12 @@ def main() -> int:
                                                       **wb_kw)
     w1_init, w1_step = make_wideband_receiver(cfg, WB_K, **wb_kw)
 
+    def clone_tree(t):
+        if t is None or isinstance(t, torch.Tensor):
+            return None if t is None else t.clone()
+        vals = [clone_tree(v) for v in t]
+        return type(t)(*vals) if hasattr(t, "_fields") else tuple(vals)
+
     def trees_equal(a, b):
         if a is None or b is None:
             return a is None and b is None
@@ -1970,7 +2014,9 @@ def main() -> int:
     for b, raw in enumerate(raws):
         st_u, out_u = rx_c.step(st_u, raw)
         wst_u, wout_u = w1_step(wst_u, wb_dev[b])
-        ref_u.append((st_u, out_u))
+        # (a clone: the compiled receiver's next step updates its state
+        # in place)
+        ref_u.append((clone_tree(st_u), out_u))
         wref_u.append((wst_u, wout_u))
     torch.cuda.synchronize()
 
@@ -2692,6 +2738,276 @@ def main() -> int:
                          "wideband": rep_ck_wb, "keys": CHECKPOINT_KEYS,
                          "seconds": time.perf_counter() - t_ck},
           "card": card})
+
+    # ===== 12b. the compiled step (utils/jit.py: the CUDA-graph
+    # counterpart of jax.jit(step, donate_argnums=0)) against the eager
+    # step with the same kernels in the same order, each path on the same
+    # inputs: outputs and state bit for bit, launches per step per kernel
+    # equal, one eager step under set_sync_debug_mode("error"), then the
+    # host clock per step of both forms in turns (eager, compiled,
+    # compiled, eager) and the compiled step's device time from events
+    # around a burst of replays; each path counted on its own
+    t_jit = time.perf_counter()
+
+    def snap(tree):
+        return [t.clone() for t in _leaf_list(tree)]
+
+    def runs_differ(a, b):
+        """(largest |a - b| over float leaves, integer leaves that differ)
+        over two runs' per-step snapshots."""
+        err, int_diff = 0.0, 0
+        for xs, ys in zip(a, b):
+            for x, y in zip(xs, ys):
+                if x.dtype.is_floating_point:
+                    err = max(err, max_err(x, y))
+                elif not torch.equal(x, y):
+                    int_diff += 1
+        return err, int_diff
+
+    def jit_run(init, step, blocks, mid=None):
+        """Snapshots of every step's state and outputs; ``mid()`` runs
+        between the first and second halves of the blocks."""
+        st, states, outs = init(), [], []
+        for b, raw in enumerate(blocks):
+            if mid is not None and b == len(blocks) // 2:
+                mid()
+            st, out = step(st, raw)
+            states.append(snap(st))
+            outs.append(snap(out))
+        torch.cuda.synchronize()
+        return st, states, outs
+
+    def host_ms(init, step, blocks, st=None):
+        st = init() if st is None else st
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for raw in blocks:
+            st, _ = step(st, raw)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / len(blocks), st
+
+    def jit_path(label, make, blocks, tol=0.0, mid=None):
+        """``make(jit)`` -> (init, step); the path's report."""
+        e_init, e_step = make(False)
+        c_init, c_step = make(True)
+        if not isinstance(c_step, jit_mod.CompiledStep):
+            raise SystemExit(f"chip_smoke: jit path {label} is not compiled")
+        n = len(blocks)
+        _cuda.reset_launch_counts()
+        e_st, e_states, e_outs = jit_run(e_init, e_step, blocks)
+        e_counts = _cuda.launch_counts()
+        # a steady eager step (its caches filled by the run) makes no host
+        # synchronisation
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            e_st, _ = e_step(e_st, blocks[-1])
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        _cuda.reset_launch_counts()
+        c_st, c_states, c_outs = jit_run(c_init, c_step, blocks, mid)
+        c_counts = _cuda.launch_counts()
+        s_err, s_int = runs_differ(c_states, e_states)
+        o_err, o_int = runs_differ(c_outs, e_outs)
+        per_step = {k: v // n for k, v in e_counts.items()}
+        counts_ok = (c_step.per_step == per_step
+                     and c_counts == {k: v * n for k, v in per_step.items()}
+                     and all(v % n == 0 for v in e_counts.values()))
+        hb = blocks * max(1, JIT_HOST_STEPS // n)
+        e_ms1, e_st = host_ms(e_init, e_step, hb, e_st)
+        c_ms1, c_st = host_ms(c_init, c_step, hb, c_st)
+        c_ms2, c_st = host_ms(c_init, c_step, hb, c_st)
+        e_ms2, e_st = host_ms(e_init, e_step, hb, e_st)
+        held = [c_st]
+
+        def replay():
+            held[0], _ = c_step.borrowed(held[0], blocks[-1])
+        graph_ms = burst_ms(replay, calls=10, reps=3)
+        rep = {"path": label, "steps": n,
+               "state_max_abs_err": s_err, "state_int_leaves_differing": s_int,
+               "outputs_max_abs_err": o_err,
+               "outputs_int_leaves_differing": o_int, "tolerance": tol,
+               "state_leaves": len(c_states[0]),
+               "output_leaves": len(c_outs[0]),
+               "launches_per_step_eager": per_step,
+               "launches_per_step_compiled": c_step.per_step,
+               "launch_counts_equal": counts_ok,
+               "eager_step_under_sync_debug_error": "passed",
+               "host_ms_per_step_eager": [e_ms1, e_ms2],
+               "host_ms_per_step_compiled": [c_ms1, c_ms2],
+               "host_steps_timed": len(hb),
+               "compiled_device_ms_per_step_events": graph_ms}
+        if (s_int or o_int or not s_err <= tol or not o_err <= tol
+                or not counts_ok):
+            raise SystemExit(f"chip_smoke: the compiled step differs from "
+                             f"the eager one: {rep}")
+        # the live state: the burst's replays consumed c_st
+        return rep, c_init, c_step, held[0]
+
+    jit_rows = []
+    mesh_j = make_mesh(1, 1, devices=[dev])
+    st_blocks = [torch.as_tensor(station[b]).to(dev)
+                 for b in range(N_STREAM_BLOCKS)]
+
+    # the cache flood, between the two halves of the MODE0 C = 1 run:
+    # more than 2 x 64 new tap sets through the FIR-bank and PLL wrappers
+    # (every DeviceCache turns over twice), then the freed memory filled
+    # with NaN before the graph replays again
+    def flood():
+        saved = _cuda.launch_counts()     # not the path's launches
+        x = torch.randn(1, 4096, device=dev)
+        zi = torch.zeros(1, taps - 1, device=dev)
+        for k in range(N_JIT_FLOOD):
+            h = np.random.default_rng(k).standard_normal(taps)
+            cuda_fir.fir_bank_carried(x, [h], zi, 1)
+            cuda_pll.pll_cuda(x, pll_init((1,), device=dev),
+                              freq=np.array([19e3 + k]), fs=cfg.rf.if_fs)
+        torch.cuda.synchronize()
+        junk = [torch.full((1 << k,), float("nan"), device=dev)
+                for k in range(4, 22) for _ in range(8)]
+        torch.cuda.synchronize()
+        del junk
+        _cuda.LAUNCHES.clear()
+        _cuda.LAUNCHES.update(saved)
+
+    rep, c_init, c_step, c_st = jit_path(
+        "MODE0 C = 1, resync, cache flood at the middle",
+        lambda j: (lambda rx: (rx.init, rx.step))(
+            Receiver(cfg, (), resync=True, jit=j)),
+        st_blocks, mid=flood)
+    rep["cache_flood_tap_sets"] = N_JIT_FLOOD
+    jit_rows.append(rep)
+    # a donated tree raises; a checkpoint loads into the compiled receiver
+    s1, _ = c_step(c_init(), st_blocks[0])
+    s2, _ = c_step(s1, st_blocks[1])
+    try:
+        c_step(s1, st_blocks[2])
+        raise SystemExit("chip_smoke: a consumed state tree stepped")
+    except RuntimeError as e:
+        consumed = str(e)[:120]
+    # ... and reading it fails: its tensors were emptied, the live one's
+    # were not
+    if (any(t.numel() for t in _leaf_list(s1))
+            or not all(t.numel() for t in _leaf_list(s2))):
+        raise SystemExit("chip_smoke: a consumed state tree still reads")
+    e_init, e_step = make_receiver(cfg, (), resync=True)
+    st, ck_ref = e_init(), []
+    for raw in st_blocks[:2 * N_CKPT_STEPS]:
+        st, out = e_step(st, raw)
+        ck_ref.append(snap(out))
+    st = c_init()
+    for raw in st_blocks[:N_CKPT_STEPS]:
+        st, _ = c_step(st, raw)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        save_state(path, st)
+        st = load_state(path, c_init())
+    ck_same = True
+    for b, raw in enumerate(st_blocks[N_CKPT_STEPS:2 * N_CKPT_STEPS]):
+        st, out = c_step(st, raw)
+        ck_same = ck_same and all(
+            torch.equal(x, y) for x, y in zip(snap(out),
+                                              ck_ref[N_CKPT_STEPS + b]))
+    if not ck_same:
+        raise SystemExit("chip_smoke: a checkpoint loaded into the compiled "
+                         "receiver does not resume bit for bit")
+    del c_init, c_step, c_st, s1, s2, st, ck_ref
+
+    jit_rows.append(jit_path(
+        f"MODE0 C = {N_BATCH_CHANNELS}",
+        lambda j: (lambda rx: (rx.init, rx.step))(
+            Receiver(cfg, (N_BATCH_CHANNELS,), jit=j)),
+        [batch_block(b) for b in range(N_BATCH_STEPS)])[0])
+    torch.cuda.empty_cache()
+    jit_rows.append(jit_path(
+        f"MODE0 audio only C = {N_BATCH_CHANNELS}",
+        lambda j: (lambda rx: (rx.init, rx.step))(
+            Receiver(cfg, (N_BATCH_CHANNELS,), enable_rds=False, jit=j)),
+        [batch_block(b) for b in range(N_BATCH_STEPS)])[0])
+    torch.cuda.empty_cache()
+    jit_rows.append(jit_path(
+        "MODE1_RDS C = 1, resync",
+        lambda j: (lambda rx: (rx.init, rx.step))(
+            Receiver(cfg1, (), resync=True, jit=j)),
+        [torch.as_tensor(m1_station[b]).to(dev)
+         for b in range(N_JIT_M1_BLOCKS)], tol=TOL_JIT_MATMUL)[0])
+    jwb_blocks = []
+    for b in range(N_JIT_WB_STEPS):
+        rows = torch.as_tensor(wb_host[b]).to(dev).expand(
+            WB_CAPTURES, -1).to(torch.int16)
+        noise = torch.randint(-2, 3, rows.shape, generator=gen, device=dev,
+                              dtype=torch.int16)
+        noise[0] = 0
+        jwb_blocks.append((rows + noise).clamp_(0, 255).to(torch.uint8))
+    del rows, noise
+
+    def wideband_jit(j):
+        init, step = make_wideband_receiver(cfg, WB_K, (WB_CAPTURES,),
+                                            **wb_kw)
+        return jit_mod.jit_step(init, step, dev) if j else (init, step)
+
+    jit_rows.append(jit_path(f"wideband {WB_K} x {WB_CAPTURES}, resync",
+                             wideband_jit, jwb_blocks)[0])
+    del jwb_blocks
+    torch.cuda.empty_cache()
+    jit_rows.append(jit_path(
+        f"channel-sharded one-card mesh C = {N_BATCH_CHANNELS}",
+        lambda j: make_channel_sharded_receiver(
+            cfg, mesh_j, N_BATCH_CHANNELS, jit=j)[:2],
+        [batch_block(b) for b in range(N_BATCH_STEPS)])[0])
+    torch.cuda.empty_cache()
+    jit_rows.append(jit_path(
+        f"time-sharded stacked C = {N_BATCH_CHANNELS}, T = {JIT_TS_T}, "
+        "exact",
+        lambda j: make_time_sharded_receiver(
+            cfg, make_mesh(1, JIT_TS_T, devices=[dev]), N_BATCH_CHANNELS,
+            jit=j),
+        [batch_block(b) for b in range(N_TS_BATCH_STEPS)])[0])
+    torch.cuda.empty_cache()
+
+    # MODE0 C = 4,096 (device-bound): the compiled step given the block
+    # already written into its static input buffer (as the runners write
+    # each block) against the eager step given its own tensor, and the
+    # compiled step given its own tensor (one device copy into that
+    # buffer) and its borrowed form (no output copies, the runners');
+    # the forms in turns, then in reverse, host clock per step and device
+    # time by events around a burst
+    wide_blocks = [batch_block(b, N_JIT_WIDE) for b in range(2)]
+    rep, _, w_step, w_st = jit_path(
+        f"MODE0 C = {N_JIT_WIDE}",
+        lambda j: (lambda rx: (rx.init, rx.step))(
+            Receiver(cfg, (N_JIT_WIDE,), jit=j)), wide_blocks)
+    e_init, e_step = make_receiver(cfg, (N_JIT_WIDE,))
+    own = wide_blocks[-1]
+    buf = w_step.input_buffer(own.shape)
+    buf.copy_(own)
+    forms = {"eager": (e_step, own),
+             "compiled, input in place": (w_step, buf),
+             "compiled, own input tensor": (w_step, own),
+             "compiled borrowed, input in place": (w_step.borrowed, buf)}
+    wide_st = {"eager": e_init(), "compiled": w_st}
+    wide_host = {k: [] for k in forms}
+    wide_dev = {k: [] for k in forms}
+    for order in (list(forms), list(forms)[::-1]):
+        for k in order:
+            fn, raw = forms[k]
+            key = "eager" if k == "eager" else "compiled"
+            ms, wide_st[key] = host_ms(None, fn, [raw] * JIT_HOST_STEPS,
+                                       wide_st[key])
+            wide_host[k].append(ms)
+
+            def one(fn=fn, raw=raw, key=key):
+                wide_st[key], _ = fn(wide_st[key], raw)
+            wide_dev[k].append(burst_ms(one, calls=10, reps=3))
+    rep["in_place"] = {"host_ms_per_step": wide_host,
+                       "device_ms_per_step_events": wide_dev,
+                       "steps_per_host_timing": JIT_HOST_STEPS}
+    jit_rows.append(rep)
+    del wide_blocks, w_step, w_st, e_step, own, buf, forms, wide_st
+    torch.cuda.empty_cache()
+    emit({"jit": {"paths": jit_rows, "consumed_tree_raised": consumed,
+                  "checkpoint_into_compiled_bit_for_bit": ck_same,
+                  "seconds": time.perf_counter() - t_jit}, "card": card})
 
     # ===== 13. the per-stage table (utils/profiling.py) at C = 1,024
     t_st = time.perf_counter()

@@ -443,7 +443,8 @@ def _read_exact_fd(fd: int, n: int) -> bytearray | None:
 
 
 def _scan_band(cfg, k, max_blocks, device):
-    """Run the band scanner over the next stdin blocks.
+    """Run the band scanner over the next stdin blocks (eagerly: the JAX
+    CLI jits this loop without donation, and the port leaves it eager).
 
     Returns (mean ScanMetrics of host arrays, verdicts, blocks consumed) or
     None if the capture is too short (<2 blocks; block 0 carries warm-up
@@ -526,8 +527,13 @@ def _wideband_decode(cfg, k, max_blocks, kwargs, rds_groups=False,
     from rtsdr_tpu_torch.ops.channelizer import channel_center_freqs
     from rtsdr_tpu_torch.pipeline.wideband import make_wideband_receiver
     from rtsdr_tpu_torch.runtime import BlockReader
+    from rtsdr_tpu_torch.utils.jit import borrowing, jit_step
 
-    init_fn, step = make_wideband_receiver(cfg, k, **kwargs)
+    # compiled with its state donated, as the JAX CLI's jax.jit(step_fn,
+    # donate_argnums=0)
+    device = kwargs["device"]
+    init_fn, step = jit_step(*make_wideband_receiver(cfg, k, **kwargs),
+                             device, name=f"wideband receiver K={k}")
     state = init_fn()
     freqs = channel_center_freqs(k, k * cfg.rf.fs)
     offs = kwargs.get("channel_offsets_hz")
@@ -537,8 +543,8 @@ def _wideband_decode(cfg, k, max_blocks, kwargs, rds_groups=False,
           " ".join(f"{f / 1e6:+.3g}M" for f in freqs), file=sys.stderr)
 
     wbs = k * cfg.block_size
-    device = kwargs["device"]
-    feeder = Feeder((wbs,), device)
+    step, into = borrowing(step, (wbs,))
+    feeder = Feeder((wbs,), device, into)
     fetcher = Fetcher(device)
     writers: list = [None] * k
     decoders = _station_decoders(k, cfg, kwargs, rds_groups, pty_table)

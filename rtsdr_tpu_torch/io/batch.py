@@ -22,18 +22,25 @@ from rtsdr_tpu_torch.io.staging import Feeder, Fetcher
 from rtsdr_tpu_torch.io.stream import fetch_list, fetched_frame
 from rtsdr_tpu_torch.pipeline.receiver import Receiver
 from rtsdr_tpu_torch.runtime import BlockReader
+from rtsdr_tpu_torch.utils.jit import borrowing
 
 
 class BatchRunner:
-    """N byte streams decoded as one channel-batched receiver."""
+    """N byte streams decoded as one channel-batched receiver.  ``jit``
+    (default True) and the other ``kwargs`` go to ``Receiver``, as in
+    ``StreamRunner``."""
 
     def __init__(self, cfg: ReceiverConfig, fds: list[int],
-                 dtype=torch.float32, device="cuda", **kwargs):
+                 dtype=torch.float32, device="cuda", jit: bool = True,
+                 **kwargs):
         self.cfg = cfg
         self.n = len(fds)
-        self.rx = Receiver(cfg, (self.n,), dtype, device=device, **kwargs)
+        self.rx = Receiver(cfg, (self.n,), dtype, device=device, jit=jit,
+                           **kwargs)
         self.readers = [BlockReader(fd, cfg.block_size) for fd in fds]
-        self._feeder = Feeder((self.n, cfg.block_size), self.rx.device)
+        shape = (self.n, cfg.block_size)
+        self._step, into = borrowing(self.rx.step, shape)
+        self._feeder = Feeder(shape, self.rx.device, into)
         self._fetcher = Fetcher(self.rx.device)
 
     def close(self) -> None:
@@ -90,7 +97,7 @@ class BatchRunner:
             batch = self.read_batch()
             if batch is None:
                 break
-            state, out = self.rx.step(state, batch)
+            state, out = self._step(state, batch)
             ticket = self._fetcher.start(
                 fetch_list(out) if rds_hook is not None
                 else (out.left, out.right))

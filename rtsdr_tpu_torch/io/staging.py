@@ -16,7 +16,7 @@ after the NEXT block's kernels were enqueued on the same stream.  So:
     b+1 blocks only until those copies are done — block b+1 keeps
     computing meanwhile.
 
-On the CPU device both degrade to plain tensor/numpy views.
+On the CPU device both degrade to plain tensor/numpy copies.
 """
 
 from __future__ import annotations
@@ -26,14 +26,20 @@ import torch
 
 
 class Feeder:
-    """numpy uint8 blocks -> device tensors through pinned staging."""
+    """numpy uint8 blocks -> device tensors through pinned staging.
 
-    def __init__(self, shape: tuple, device: torch.device):
+    ``into``: a device tensor each block is copied into (a compiled step's
+    static input buffer, ``utils/jit.py``), in place of a new tensor per
+    block; the step that reads it is enqueued after the copy, and the next
+    copy after that step, on the same stream."""
+
+    def __init__(self, shape: tuple, device: torch.device, into=None):
         self.device = device
         self.cuda = device.type == "cuda"
         self._bufs = [torch.empty(shape, dtype=torch.uint8,
                                   pin_memory=self.cuda) for _ in range(2)]
         self._slot = 0
+        self.into = into
 
     def staging(self) -> np.ndarray:
         """The next staging buffer as a numpy view (fill it, then call
@@ -44,6 +50,8 @@ class Feeder:
     def push(self) -> torch.Tensor:
         """Device tensor of the buffer ``staging`` last handed out."""
         buf = self._bufs[self._slot]
+        if self.into is not None:
+            return self.into.copy_(buf, non_blocking=True)
         if not self.cuda:
             return buf.clone()
         return buf.to(self.device, non_blocking=True)
@@ -60,7 +68,9 @@ class Fetcher:
     def start(self, tensors: tuple):
         """Begin fetching ``tensors``; returns a ticket for ``wait``."""
         if not self.cuda:
-            return None, tuple(t.numpy() for t in tensors)
+            # copies: a compiled step's outputs are its own buffers, which
+            # the next step overwrites
+            return None, tuple(t.numpy().copy() for t in tensors)
         self._slot ^= 1
         bufs = self._bufs[self._slot]
         if (bufs is None or len(bufs) != len(tensors)

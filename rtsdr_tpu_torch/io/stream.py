@@ -20,6 +20,7 @@ from rtsdr_tpu_torch.io.staging import Feeder, Fetcher
 from rtsdr_tpu_torch.pipeline.frame import SYNDROME_NAMES, FrameOutputs
 from rtsdr_tpu_torch.pipeline.receiver import Receiver
 from rtsdr_tpu_torch.runtime import BlockReader, emit_int16_interleave
+from rtsdr_tpu_torch.utils.jit import borrowing
 
 
 def format_rds_events(frame_out) -> list[str]:
@@ -63,12 +64,16 @@ def fetched_frame(arrays: tuple):
 
 
 class StreamRunner:
-    """Single-station streaming receiver over a byte stream."""
+    """Single-station streaming receiver over a byte stream.  ``jit``
+    (default True) and the other ``kwargs`` go to ``Receiver``: compiled,
+    each block is copied straight into the step's static input and its
+    outputs are fetched from the step's own buffers before the next step
+    is enqueued."""
 
     def __init__(self, cfg: ReceiverConfig, dtype=torch.float32,
-                 device="cuda", **kwargs):
+                 device="cuda", jit: bool = True, **kwargs):
         self.cfg = cfg
-        self.rx = Receiver(cfg, (), dtype, device=device, **kwargs)
+        self.rx = Receiver(cfg, (), dtype, device=device, jit=jit, **kwargs)
 
     def run(
         self,
@@ -89,7 +94,8 @@ class StreamRunner:
         cfg = self.cfg
         scale = cfg.audio_scale if audio_scale is None else audio_scale
         state = self.rx.init()
-        feeder = Feeder((cfg.block_size,), self.rx.device)
+        step, into = borrowing(self.rx.step, (cfg.block_size,))
+        feeder = Feeder((cfg.block_size,), self.rx.device, into)
         fetcher = Fetcher(self.rx.device)
         n_blocks = 0
         n_syncs = 0
@@ -123,7 +129,7 @@ class StreamRunner:
             while max_blocks is None or n_blocks < max_blocks:
                 if not reader.read_block_into(feeder.staging()):
                     break
-                state, out = self.rx.step(state, feeder.push())
+                state, out = step(state, feeder.push())
                 ticket = fetcher.start(fetch_list(out))
                 drain(pending)  # overlap: emit block b-1 while b computes
                 pending = ticket

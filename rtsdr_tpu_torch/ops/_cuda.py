@@ -11,8 +11,9 @@ stream are declared ``c_void_p`` (an undeclared Python int would be cut to
 
 Each C entry point launches on the stream it is given, allocates nothing,
 does not synchronise and returns ``cudaGetLastError()``; ``launch`` raises
-when that is not 0 and otherwise adds one to the kernel's launch count —
-the only place a count changes.
+when that is not 0 and otherwise adds one to the kernel's launch count.
+The one other place a count changes is ``add_launches``: a replayed CUDA
+graph adds the launches its capture recorded.
 """
 
 from __future__ import annotations
@@ -83,6 +84,14 @@ def launch_counts() -> dict[str, int]:
 
 def reset_launch_counts() -> None:
     LAUNCHES.clear()
+
+
+def add_launches(counts: dict) -> None:
+    """Count a replayed CUDA graph's launches: ``counts`` are those its
+    capture recorded (``utils/jit.py``), so a replay counts what the eager
+    step would."""
+    for name, n in counts.items():
+        LAUNCHES[name] = LAUNCHES.get(name, 0) + n
 
 
 def _find_nvcc() -> str:

@@ -172,15 +172,35 @@ class DeviceCache(dict):
     their taps), or through a pointer its wrapper took before a later
     lookup of the same call emptied the cache.  So the values of one
     emptying are kept until the next, which first waits for the work
-    queued on every device."""
+    queued on every device.
+
+    A CUDA graph bakes the addresses its capture looked up, so a compiled
+    step (``utils/jit.py``) keeps ``held_values()`` for the graph's
+    lifetime; emptying a cache during a capture raises (the warm-up before
+    a capture fills the caches, so a normal capture only hits)."""
+
+    instances: list = []
 
     def __init__(self, limit: int = 64):
         super().__init__()
         self.limit, self.dropped = limit, []
+        DeviceCache.instances.append(self)
+
+    @classmethod
+    def held_values(cls) -> list:
+        """Every value the caches hold now."""
+        return [v for cache in cls.instances for v in cache.values()]
 
     def make_room(self) -> None:
         if len(self) <= self.limit:
             return
+        if torch.cuda.is_initialized() and \
+                torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "DeviceCache: a CUDA graph capture looked up a new entry "
+                f"in a full cache ({len(self)} > {self.limit} entries): "
+                "emptying it needs a device synchronisation, which no "
+                "capture admits; the step builds new tap arrays per call")
         if torch.cuda.is_initialized():
             for i in range(torch.cuda.device_count()):
                 torch.cuda.synchronize(i)

@@ -217,12 +217,16 @@ def pll_extrapolate_by(state: PLLState, theta_advance, n_steps, *,
     be numpy arrays broadcastable against the state's batch shape (the
     time-sharded receiver extrapolates each shard by its own offset, and
     two differently configured loops, in one call); the result has the
-    broadcast shape.
+    broadcast shape.  They may also be tensors on the state's device, made
+    once (with the same float64 -> dtype rounding), so that a captured
+    step copies nothing from the host.
     """
     leaf = state.phase_est
     dtype, dev = leaf.dtype, leaf.device
 
     def const(v):
+        if isinstance(v, torch.Tensor):   # made on the device beforehand
+            return v.to(dtype=dtype, device=dev)
         return torch.as_tensor(np.asarray(v, np.float64)).to(dtype).to(dev)
 
     theta = torch.remainder(state.theta + const(theta_advance), _FOUR_PI)

@@ -19,6 +19,7 @@ from rtsdr_tpu_torch.parallel.mesh import (
     rows_on,
 )
 from rtsdr_tpu_torch.pipeline.receiver import make_receiver
+from rtsdr_tpu_torch.utils.jit import jit_on_one_device
 from rtsdr_tpu_torch.utils.shards import step_shards
 
 
@@ -27,6 +28,7 @@ def make_channel_sharded_receiver(
     mesh: Mesh,
     n_channels: int,
     dtype=torch.float32,
+    jit: bool = True,
     **kwargs,
 ):
     """Build ``(init_fn, step_fn, row_split)`` with the channels spread over
@@ -39,6 +41,12 @@ def make_channel_sharded_receiver(
     host array or a tensor on any device); each shard's rows go to its
     device.  Outputs are the serial receiver's, rows in global order, on the
     mesh's first device.  ``kwargs`` go to ``make_receiver``.
+
+    ``jit`` (default True): on a mesh of one device (shards may repeat it)
+    the step is compiled with its state donated, as the JAX package's
+    ``jax.jit(step, donate_argnums=0)`` (``utils/jit.py``: the state it
+    returns is updated in place by the next call); a mesh over two or more
+    devices steps eagerly.
     """
     rows = row_split(n_channels, mesh.shape[CHANNEL_AXIS])
     per = n_channels // len(rows)
@@ -54,7 +62,9 @@ def make_channel_sharded_receiver(
             (rows_on(raw_u8, sl, dev) for sl, dev in zip(rows, mesh.devices)),
             mesh.devices[0])
 
-    return init_fn, step_fn, rows
+    return (*jit_on_one_device(
+        init_fn, step_fn, mesh.devices, jit,
+        f"channel-sharded receiver ({len(rows)} shards)"), rows)
 
 
 def make_wideband_sharded_receiver(
@@ -71,10 +81,16 @@ def make_wideband_sharded_receiver(
     go to its device and decode there (``channel_sharding``).  State: a
     ``WidebandState`` whose ``rx`` is a tuple of per-shard receiver states.
     Outputs are the unsharded receiver's, stations in order, on the first
-    device.
+    device.  On a mesh of one device the step is compiled with its state
+    donated, as the JAX package's is always (``utils/jit.py``); a mesh over
+    two or more devices steps eagerly.  ``make_wideband_receiver`` with no
+    ``jit_step`` is the eager step.
     """
     from rtsdr_tpu_torch.pipeline.wideband import make_wideband_receiver
 
-    return make_wideband_receiver(cfg, n_rf_channels, dtype=dtype,
-                                  channel_sharding=mesh.devices,
-                                  device=mesh.devices[0], **kwargs)
+    return jit_on_one_device(
+        *make_wideband_receiver(cfg, n_rf_channels, dtype=dtype,
+                                channel_sharding=mesh.devices,
+                                device=mesh.devices[0], **kwargs),
+        mesh.devices, True,
+        f"wideband-sharded receiver K={n_rf_channels}")

@@ -31,7 +31,12 @@ def measure_scaling(
     per-device rate.  ``devices``: the devices to take the first n of
     (default every visible CUDA device); ``kwargs`` go to the receiver.
     The rate is a slope: (time of k2 steps - time of k1 steps) / (k2 - k1),
-    each the best of two runs, on the host clock after a synchronise."""
+    each the best of two runs, on the host clock after a synchronise.
+
+    Every count runs the eager step (``jit=False``): a mesh over two or more
+    devices is not compiled yet (``utils/jit.py::jit_on_one_device``), so a
+    compiled one-device baseline would set each efficiency against another
+    step."""
     mesh_all = make_mesh(devices=devices)
     n = len(mesh_all.devices)
     if device_counts is None:
@@ -43,7 +48,7 @@ def measure_scaling(
         mesh = make_mesh(n_dev, 1, devices=mesh_all.devices)
         n_ch = channels_per_device * n_dev
         init_fn, step_fn, _ = make_channel_sharded_receiver(
-            cfg, mesh, n_ch, torch.float32, **kwargs)
+            cfg, mesh, n_ch, torch.float32, jit=False, **kwargs)
         raw = rng.integers(0, 256, (n_ch, cfg.block_size), dtype=np.uint8)
 
         def run(k):

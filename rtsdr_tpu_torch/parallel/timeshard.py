@@ -94,6 +94,7 @@ from rtsdr_tpu_torch.pipeline.receiver import (
     ReceiverState,
     make_receiver,
 )
+from rtsdr_tpu_torch.utils.jit import jit_on_one_device
 from rtsdr_tpu_torch.utils.shards import (
     caller_place,
     move,
@@ -316,6 +317,7 @@ def make_time_sharded_receiver(
     error_correct: bool = False,
     stereo_blend: bool | tuple = False,
     derotate: bool = False,
+    jit: bool = True,
 ):
     """Build ``(init_fn, step_fn)`` sharded over (channel, time).
 
@@ -340,6 +342,14 @@ def make_time_sharded_receiver(
 
     On a spread mesh (``mesh.spread``) each time shard steps on its own
     device and stream; state and outputs are as on a stacked one.
+
+    ``jit`` (default True): the stacked route on a mesh of one device is
+    compiled with its state donated, as the JAX package's
+    ``jax.jit(shard_map(...), donate_argnums=0)`` (``utils/jit.py``: the
+    state it returns is updated in place by the next call).  The spread
+    route, and a mesh over two or more devices, step eagerly whatever
+    ``jit`` says (a capture across the per-shard streams is not built
+    yet).
 
     ``ingest_impl``: ``'fused'`` (the ingest kernel: on the stacked route
     over every chunk and its left neighbour's raw tail in place,
@@ -447,11 +457,35 @@ def make_time_sharded_receiver(
 
     comb_t1 = len(comb_h) - 1 if enable_rds else 0
 
+    # the constants in the shapes the calls take, made once: the PLL
+    # kernel's plans go by the arrays' identity, and the seeds' constants
+    # lie on the state's device (a per-step host copy would synchronise)
+    shaped_consts: dict = {}
+
+    def consts_for(ndim):
+        if ndim not in shaped_consts:
+            shape = (n_loops,) + (1,) * (ndim - 1)
+            shaped_consts[ndim] = {k: v.reshape(shape)
+                                   for k, v in loop_consts.items()}
+        return shaped_consts[ndim]
+
+    seed_consts: dict = {}
+
+    def seed_consts_on(leaf):
+        key = (leaf.device, leaf.dtype)
+        if key not in seed_consts:
+            seed_consts[key] = tuple(
+                torch.as_tensor(np.asarray(v, np.float64)).to(leaf.dtype)
+                .to(leaf.device)
+                for v in (adv_tab, ns_tab,
+                          loop_consts["nco_scale"][:, None, None],
+                          loop_consts["phase_adjust"][:, None, None]))
+        return seed_consts[key]
+
     def run_pll(parts, st):
-        shape = (n_loops,) + (1,) * (st.integrator.dim() - 1)
         return pll(tuple(parts), st, fs=cfg.rf.if_fs, impl=pll_impl,
                    loop_div=pll_loop_div,
-                   **{k: v.reshape(shape) for k, v in loop_consts.items()})
+                   **consts_for(st.integrator.dim()))
 
     def tail(n):
         return lambda x: x[..., -n:]
@@ -462,10 +496,10 @@ def make_time_sharded_receiver(
         and the new (L, C) state."""
         if pll_passes == 0:
             return ax.chain(run_pll, st, parts, out_dim=1)
+        adv, ns, scale, adjust = seed_consts_on(st.theta)
         seed = pll_extrapolate_by(
-            PLLState(*(leaf[:, None] for leaf in st)), adv_tab, ns_tab,
-            nco_scale=loop_consts["nco_scale"][:, None, None],
-            phase_adjust=loop_consts["phase_adjust"][:, None, None])
+            PLLState(*(leaf[:, None] for leaf in st)), adv, ns,
+            nco_scale=scale, phase_adjust=adjust)
         start = PLLState(*(ax.first_or(a, b, 1) for a, b in zip(st, seed)))
         for p in range(pll_passes):
             nco_i, nco_q, end = ax.map(run_pll, parts, start)
@@ -657,4 +691,6 @@ def make_time_sharded_receiver(
             (rows_on(raw_u8, sl, dev) for sl, dev in zip(rows, mesh.devices)),
             mesh.devices[0])
 
-    return init_fn, step_fn
+    return jit_on_one_device(
+        init_fn, step_fn, mesh.devices, jit and not mesh.spread,
+        f"time-sharded receiver ({n_sh} x {T} shards, {pll_handoff})")

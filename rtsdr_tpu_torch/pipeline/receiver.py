@@ -5,8 +5,9 @@ ONE function
 
     step(state, raw_u8) -> (state, outputs)
 
-run eagerly under ``torch.no_grad()`` (there is no gradient anywhere in
-this system).  uint8 -> float conversion runs on the device: the host
+run under ``torch.no_grad()`` (there is no gradient anywhere in this
+system): ``make_receiver``'s step eagerly, ``Receiver``'s (``jit=True``)
+compiled as one CUDA graph over donated state (``utils/jit.py``).  uint8 -> float conversion runs on the device: the host
 transfers 1 byte per sample.
 
 The complete mode-0 graph: front end, mono + stereo audio, RDS DSP, RDS
@@ -62,6 +63,7 @@ from rtsdr_tpu_torch.pipeline.frontend import (
     rf_lpf_taps,
 )
 from rtsdr_tpu_torch.pipeline.rds import RDSState, make_rds, rds_init
+from rtsdr_tpu_torch.utils.jit import CompiledStep
 
 
 class ReceiverState(NamedTuple):
@@ -290,16 +292,40 @@ def make_receiver(
 
 class Receiver:
     """Convenience wrapper: ``init()`` and ``step(state, raw_u8)`` on one
-    device.  Each step returns a new state tree; nothing is updated in
-    place."""
+    device, the step compiled with its state donated (the JAX package's
+    ``jax.jit(step, donate_argnums=0)``).
+
+    ``jit=True`` (the default): ``step`` is a ``utils/jit.py::CompiledStep``.
+    On a CUDA device it is captured once as a CUDA graph and replayed per
+    block over one static state tree, which it updates in place: the state
+    it returns is valid until it is passed back, a state passed after a
+    later call raises, and any other state (``init()``, a loaded
+    checkpoint) is copied in.  Its outputs belong to the caller.  A block
+    passed as its own tensor is copied into the step's static input; a loop
+    writes each block into ``rx.step.input_buffer(shape)`` instead and
+    passes that, saving the copy::
+
+        raw = rx.step.input_buffer((C, cfg.block_size))
+        for block in blocks:
+            raw.copy_(block, non_blocking=True)
+            state, out = rx.step(state, raw)
+
+    ``jit=False`` runs ``make_receiver``'s eager step, which returns a new
+    state tree per step and updates nothing in place (for debugging: each
+    stage's launches are then separate calls)."""
 
     def __init__(self, cfg: ReceiverConfig, batch_shape: tuple = (),
-                 dtype=torch.float32, device="cuda", **kwargs):
+                 dtype=torch.float32, device="cuda", jit: bool = True,
+                 **kwargs):
         self.cfg = cfg
         self.batch_shape = batch_shape
         self.device = resolve_device(device)
         self.init_fn, self.step = make_receiver(
             cfg, batch_shape, dtype, device=self.device, **kwargs)
+        if jit:
+            self.step = CompiledStep(
+                self.init_fn, self.step, self.device,
+                name=f"Receiver(mode {cfg.mode}, batch {tuple(batch_shape)})")
 
     def init(self) -> ReceiverState:
         return self.init_fn()

@@ -14,7 +14,9 @@ classify activity per channel:
 One step per wideband block; all K channels scan together.  The RF
 low-pass ↓10 of the 'iq' front end is the FIR-bank kernel on a CUDA
 tensor; the channelizer product, the discriminator and the PSD probes are
-stock tensor ops, as the reference leaves them to its compiler.
+stock tensor ops, as the reference leaves them to its compiler.  The step
+runs eagerly: the JAX CLI jits the scanner's loop without donation, and
+the port does not compile it (``utils/jit.py`` compiles the receivers).
 """
 
 from __future__ import annotations

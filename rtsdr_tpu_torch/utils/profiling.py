@@ -6,7 +6,9 @@ Each stage is timed with the slope method (k1 and k2 chained calls, one
 synchronisation, min over repeats; the difference over k2 - k1 removes the
 fixed cost) on representative block-sized inputs, batched over channels.
 On a CUDA device the interval is read from CUDA events, on the CPU from
-``time.perf_counter``.
+``time.perf_counter``.  Each stage runs eagerly: the JAX package jits each
+stage, and the port leaves the table uncompiled (``utils/jit.py`` compiles
+the receivers' block steps, not these stages).
 
 Where each stage runs on the card: ``fir_decimate``, ``fir_block`` and the
 mono ``fir_resample`` (up = 1) launch the FIR-bank kernel

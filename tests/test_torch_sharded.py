@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from rtsdr_tpu_torch.config import MODE0
-from rtsdr_tpu_torch.parallel import multihost
+from rtsdr_tpu_torch.parallel import multihost, scaling
 from rtsdr_tpu_torch.parallel.channels import (
     make_channel_sharded_receiver,
     make_wideband_sharded_receiver,
@@ -31,6 +31,7 @@ from rtsdr_tpu_torch.parallel.mesh import CHANNEL_AXIS, TIME_AXIS, make_mesh
 from rtsdr_tpu_torch.parallel.scaling import measure_scaling
 from rtsdr_tpu_torch.pipeline.receiver import ReceiverOutputs, make_receiver
 from rtsdr_tpu_torch.pipeline.wideband import make_wideband_receiver
+from rtsdr_tpu_torch.utils.jit import CompiledStep
 from rtsdr_tpu_torch.utils.shards import concat_rows, step_shards
 from rtsdr_tpu_torch.utils.signals import fm_multiplex_iq, wideband_capture_iq
 
@@ -204,6 +205,25 @@ def test_measure_scaling_on_repeated_cpu_mesh():
     assert [r["channels"] for r in recs] == [1, 2]
     assert recs[0]["efficiency"] == 1.0 or recs[0].get("unreliable")
     assert all(r["channel_blocks_per_sec"] > 0 for r in recs)
+
+
+def test_measure_scaling_runs_one_kind_of_step(monkeypatch):
+    """Every device count of the sweep runs the same (eager) step: a
+    compiled one-device baseline against eager multi-device counts would
+    make each efficiency compare two different steps."""
+    kinds = []
+
+    def recording(*a, **kw):
+        made = make_channel_sharded_receiver(*a, **kw)
+        kinds.append(type(made[1]))
+        return made
+
+    monkeypatch.setattr(scaling, "make_channel_sharded_receiver", recording)
+    measure_scaling(MODE0, channels_per_device=1, device_counts=[1, 2],
+                    k1=1, k2=2, devices=["cpu", "cpu"],
+                    enable_rds=False, enable_stereo=False)
+    assert len(kinds) == 2 and len(set(kinds)) == 1
+    assert not issubclass(kinds[0], CompiledStep)
 
 
 def test_single_process_helpers():

@@ -5,7 +5,7 @@
         [--mode {0,1,1rds}] [--wideband K --captures B]
         [--time-shards T [--handoff {exact,stale,iterate}]
                          [--devices cuda:0,cuda:0,...]]
-        [--no-rds] [--no-frame] [--resync] [--fuse-if-bank]
+        [--no-rds] [--no-frame] [--resync] [--fuse-if-bank] [--eager]
 
 Runs ``rtsdr_tpu_torch``'s ``Receiver(cfg, (C,))`` (``--mode 0``, the
 default: the full mode-0 step, audio + RDS DSP + bit layer; ``--mode 1``:
@@ -24,7 +24,10 @@ each time shard on its own stream of one card) — on
 the GPU over noisy synthetic FM stations that carry RDS and traces
 ``--steps`` steady steps
 with ``torch.profiler`` (CPU + CUDA activities), after timing as many
-untraced steps on the host clock.  Prints one JSON line: the card's name
+untraced steps on the host clock.  The step is the compiled one
+(``utils/jit.py``: one CUDA graph replayed per step, what users run);
+``--eager`` runs the eager step instead (the time-sharded spread route is
+eager either way).  Prints one JSON line: which step ran, the card's name
 and power limit, the host-clock time per step, and device time per step by
 kernel name (hand-written kernels and the stock PyTorch ops
 around them), with the device's idle share of the traced window; from the
@@ -56,6 +59,7 @@ from rtsdr_tpu_torch.pipeline.receiver import Receiver  # noqa: E402
 from rtsdr_tpu_torch.pipeline.wideband import (  # noqa: E402
     make_wideband_receiver,
 )
+from rtsdr_tpu_torch.utils.jit import CompiledStep, jit_step  # noqa: E402
 from rtsdr_tpu_torch.utils.signals import (  # noqa: E402
     encode_rds_blocks,
     fm_multiplex_iq,
@@ -117,6 +121,8 @@ def main() -> int:
     ap.add_argument("--no-frame", action="store_true")
     ap.add_argument("--resync", action="store_true")
     ap.add_argument("--fuse-if-bank", action="store_true")
+    ap.add_argument("--eager", action="store_true",
+                    help="the eager step (default: the compiled one)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -157,6 +163,8 @@ def main() -> int:
         ).reshape(n_blocks, 1, k_w * cfg.block_size)
         amp = 2
         init_fn, step_fn = make_wideband_receiver(cfg, k_w, (c,), **kwargs)
+        if not args.eager:
+            init_fn, step_fn = jit_step(init_fn, step_fn, dev)
         shape = {"wideband_slots": k_w, "captures": c, "channels": k_w * c}
     else:
         c = args.channels
@@ -172,13 +180,13 @@ def main() -> int:
                               devices=args.devices.split(","))
                     if args.devices else
                     make_mesh(1, args.time_shards, devices=[dev]))
-            init_fn, step_fn = make_time_sharded_receiver(cfg, mesh, c,
-                                                          **kwargs)
+            init_fn, step_fn = make_time_sharded_receiver(
+                cfg, mesh, c, jit=not args.eager, **kwargs)
             shape.update(time_shards=args.time_shards, spread=mesh.spread,
                          grid=[[str(d) for d in row]
                                for row in mesh.time_devices])
         else:
-            rx = Receiver(cfg, (c,), **kwargs)
+            rx = Receiver(cfg, (c,), jit=not args.eager, **kwargs)
             init_fn, step_fn = rx.init, rx.step
     rows = torch.as_tensor(rows).to(dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -224,7 +232,10 @@ def main() -> int:
                               "calls_per_step": e.count / args.steps}
     busy_ms = sum(k["ms_per_step"] for k in kernels.values())
     launches = sum(k["calls_per_step"] for k in kernels.values())
-    result = {"card": card, "mode": args.mode, **shape, "steps": args.steps,
+    result = {"card": card,
+              "step": ("compiled" if isinstance(step_fn, CompiledStep)
+                       else "eager"),
+              "mode": args.mode, **shape, "steps": args.steps,
               "receiver": kwargs, "wall_ms_per_step": wall_ms / args.steps,
               "device_launches_per_step": launches}
     if not kernels:
