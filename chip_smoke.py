@@ -25,7 +25,10 @@ git-ignored ``rtsdr_tpu_torch/build``), then
      ingest kernel's iq entry in its segmented form; the spread route's
      calls at T = 4, C = 1,024 on shard 1: of both behind shard 0's halo as
      zi, of the FIR bank at each of its (1,024, 3,840) shapes, and of the
-     PLL's loop pair from the handed-over state, ``exact`` and ``stale``)
+     PLL's loop pair from the handed-over state, ``exact`` and ``stale``;
+     the resync walk K7 at L = 1, 1,024 and 8 x 16 lanes of 77 windows,
+     with repairs and without, on inputs that reach every branch of the
+     walk, timed by the profiler's device time)
      and holds the result
      against its plain PyTorch version on the same inputs, within the
      stated tolerance; times the kernel (CUDA events, median),
@@ -68,9 +71,11 @@ git-ignored ``rtsdr_tpu_torch/build``), then
      against the two-stage 'pfb' route; once more through ``python -m
      rtsdr_tpu_torch.cli 0 --wideband 16`` (channel<k>.wav files with the
      in-process run's bytes);
-  6. ``scan`` — ``make_band_scanner(MODE0, 16)`` over 3 blocks, verdicts
-     equal to what was synthesized, and ``--wideband 16 --auto`` through
-     the CLI, counted on its own;
+  6. ``scan`` — ``make_band_scanner(MODE0, 16)`` over 3 blocks, compiled
+     without donation as the CLI runs it (``utils/jit.py::jit_fn``), its
+     metrics bit for bit the eager scanner's, verdicts equal to what was
+     synthesized, and ``--wideband 16 --auto`` through the CLI, counted on
+     its own;
   7. ``channels`` — ``make_channel_sharded_receiver`` (1,024 stations) and
      ``make_wideband_sharded_receiver`` (16 slots) on a one-card mesh, each
      equal to its unsharded receiver bit for bit over 2 steps (outputs and
@@ -140,13 +145,18 @@ git-ignored ``rtsdr_tpu_torch/build``), then
      the same checks), then its host clock and device time per step
      eager, compiled with the block written into the step's input buffer
      beforehand, compiled given its own tensor and compiled ``borrowed``,
-     in turns and in reverse.  Every other phase that uses ``Receiver``,
+     in turns and in reverse; on every path also the first step's host
+     time of both forms (the compiled one warms up and captures) and the
+     profiler's device launches per step of both forms (MODE0 C = 1 with
+     ``resync`` compiled at most ``MAX_C1_RESYNC_DEVICE_LAUNCHES``: the
+     walk is one launch).  Every other phase that uses ``Receiver``,
      ``StreamRunner``, ``BatchRunner``, the sharded receivers on one card
      or the stacked time-sharded route runs the compiled step; the kernel
      cases record the wrappers' calls of eager steps (``jit=False``: a
      replayed graph runs no Python);
-     ``stage_timings`` — ``utils/profiling.py`` at C = 1,024, one line per
-     stage with the card's name and power limit; ``trace`` — one MODE0 step
+     ``stage_timings`` — ``utils/profiling.py`` at C = 1,024, each stage
+     compiled (``jit_fn``) and replayed as a graph, one line per stage with
+     the card's name and power limit; ``trace`` — one MODE0 step
      at C = 1,024 under ``utils/trace.py``, whose Chrome trace must show the
      kernels of K1-K4 as device events;
  11. what had never run on the card: ``batch_runner_1024`` —
@@ -165,7 +175,8 @@ git-ignored ``rtsdr_tpu_torch/build``), then
      robust clock (>= 3), the thresholds of
      ``tests/test_torch_golden_campaign.py`` (counted);
  13. for each counted window the launch counts, set to 0 just before, must
-     equal steps x launches per step.
+     equal steps x launches per step (the walk K7: one per step of each
+     receiver with ``resync`` on).
 
 Every line printed is one JSON object, except the line with the card's name
 and power limit.  Exit code 0 and a last line ``{"ok": true, ...}`` only if
@@ -217,6 +228,15 @@ WB_K = 16                 # slots of the wideband capture
 WB_CAPTURES = 8           # captures per step: 128 stations
 WB_BLOCKS = 14
 N_SCAN_BLOCKS = 3
+# the resync walk (K7): lanes of the stream (C = 1), the batch (1,024) and
+# the wideband step (8 captures x 16 slots), each with the seed of its
+# inputs (utils/signals.py::sync_walk_inputs; 11: one whose one lane
+# reaches every branch of the walk)
+SYNC_WALK_CASES = (((), 11), ((1024,), 1), ((8, 16), 2))
+# the walk's dependent chain per window (bad -> bad: an add, two selects, a
+# compare, a select), at an assumed 4 cycles per dependent integer op
+SYNC_WALK_CHAIN_CYCLES = 5 * 4
+MAX_C1_RESYNC_DEVICE_LAUNCHES = 210
 N_MODE1_STREAM_BLOCKS = 4
 N_MODE1_RDS_STREAM_BLOCKS = 16
 N_MODE1_BATCH_STEPS = 3
@@ -355,8 +375,8 @@ def main() -> int:
     from rtsdr_tpu_torch.io.batch import BatchRunner
     from rtsdr_tpu_torch.io.stream import StreamRunner
     from rtsdr_tpu_torch.ops import (
-        _cuda, channelizer, coeffs, cuda_fir, cuda_pll, cuda_resample, fir,
-        ingestfir)
+        _cuda, channelizer, coeffs, cuda_fir, cuda_pll, cuda_resample,
+        cuda_sync, fir, ingestfir)
     from rtsdr_tpu_torch.ops.pll import PLLState, pll, pll_init, pll_loop
     from rtsdr_tpu_torch.parallel import timeshard as timeshard_mod
     from rtsdr_tpu_torch.parallel.channels import (
@@ -365,6 +385,7 @@ def main() -> int:
     from rtsdr_tpu_torch.parallel.scaling import measure_scaling
     from rtsdr_tpu_torch.parallel.timeshard import make_time_sharded_receiver
     from rtsdr_tpu_torch.pipeline import audio as audio_mod
+    from rtsdr_tpu_torch.pipeline import frame as frame_mod
     from rtsdr_tpu_torch.pipeline.audio import audio_lpf_taps
     from rtsdr_tpu_torch.pipeline import frontend as frontend_mod
     from rtsdr_tpu_torch.pipeline import rds as rds_mod
@@ -375,6 +396,7 @@ def main() -> int:
     from rtsdr_tpu_torch.pipeline.scan import classify, make_band_scanner
     from rtsdr_tpu_torch.pipeline.wideband import make_wideband_receiver
     from rtsdr_tpu_torch.utils import jit as jit_mod
+    from rtsdr_tpu_torch.utils import profiling as prof_mod
     from rtsdr_tpu_torch.utils import shards as shards_mod
     from rtsdr_tpu_torch.utils.checkpoint import (
         load_state, save_state, state_keys)
@@ -382,7 +404,7 @@ def main() -> int:
     from rtsdr_tpu_torch.utils.trace import trace
     from rtsdr_tpu_torch.utils.signals import (
         encode_rds_blocks, fm_multiplex_iq, ps_station_words, rds_baseband,
-        wideband_capture_iq)
+        sync_walk_inputs, wideband_capture_iq)
 
     # the plain versions are explicit float32 sums, but state it anyway:
     # no TF32 anywhere in a reference or a yardstick
@@ -444,6 +466,28 @@ def main() -> int:
             times.append((time.perf_counter() - t) / calls * 1e6)
         torch.cuda.synchronize()
         return statistics.median(times)
+
+    def profiled_device_ms(fn, calls=20):
+        """Device time per call of ``fn`` from a profiler trace (the sum of
+        its device events over ``calls`` calls): a kernel's own time where
+        its wrapper's host work exceeds it, as events around calls would
+        not show.  None where the profiler sees no device time."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = 0.0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                us += max((float(getattr(e, k)) for k in (
+                    "self_device_time_total", "self_cuda_time_total")
+                    if hasattr(e, k)), default=0.0)
+        return us / 1e3 / calls if us > 0 else None
 
     def nbytes(*tensors):
         return sum(t.numel() * t.element_size() for t in tensors
@@ -1375,6 +1419,75 @@ def main() -> int:
     del seen, ma
     torch.cuda.empty_cache()
 
+    # ---- 1d. the resync walk (K7) against its plain version, W = 77 (the
+    # MODE0 and MODE1_RDS frame), at the lanes of SYNC_WALK_CASES, with
+    # repairs and without: every output equal (integers and flags); the
+    # inputs reach every branch of the walk (checked on the plain outputs)
+    w_max = frame_mod.frame_sizes(cfg)[3]
+    sm_clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, check=True
+    ).stdout.split()[0]) * 1e6
+    for batch, seed in SYNC_WALK_CASES:
+        lanes = int(np.prod(batch))
+        host = sync_walk_inputs(np.random.default_rng(seed), lanes, w_max)
+        a = {k: torch.as_tensor(v.reshape(batch + v.shape[1:])).to(dev)
+             for k, v in host.items()}
+        for repairs in (True, False):
+            corr = a["corr"] if repairs else None
+            args = (a["sid"], a["w_valid"], a["base_pos"],
+                    a["last_position"], a["bad_count"])
+            got = cuda_sync.sync_walk(*args, corr=corr)
+            ref = frame_mod._walk_plain(
+                *args, corr if repairs else torch.zeros_like(a["w_valid"]))
+            names = ("is_sync", "is_false_pos", "is_resync", "new_last",
+                     "new_bad")
+            if any(g.dtype != r.dtype or g.shape != r.shape
+                   for g, r in zip(got, ref)):
+                raise SystemExit("chip_smoke: sync_walk's outputs are not "
+                                 "its plain version's dtypes and shapes")
+            sync_, fp_, fire_ = (r.cpu().numpy() for r in ref[:3])
+            valid_h = host["w_valid"].reshape(sync_.shape)
+            corr_h = host["corr"].reshape(sync_.shape)
+            reached = {
+                "anchor from unsynced": bool((sync_ & (host[
+                    "last_position"].reshape(batch) < 0)[..., None]).any()),
+                "sync": bool(sync_.any()),
+                "false positive": bool(fp_.any()),
+                "resync": bool(fire_.any()),
+                "cut tail": bool((~valid_h).any())}
+            if repairs:
+                reached["repair accepted"] = bool((sync_ & corr_h).any())
+                reached["repair refused"] = bool(
+                    (~sync_ & corr_h & valid_h).any())
+            if not all(reached.values()):
+                raise SystemExit(f"chip_smoke: sync_walk inputs {batch} "
+                                 f"reach too few branches: {reached}")
+            check("sync_walk", f"i32 {shape_of(a['sid'])}",
+                  {n: max_err(g, r) for n, g, r in zip(names, got, ref)},
+                  dict.fromkeys(names, 0.0), lanes=lanes, windows=w_max,
+                  repairs=repairs, seed=seed, branches_reached=reached,
+                  # the kernel's device time (profiler): events around a
+                  # call time its wrapper's host work, tens of us
+                  kernel_ms=profiled_device_ms(
+                      lambda: cuda_sync.sync_walk(*args, corr=corr)),
+                  events_ms=time_ms(
+                      lambda: cuda_sync.sync_walk(*args, corr=corr)),
+                  kernel_burst_ms=burst_ms(
+                      lambda: cuda_sync.sync_walk(*args, corr=corr)),
+                  plain_ms=time_ms(
+                      lambda: frame_mod._walk_plain(
+                          *args, corr if repairs else
+                          torch.zeros_like(a["w_valid"])), reps=3, warm=1),
+                  library_ms=None,
+                  chain_bound_ms=w_max * SYNC_WALK_CHAIN_CYCLES
+                  / sm_clock * 1e3, sm_clock_max_hz=sm_clock,
+                  # ~14 integer operations per window
+                  **bound(nbytes(*args, corr, *got), lanes * w_max * 14))
+        del a, got, ref
+    # on-card integers of another width raise, launching nothing
+    walk64 = torch.zeros((2, w_max), dtype=torch.int64, device=dev)
+
     emit({"kernel_cases": cases, "card": card})
     torch.cuda.empty_cache()
 
@@ -1396,6 +1509,9 @@ def main() -> int:
         "Receiver": lambda: Receiver(cfg, (), torch.float64),
         "make_time_sharded_receiver": lambda: make_time_sharded_receiver(
             cfg, make_mesh(1, 2, devices=[dev]), 1, torch.float64),
+        "sync_walk (int64)": lambda: frame_mod.resolve_sync(
+            walk64, walk64 > 0, walk64[:, 0], walk64[:, 0], walk64[:, 0],
+            resync=True),
     }
     before = _cuda.launch_counts()
     for name, call in refusals.items():
@@ -1623,9 +1739,13 @@ def main() -> int:
                              f"{report}")
         return report
 
-    def expect_counts(window, steps, per_step):
+    def expect_counts(window, steps, per_step, walks=0):
+        """``walks``: the resync walk's launches in the window (one per
+        step of each receiver with ``resync`` on)."""
         counts = _cuda.launch_counts()
         expected = {k: v * steps for k, v in per_step.items()}
+        if walks:
+            expected["sync_walk"] = walks
         if counts != expected:
             raise SystemExit(f"chip_smoke: launch counts {counts} on the "
                              f"{window} path, expected {expected}")
@@ -1670,7 +1790,7 @@ def main() -> int:
                     "resample_rrc": 1}
     rds_counts = expect_counts(
         "RDS", N_STREAM_BLOCKS + 2 * N_BATCH_STEPS + N_RUNNER_BLOCKS,
-        rds_per_step)
+        rds_per_step, walks=N_STREAM_BLOCKS)
     # ================================== end of the full mode-0 path
     rep_stream["launches"] = rds_counts
     emit({"stream": rep_stream, "card": card})
@@ -1833,7 +1953,7 @@ def main() -> int:
     wb_counts = expect_counts(
         "wideband", 2 * WB_BLOCKS,
         {"channelizer.composed": 1, "fir_bank.none": 2, "fir_bank.square": 1,
-         "fir_bank.mul2": 1, "pll": 1, "resample_rrc": 1})
+         "fir_bank.mul2": 1, "pll": 1, "resample_rrc": 1, "sync_walk": 1})
     # ============================== end of the wideband path
     left = np.concatenate(wb_left, axis=-1)[:, n_audio:]      # (K, T)
     right = np.concatenate(wb_right, axis=-1)[:, n_audio:]
@@ -1891,7 +2011,7 @@ def main() -> int:
             or rep_wb["groups_in_empty_slots"]
             or pfb_counts != {"fir_bank.none": 6, "fir_bank.square": 2,
                               "fir_bank.mul2": 2, "pll": 2,
-                              "resample_rrc": 2}):
+                              "resample_rrc": 2, "sync_walk": 2}):
         raise SystemExit(f"chip_smoke: wideband outputs wrong: {rep_wb}")
 
     # the same capture through the CLI: channel<k>.wav per slot, the bytes
@@ -1931,22 +2051,44 @@ def main() -> int:
     del wb_step, wb1_step, st_b, st_1, out_b, out_1
     torch.cuda.empty_cache()
 
-    # ================================== 6. the band scanner
+    # ================================== 6. the band scanner, compiled
+    # without donation as the CLI runs it (utils/jit.py::jit_fn), against
+    # the eager scanner over the same blocks: metrics bit for bit
     sc_init, sc_step = make_band_scanner(cfg, WB_K)
-    sc_step(sc_init(), wb_dev[0])                        # warm-up
+    e_st, sc_eager = sc_init(), []
+    for b in range(N_SCAN_BLOCKS):
+        m, e_st = sc_step(e_st, wb_dev[b])
+        sc_eager.append([x.clone() for x in m])
+    sc_jit = jit_mod.jit_fn(sc_step, dev, name="band scanner")
     torch.cuda.synchronize()
     # ==================== the scan path: counts from 0 here
     _cuda.reset_launch_counts()
-    st, acc, sc_ms = sc_init(), [], []
+    st, acc, sc_ms, sc_equal = sc_init(), [], [], True
     for b in range(N_SCAN_BLOCKS):
         t0 = time.perf_counter()
-        m, st = sc_step(st, wb_dev[b])
+        m, st = sc_jit(st, wb_dev[b])
         torch.cuda.synchronize()
         sc_ms.append((time.perf_counter() - t0) * 1e3)
+        sc_equal = sc_equal and all(
+            torch.equal(x, y) for x, y in zip(m, sc_eager[b]))
         if b > 0:
             acc.append([x.cpu().numpy() for x in m])
     scan_counts = expect_counts("scan", N_SCAN_BLOCKS, {"fir_bank.none": 1})
     # ============================== end of the scan path
+    if not isinstance(sc_jit, jit_mod.CompiledFn) or sc_jit._graph is None:
+        raise SystemExit("chip_smoke: the band scanner did not replay a "
+                         "graph")
+    if not sc_equal:
+        raise SystemExit("chip_smoke: the compiled band scanner differs "
+                         "from the eager one")
+    held = [st]
+
+    def scan_replay():
+        held[0] = sc_jit.borrowed(held[0], wb_dev[0])[1]
+    sc_graph_ms = burst_ms(scan_replay, calls=10, reps=3)
+    sc_eager_ms = burst_ms(lambda: sc_step(e_st, wb_dev[0]), calls=10,
+                           reps=3)
+    del held, sc_eager
     mean = type(m)(*(np.mean(np.stack(xs), axis=0) for xs in zip(*acc)))
     verdicts = classify(mean)
     want_verdicts = ["empty"] * WB_K
@@ -1971,7 +2113,10 @@ def main() -> int:
         "rssi_db": [float(x) for x in mean.rssi_db],
         "pilot_snr_db": [float(x) for x in mean.pilot_snr_db],
         "rds_snr_db": [float(x) for x in mean.rds_snr_db],
+        "step": "compiled (jit_fn)", "equal_to_eager_bitwise": sc_equal,
         "step_ms": sc_ms, "launches": scan_counts,
+        "burst_events_ms_per_step_compiled": sc_graph_ms,
+        "burst_events_ms_per_step_eager": sc_eager_ms,
         "cli_auto": {"returncode": cli.returncode,
                      "verdicts": [ln.split()[-1] for ln in table[1:]],
                      "stderr": cli_err, "wav_files": wavs}}
@@ -2040,7 +2185,7 @@ def main() -> int:
     want = {k: N_CHANNELS_STEPS * v for k, v in rds_per_step.items()}
     for k, v in {"channelizer.composed": 1, "fir_bank.none": 2,
                  "fir_bank.square": 1, "fir_bank.mul2": 1, "pll": 1,
-                 "resample_rrc": 1}.items():
+                 "resample_rrc": 1, "sync_walk": 1}.items():
         want[k] = want.get(k, 0) + N_CHANNELS_STEPS * v
     if sharded_counts != want:
         raise SystemExit(f"chip_smoke: launch counts {sharded_counts} on the "
@@ -2096,7 +2241,7 @@ def main() -> int:
     m1r_counts = expect_counts(
         "MODE1_RDS", N_MODE1_RDS_STREAM_BLOCKS + 2 * N_MODE1_BATCH_STEPS,
         {"ingest.fm": 1, "fir_bank.none": 1, "fir_bank.square": 1, "pll": 1,
-         "resample_rrc": 1})
+         "resample_rrc": 1}, walks=N_MODE1_RDS_STREAM_BLOCKS)
     # ============================== end of the MODE1_RDS path
     rep_m1r["launches"] = m1r_counts
     emit({"mode1_rds_stream": rep_m1r, "card": card})
@@ -2243,12 +2388,12 @@ def main() -> int:
         ts_run(cfg, tsb_blocks[:1], t_shards, c=N_BATCH_CHANNELS)
     torch.cuda.synchronize()
 
-    def ts_per_step(t_shards, handoff="exact", mode1=False):
+    def ts_per_step(t_shards, handoff="exact", mode1=False, resync=False):
         return {"ingest.iq": 1, "fir_bank.none": 2 if mode1 else 3,
                 "fir_bank.square": 1,
                 **({} if mode1 else {"fir_bank.mul2": 1}),
                 "pll": {"exact": t_shards, "stale": 1, "iterate": 2}[handoff],
-                "resample_mix": 1}
+                "resample_mix": 1, **({"sync_walk": 1} if resync else {})}
 
     def add_counts(total, steps, per_step):
         for k, v in per_step.items():
@@ -2410,11 +2555,15 @@ def main() -> int:
         return timed_run(*make_time_sharded_receiver(cfg_, mesh, c, **kw),
                          blocks)
 
-    def spread_per_step(t_shards, handoff="exact", mode1=False):
-        """Launches per step: every stage once per shard."""
-        return {k: v * t_shards if k != "pll" else
+    def spread_per_step(t_shards, handoff="exact", mode1=False,
+                        resync=False):
+        """Launches per step: every stage once per shard, but the frame
+        layer's walk, once over the gathered block."""
+        return {k: v * t_shards if k not in ("pll", "sync_walk") else
+                v if k == "sync_walk" else
                 {"exact": 1, "stale": 1, "iterate": 2}[handoff] * t_shards
-                for k, v in ts_per_step(t_shards, handoff, mode1).items()}
+                for k, v in ts_per_step(t_shards, handoff, mode1,
+                                        resync).items()}
 
     def outputs_equal(a_outs, b_outs):
         return all(torch.equal(x, y) for o, u in zip(a_outs, b_outs)
@@ -2470,7 +2619,8 @@ def main() -> int:
     sp_want, sp_rows, sp_fail = {}, [], []
     for t_shards in SPREAD_SHARDS:
         outs, ms = spread_run(cfg, sp_blocks, t_shards, resync=True)
-        add_counts(sp_want, N_SPREAD_BLOCKS, spread_per_step(t_shards))
+        add_counts(sp_want, N_SPREAD_BLOCKS,
+                   spread_per_step(t_shards, resync=True))
         st_outs, st_ms = sp_stacked[t_shards]
         row = {"channels": 1, "time_shards": t_shards, "handoff": "exact",
                "resync": True, "blocks": N_SPREAD_BLOCKS,
@@ -2478,8 +2628,9 @@ def main() -> int:
                "ms_per_64ms_block": statistics.median(ms[1:]),
                "stacked_ms_per_64ms_block": statistics.median(st_ms[1:]),
                "serial_ms_per_64ms_block": statistics.median(sp_ser_ms[1:]),
-               "launches_per_step": spread_per_step(t_shards),
-               "stacked_launches_per_step": ts_per_step(t_shards),
+               "launches_per_step": spread_per_step(t_shards, resync=True),
+               "stacked_launches_per_step": ts_per_step(t_shards,
+                                                        resync=True),
                "step_ms": ms}
         sp_rows.append(row)
         if not exact_ok(row) or not stacked_ok(row):
@@ -2561,7 +2712,7 @@ def main() -> int:
     # MODE1_RDS at T = 4: the encoded PI decoded
     outs, ms = spread_run(cfg1, m1sp_blocks, SPREAD_BATCH_T, resync=True)
     add_counts(sp_want, N_SPREAD_M1_BLOCKS,
-               spread_per_step(SPREAD_BATCH_T, mode1=True))
+               spread_per_step(SPREAD_BATCH_T, mode1=True, resync=True))
     dec = GroupDecoder()
     for o in outs:
         dec.feed(type(o.rds)(*(x[0].cpu().numpy() for x in o.rds)))
@@ -2571,7 +2722,8 @@ def main() -> int:
            "decoded_pi": None if dec.pi is None else f"0x{dec.pi:04X}",
            "encoded_pi": f"0x{MODE1_PI:04X}",
            "ms_per_64ms_block": statistics.median(ms[1:]),
-           "launches_per_step": spread_per_step(SPREAD_BATCH_T, mode1=True)}
+           "launches_per_step": spread_per_step(SPREAD_BATCH_T, mode1=True,
+                                                resync=True)}
     sp_rows.append(row)
     if dec.pi != MODE1_PI:
         sp_fail.append(row)
@@ -2604,7 +2756,7 @@ def main() -> int:
     _cuda.reset_launch_counts()
     outs, ms = ts_run(cfg1, m1_blocks, 4, resync=True)
     m1ts_counts = expect_counts("time-sharded MODE1_RDS", N_TS_M1_BLOCKS,
-                                ts_per_step(4, mode1=True))
+                                ts_per_step(4, mode1=True, resync=True))
     # ============================== end of the time-sharded MODE1_RDS path
     dec = GroupDecoder()
     for o in outs:
@@ -2730,7 +2882,7 @@ def main() -> int:
     rep_ck_wb, _ = resume_check(
         f"wideband {WB_K} x {WB_CAPTURES}", *wb_ck, wb_ck_blocks,
         {"channelizer.composed": 1, "fir_bank.none": 2, "fir_bank.square": 1,
-         "fir_bank.mul2": 1, "pll": 1, "resample_rrc": 1})
+         "fir_bank.mul2": 1, "pll": 1, "resample_rrc": 1, "sync_walk": 1})
     rep_ck_wb.update(slots=WB_K, captures=WB_CAPTURES)
     del wb_ck, wb_ck_blocks
     torch.cuda.empty_cache()
@@ -2766,16 +2918,44 @@ def main() -> int:
 
     def jit_run(init, step, blocks, mid=None):
         """Snapshots of every step's state and outputs; ``mid()`` runs
-        between the first and second halves of the blocks."""
+        between the first and second halves of the blocks.  Also returns
+        the host ms of the first step (a compiled step's warm-ups and
+        capture)."""
         st, states, outs = init(), [], []
         for b, raw in enumerate(blocks):
             if mid is not None and b == len(blocks) // 2:
                 mid()
+            t0 = time.perf_counter()
             st, out = step(st, raw)
+            if b == 0:
+                torch.cuda.synchronize()
+                first_ms = (time.perf_counter() - t0) * 1e3
             states.append(snap(st))
             outs.append(snap(out))
         torch.cuda.synchronize()
-        return st, states, outs
+        return st, states, outs, first_ms
+
+    def device_launches(fn, steps=2):
+        """Device events (kernels, copies, fills) per call of ``fn`` in a
+        profiler trace, counted as ``tools/torch_profile_step.py`` counts
+        them."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+        n = 0
+        for e in prof.key_averages():
+            us = max((float(getattr(e, k)) for k in (
+                "self_device_time_total", "self_cuda_time_total")
+                if hasattr(e, k)), default=0.0)
+            if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+                n += e.count
+        return n / steps
 
     def host_ms(init, step, blocks, st=None):
         st = init() if st is None else st
@@ -2794,7 +2974,7 @@ def main() -> int:
             raise SystemExit(f"chip_smoke: jit path {label} is not compiled")
         n = len(blocks)
         _cuda.reset_launch_counts()
-        e_st, e_states, e_outs = jit_run(e_init, e_step, blocks)
+        e_st, e_states, e_outs, e_first = jit_run(e_init, e_step, blocks)
         e_counts = _cuda.launch_counts()
         # a steady eager step (its caches filled by the run) makes no host
         # synchronisation
@@ -2805,7 +2985,8 @@ def main() -> int:
         finally:
             torch.cuda.set_sync_debug_mode(0)
         _cuda.reset_launch_counts()
-        c_st, c_states, c_outs = jit_run(c_init, c_step, blocks, mid)
+        c_st, c_states, c_outs, c_first = jit_run(c_init, c_step, blocks,
+                                                  mid)
         c_counts = _cuda.launch_counts()
         s_err, s_int = runs_differ(c_states, e_states)
         o_err, o_int = runs_differ(c_outs, e_outs)
@@ -2823,6 +3004,13 @@ def main() -> int:
         def replay():
             held[0], _ = c_step.borrowed(held[0], blocks[-1])
         graph_ms = burst_ms(replay, calls=10, reps=3)
+        e_held = [e_st]
+
+        def eager_step():
+            e_held[0], _ = e_step(e_held[0], blocks[-1])
+        dl_eager = device_launches(eager_step)
+        dl_compiled = device_launches(replay)
+        e_st = e_held[0]
         rep = {"path": label, "steps": n,
                "state_max_abs_err": s_err, "state_int_leaves_differing": s_int,
                "outputs_max_abs_err": o_err,
@@ -2836,7 +3024,11 @@ def main() -> int:
                "host_ms_per_step_eager": [e_ms1, e_ms2],
                "host_ms_per_step_compiled": [c_ms1, c_ms2],
                "host_steps_timed": len(hb),
-               "compiled_device_ms_per_step_events": graph_ms}
+               "compiled_device_ms_per_step_events": graph_ms,
+               "device_launches_per_step_eager": dl_eager,
+               "device_launches_per_step_compiled": dl_compiled,
+               "first_step_host_ms_eager": e_first,
+               "first_step_host_ms_compiled_with_capture": c_first}
         if (s_int or o_int or not s_err <= tol or not o_err <= tol
                 or not counts_ok):
             raise SystemExit(f"chip_smoke: the compiled step differs from "
@@ -2877,6 +3069,13 @@ def main() -> int:
         st_blocks, mid=flood)
     rep["cache_flood_tap_sets"] = N_JIT_FLOOD
     jit_rows.append(rep)
+    # the resync walk is one launch (K7), not ~1,430 stock ops
+    if not (rep["device_launches_per_step_compiled"]
+            <= MAX_C1_RESYNC_DEVICE_LAUNCHES):
+        raise SystemExit(
+            f"chip_smoke: the MODE0 C = 1 resync step issues "
+            f"{rep['device_launches_per_step_compiled']} device launches, "
+            f"more than {MAX_C1_RESYNC_DEVICE_LAUNCHES}")
     # a donated tree raises; a checkpoint loads into the compiled receiver
     s1, _ = c_step(c_init(), st_blocks[0])
     s2, _ = c_step(s1, st_blocks[1])
@@ -3009,15 +3208,27 @@ def main() -> int:
                   "checkpoint_into_compiled_bit_for_bit": ck_same,
                   "seconds": time.perf_counter() - t_jit}, "card": card})
 
-    # ===== 13. the per-stage table (utils/profiling.py) at C = 1,024
+    # ===== 13. the per-stage table (utils/profiling.py) at C = 1,024, each
+    # stage compiled (jit_fn) as the JAX table jits it: each must have
+    # replayed a graph
     t_st = time.perf_counter()
-    st_recs = stage_timings(cfg, N_BATCH_CHANNELS, device="cuda")
+    real_jit_fn, st_made = prof_mod.jit_fn, []
+    prof_mod.jit_fn = lambda *a, **k: (st_made.append(real_jit_fn(*a, **k))
+                                       or st_made[-1])
+    try:
+        st_recs = stage_timings(cfg, N_BATCH_CHANNELS, device="cuda")
+    finally:
+        prof_mod.jit_fn = real_jit_fn
+    st_graphs = [f._graph is not None for f in st_made]
+    del st_made
     for rec in st_recs:
         rec["card"] = card
+        rec["compiled"] = True
         emit({"stage_timings": rec})
-    if (len(st_recs) != 8 or not all(
+    if (len(st_recs) != 8 or st_graphs != [True] * 8 or not all(
             np.isfinite(r["sec_per_block_batch"]) for r in st_recs)):
-        raise SystemExit(f"chip_smoke: stage_timings wrong: {st_recs}")
+        raise SystemExit(f"chip_smoke: stage_timings wrong: {st_recs} "
+                         f"(graphs replayed: {st_graphs})")
     emit({"stage_timings_seconds": time.perf_counter() - t_st, "card": card})
     torch.cuda.empty_cache()
 
@@ -3268,7 +3479,8 @@ def main() -> int:
     cp_rows += dcamp.campaign(["detune+200"], N_CAMPAIGN_BLOCKS,
                               clock="gardner", derotate=True, device="cuda",
                               streams=cp_streams)
-    cp_counts = expect_counts("campaign", 2 * N_CAMPAIGN_BLOCKS, rds_per_step)
+    cp_counts = expect_counts("campaign", 2 * N_CAMPAIGN_BLOCKS, rds_per_step,
+                              walks=2 * N_CAMPAIGN_BLOCKS)
     cp = {r["scenario"]: r for r in cp_rows}
     cp_ok = (all(cp[n]["rx_groups"] >= cp[n]["tx_groups"] - 2
                  for n in ("clean", "snr15"))
@@ -3317,6 +3529,9 @@ def main() -> int:
                               "tools/profile_resample.py:231", ts_counts),
         "resample_mix.split": ("rtsdr_tpu_torch/csrc/resample_rrc.cu",
                                "tools/profile_resample.py:231", ts_counts),
+        # no Pallas kernel: the lax.scan that XLA compiles into one loop
+        "sync_walk": ("rtsdr_tpu_torch/csrc/sync_walk.cu",
+                      "rtsdr_tpu/pipeline/frame.py:324", rds_counts),
     }
     # the case that has the receiver's own configuration of the kernel at
     # the batch path's shape (C = 1024)
@@ -3339,6 +3554,7 @@ def main() -> int:
                                    and r["form"] == "segmented"),
         "resample_mix.pair": lambda r: r.get("mode") is None,
         "resample_mix.split": lambda r: r.get("mode") is None,
+        "sync_walk": lambda r: r["repairs"],
     }
     at_width = {"channelizer.composed": f"u8 ({WB_CAPTURES},",
                 "resample_mix": f"(4, {N_BATCH_CHANNELS},",
@@ -3369,7 +3585,8 @@ def main() -> int:
                      "bound_ms": case["bound_ms"],
                      "bound_by": case["bound_by"],
                      **{k: case[k] for k in ("route_bound_ms",
-                                             "dense_bound_ms") if k in case},
+                                             "dense_bound_ms",
+                                             "chain_bound_ms") if k in case},
                      "library_ms": case["library_ms"]})
     print(card, flush=True)
     emit({"kernels": rows})

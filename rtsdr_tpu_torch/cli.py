@@ -443,8 +443,10 @@ def _read_exact_fd(fd: int, n: int) -> bytearray | None:
 
 
 def _scan_band(cfg, k, max_blocks, device):
-    """Run the band scanner over the next stdin blocks (eagerly: the JAX
-    CLI jits this loop without donation, and the port leaves it eager).
+    """Run the band scanner over the next stdin blocks, compiled without
+    donation as the JAX CLI jits it (``utils/jit.py::jit_fn``): the first
+    block captures the step, and each later block is written straight into
+    the compiled step's static input buffer.
 
     Returns (mean ScanMetrics of host arrays, verdicts, blocks consumed) or
     None if the capture is too short (<2 blocks; block 0 carries warm-up
@@ -453,24 +455,34 @@ def _scan_band(cfg, k, max_blocks, device):
     import numpy as np
     import torch
 
+    from rtsdr_tpu_torch.io.staging import Feeder
     from rtsdr_tpu_torch.pipeline.scan import (
         ScanMetrics,
         classify,
         make_band_scanner,
     )
+    from rtsdr_tpu_torch.utils.jit import jit_fn
 
-    init_fn, step = make_band_scanner(cfg, k, device=device)
+    init_fn, step_fn = make_band_scanner(cfg, k, device=device)
+    step = jit_fn(step_fn, device, name="band scanner")
     state = init_fn()
     wbs = k * cfg.block_size
     fd = sys.stdin.fileno()
+    feeder = None
     acc = []
     blocks = 0
     while max_blocks is None or blocks < max_blocks:
         raw = _read_exact_fd(fd, wbs)
         if raw is None:
             break
-        m, state = step(state, torch.frombuffer(
-            raw, dtype=torch.uint8).to(device))
+        if feeder is None:       # block 0: the call that captures
+            blk = torch.frombuffer(raw, dtype=torch.uint8).to(device)
+        else:
+            feeder.staging()[:] = np.frombuffer(raw, np.uint8)
+            blk = feeder.push()
+        m, state = step(state, blk)
+        if feeder is None:
+            feeder = Feeder((wbs,), step.device, into=step.static_args()[1])
         if blocks > 0:   # block 0 carries filter warm-up transients
             acc.append([x.cpu().numpy() for x in m])
         blocks += 1

@@ -29,7 +29,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = ("ingest.cu", "fir_bank.cu", "pll.cu", "resample_rrc.cu",
-           "channelizer.cu")
+           "channelizer.cu", "sync_walk.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -69,6 +69,9 @@ _ARGTYPES = {
     # n_own, own_lanes, n_og, ns_sh, ns_own, g_sh, g_own, plane_elems, smem,
     # stream
     "rtsdr_channelize_composed": [_P] * 9 + [_I] * 21 + [_P],
+    # sid, valid, corr (or NULL), base_pos, last_in, bad_in, is_sync, is_fp,
+    # is_resync, last_out, bad_out, L (lanes), W (windows), stream
+    "rtsdr_sync_walk": [_P] * 11 + [_I] * 2 + [_P],
 }
 
 #: launches per kernel entry since the last ``reset_launch_counts``

@@ -9,9 +9,11 @@ Where the reference is written per channel and mapped over the batch, this
 module is written **batched over leading dims**: ``frame(state, rrc_i,
 rrc_q)`` takes (..., rds_len) inputs and a state whose leaves are (...,) /
 (..., 27), integers as int32, flags as bool, all on the inputs' device.
-There is no hand-written kernel in this layer (the reference leaves it to
-the compiler as well): stock tensor ops, with ``gather`` / ``unfold`` where
-the reference spells a selection as a one-hot product.
+The layer is stock tensor ops (``gather`` / ``unfold`` where the reference
+spells a selection as a one-hot product) except the resync walk: the
+reference's ``lax.scan`` over the windows, which XLA compiles into one
+device loop, is one hand-written kernel here on a CUDA tensor
+(``ops/cuda_sync.py``, ``csrc/sync_walk.cu``).
 
 The 26x10 GF(2) parity multiply is one batched float32 matmul over all
 window positions at once (sums <= 26: exact), followed by ``mod 2``.
@@ -39,6 +41,7 @@ import torch
 
 from rtsdr_tpu_torch.config import ReceiverConfig
 from rtsdr_tpu_torch.device import resolve_device
+from rtsdr_tpu_torch.ops.cuda_sync import sync_walk
 
 # RDS parity-check matrix H (26 x 10) over GF(2) and the four offset-word
 # syndromes, from the RDS standard (as used at model/fmRDSblock.py:50 and
@@ -287,13 +290,19 @@ def resolve_sync(sid, w_valid, base_pos, last_position, bad_count,
     w_chain = last+26-base; entering unsynced it starts at the first
     match.  Position start+26k is accepted iff every chain position
     start..start+26k matched -- a cumulative-AND, i.e. cumsum of misses
-    == 0.  With resync the walk is taken window by window (W_MAX steps of
-    batched ops).
+    == 0.  With resync the walk is sequential in the window: on a CUDA
+    tensor one launch of the walk kernel (``ops/cuda_sync.py``, K7; the
+    counterpart of the reference's ``lax.scan``), which takes int32 and
+    bool only and raises on anything else; on a CPU tensor its plain
+    version, ``_walk_plain``.
 
     All arguments are batched over leading dims: per-window tensors are
     (..., W), the others (...,).  Returns (is_sync, is_false_pos,
     is_resync, new_last_position, new_bad_count).
     """
+    if resync and sid.is_cuda:
+        return sync_walk(sid, w_valid, base_pos, last_position, bad_count,
+                         corr=corr)
     w_max = sid.shape[-1]
     dev = sid.device
     w = torch.arange(w_max, dtype=_I32, device=dev)
@@ -328,14 +337,21 @@ def resolve_sync(sid, w_valid, base_pos, last_position, bad_count,
         new_last = torch.where(is_sync.any(-1), base_pos + w_last,
                                last_position)
         return is_sync, is_fp, is_resync, new_last, bad_count
+    return _walk_plain(sid, w_valid, base_pos, last_position, bad_count,
+                       corr)
 
+
+def _walk_plain(sid, w_valid, base_pos, last_position, bad_count, corr):
+    """The resync walk window by window in stock ops (W steps of batched
+    ops): the plain version of the walk kernel.  Integers int32, flags
+    bool, batched over leading dims as ``resolve_sync``'s."""
     zero = torch.zeros_like(bad_count)
     minus1 = torch.full_like(last_position, -1)
     last_pos, bad = last_position, bad_count
     matches = (sid > 0) & w_valid
     repairs = corr & w_valid
     reals, fps, fires = [], [], []
-    for k in range(w_max):
+    for k in range(sid.shape[-1]):
         gp = base_pos + k
         on_lattice = gp - last_pos == 26
         ok = (last_pos < 0) | on_lattice
@@ -672,8 +688,8 @@ def make_frame(cfg: ReceiverConfig, offset_mode: str = "hold",
         # resolve sees exact matches (sid) and repairs (corr) separately:
         # repairs may only CONTINUE a chain; the merged id is for output
         (is_sync, is_fp, is_resync, last_position, bad_count) = resolve_sync(
-            sid, w_valid, base_pos, state.last_position, state.bad_count,
-            resync=resync, corr=corr)
+            sid, w_valid, base_pos, i32(state.last_position),
+            i32(state.bad_count), resync=resync, corr=corr)
         if error_correct:
             sid = torch.where(corr, i32(o_sel) + 1, sid)
 

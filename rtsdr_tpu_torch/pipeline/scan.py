@@ -14,9 +14,10 @@ classify activity per channel:
 One step per wideband block; all K channels scan together.  The RF
 low-pass ↓10 of the 'iq' front end is the FIR-bank kernel on a CUDA
 tensor; the channelizer product, the discriminator and the PSD probes are
-stock tensor ops, as the reference leaves them to its compiler.  The step
-runs eagerly: the JAX CLI jits the scanner's loop without donation, and
-the port does not compile it (``utils/jit.py`` compiles the receivers).
+stock tensor ops, as the reference leaves them to its compiler.
+``make_band_scanner`` returns the eager step, as the JAX package's does;
+the CLI compiles it without donation (``utils/jit.py::jit_fn``, one CUDA
+graph replayed per block), as the JAX CLI jits it.
 """
 
 from __future__ import annotations

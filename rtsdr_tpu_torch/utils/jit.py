@@ -1,6 +1,9 @@
-"""The compiled block step with donated state: the counterpart of
-``jax.jit(step, donate_argnums=0)`` (``rtsdr_tpu/pipeline/receiver.py``,
-the JAX CLI's wideband loop, its channel- and time-sharded receivers).
+"""Compiled functions on one device: the block step with donated state,
+the counterpart of ``jax.jit(step, donate_argnums=0)``
+(``rtsdr_tpu/pipeline/receiver.py``, the JAX CLI's wideband loop, its
+channel- and time-sharded receivers), and any function without donation,
+the counterpart of ``jax.jit(fn)`` (the JAX CLI's band scanner, the stage
+table of ``utils/profiling.py``).
 
 ``jit_step(init_fn, step_fn, device)`` returns ``(init_fn, step)`` with
 ``step(state, raw_u8) -> (state, outputs)`` as before.  On a CUDA device
@@ -44,10 +47,19 @@ and every call replays it:
   replay adds the launches its capture recorded, so a window counts the
   same launches per step compiled or eager.
 
-On the CPU (``device='cpu'``) the same wrapper runs the eager step each
-call and writes its new state and outputs into its static buffers, so the
-donation, ownership and launch-count rules run, and are tested, without a
-card.
+``jit_fn(fn, device)`` returns a ``CompiledFn``: ``fn(*args)`` captured in
+the same way (the warm-ups, then one graph; pinning and launch counts as
+above) over static copies of its tensor arguments.  Nothing is donated:
+each call copies every argument that is not already its static buffer into
+that buffer, replays, and returns clones of the outputs (``borrowed``: the
+graph's buffers).  Calling again with the same tensors is the normal case,
+and ``static_args()`` hands out the buffers for a caller that writes its
+inputs straight into them.  A call with other shapes or dtypes than the
+capture's raises.
+
+On the CPU (``device='cpu'``) both wrappers run the function eagerly each
+call and write its results into their static buffers, so the donation,
+ownership and launch-count rules run, and are tested, without a card.
 """
 
 from __future__ import annotations
@@ -120,27 +132,124 @@ def _overlaps(t: torch.Tensor, storages: set) -> bool:
     return t.untyped_storage().data_ptr() in storages
 
 
-class CompiledStep:
-    """``step(state, raw_u8)`` over one static state tree, replayed from a
-    CUDA graph on a CUDA device (see the module's docstring)."""
+def _owned(tree):
+    """A tree of fresh tensors equal to ``tree``'s: what a caller keeps."""
+    leaves, tmpl = flatten(tree)
+    owned = [torch.empty_like(t) for t in leaves]
+    copy_all(owned, leaves)
+    return unflatten(tmpl, owned)
 
-    def __init__(self, init_fn, step_fn, device, name: str | None = None):
-        self.init_fn = init_fn
-        self.step_fn = step_fn
+
+class _Recorded:
+    """What the compiled forms share: after the warm-ups, one body recorded
+    as a CUDA graph on a CUDA device (run once on the CPU), then replayed;
+    its output buffers, the launch counts it recorded and the cache values
+    it reads.  A subclass gives ``_body`` (returns the output leaves and
+    their template) and ``_warm_up``; ``_static`` holds its input
+    leaves."""
+
+    def __init__(self, device, name: str):
         self.device = resolve_device(device)
         self.cuda = self.device.type == "cuda"
-        self.name = name or getattr(step_fn, "__qualname__", "step")
-        self.raw = None          # static input buffer
-        self._state = None       # static state leaves
-        self._tmpl = None        # the state tree's template
+        self.name = name
+        self._static = None      # static input leaves
         self._out = None         # static output leaves
         self._out_tmpl = None
         self._graph = None
         self._pinned = None      # cache values the graph reads
         self.per_step: dict = {}  # kernel launches one replay makes
+
+    def _own_outputs(self, out):
+        """Flatten ``out``; a leaf that views an input buffer is cloned (a
+        later write of that input would change it)."""
+        leaves, tmpl = flatten(out)
+        storages = {t.untyped_storage().data_ptr() for t in self._static}
+        return [o.clone() if _overlaps(o, storages) else o
+                for o in leaves], tmpl
+
+    def _capture(self) -> None:
+        """Warm up, then record the body: on a CUDA device as a graph (run
+        by the first replay), on the CPU by running it once."""
+        counts = _cuda.launch_counts()
+        try:
+            with torch.no_grad():
+                if self.cuda:
+                    self._capture_graph()
+                else:
+                    self._warm_up()
+                    _cuda.reset_launch_counts()
+                    out, self._out_tmpl = self._body()
+                    self.per_step = _cuda.launch_counts()
+                    # the body's own outputs become the static buffers
+                    self._out = [o.clone() for o in out]
+        finally:
+            _cuda.LAUNCHES.clear()
+            _cuda.LAUNCHES.update(counts)
+
+    def _capture_graph(self) -> None:
+        dev = self.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.device(dev), torch.cuda.stream(side):
+            self._warm_up()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        _cuda.reset_launch_counts()
+        try:
+            with torch.cuda.device(dev), torch.cuda.graph(graph):
+                out, out_tmpl = self._body()
+        except Exception as e:
+            raise RuntimeError(
+                f"{self.name}: CUDA graph capture failed on {dev} "
+                f"({type(e).__name__}: {e}); a compiled step admits no host "
+                "synchronisation and no pageable copy") from e
+        self.per_step = _cuda.launch_counts()
+        self._graph = graph
+        self._out, self._out_tmpl = out, out_tmpl
+        self._pinned = DeviceCache.held_values()
+
+    def _replay(self) -> None:
+        if self._graph is not None:
+            with torch.cuda.device(self.device):
+                self._graph.replay()
+        else:
+            counts = _cuda.launch_counts()
+            with torch.no_grad():
+                out, _ = self._body()
+            _cuda.LAUNCHES.clear()
+            _cuda.LAUNCHES.update(counts)
+            copy_all(self._out, out)
+        _cuda.add_launches(self.per_step)
+
+    def _run(self):
+        """One call of the body over the static inputs; returns the output
+        tree of the static output buffers."""
+        if self._out is None:
+            self._capture()
+            if self.cuda:
+                self._replay()
+            else:      # the CPU ran the body in the capture
+                _cuda.add_launches(self.per_step)
+        else:
+            self._replay()
+        return unflatten(self._out_tmpl, self._out)
+
+
+class CompiledStep(_Recorded):
+    """``step(state, raw_u8)`` over one static state tree, replayed from a
+    CUDA graph on a CUDA device (see the module's docstring)."""
+
+    def __init__(self, init_fn, step_fn, device, name: str | None = None):
+        super().__init__(device,
+                         name or getattr(step_fn, "__qualname__", "step"))
+        self.init_fn = init_fn
+        self.step_fn = step_fn
+        self.raw = None          # static input buffer
+        self._tmpl = None        # the state tree's template
         self._gen = 0            # calls so far: tags the returned tree
         self._token = object()   # this step's mark on the trees it returns
         self._live: list = []    # the tensor objects of the returned tree
+        self._state = None       # static state leaves
 
     # -- input -------------------------------------------------------------
     def input_buffer(self, shape, dtype=torch.uint8) -> torch.Tensor:
@@ -172,13 +281,14 @@ class CompiledStep:
                 f"{self.name}: this state was donated to an earlier call of "
                 "the compiled step and its buffers now hold a later state; "
                 "pass the state the last call returned (or jit=False)")
-        if self._state is None:
+        if self._static is None:
             # the static tree: one contiguous tensor per leaf, laid out as
             # init_fn's (no two leaves share memory: the copy-back writes
-            # every leaf)
+            # every leaf), then the input block
             init, self._tmpl = flatten(self.init_fn())
             self._state = [t.detach().clone(
                 memory_format=torch.contiguous_format) for t in init]
+            self._static = [*self._state, self.raw]
         if len(leaves) != len(self._state):
             raise ValueError(
                 f"{self.name}: state has {len(leaves)} tensors, the "
@@ -217,9 +327,9 @@ class CompiledStep:
     # -- the step body: what the graph holds ------------------------------
     def _body(self):
         """One step over the static buffers; the new state is copied back
-        into the static tree at the end.  Returns the output tree."""
+        into the static tree at the end.  Returns the output leaves."""
         new, out = self.step_fn(unflatten(self._tmpl, self._state), self.raw)
-        new_leaves, tmpl = flatten(new)
+        new_leaves, _ = flatten(new)
         if len(new_leaves) != len(self._state):
             raise ValueError(f"{self.name}: the step's new state has "
                              f"{len(new_leaves)} tensors, its input "
@@ -238,13 +348,10 @@ class CompiledStep:
             # copy-back overwrote it
             dsts.append(s)
             srcs.append(n.clone() if _overlaps(n, storages) else n)
-        out_leaves, out_tmpl = flatten(out)
-        out_leaves = [o.clone() if _overlaps(o, storages) else o
-                      for o in out_leaves]
+        out_leaves, out_tmpl = self._own_outputs(out)
         copy_all(dsts, srcs)
         return out_leaves, out_tmpl
 
-    # -- capture and replay -----------------------------------------------
     def _warm_up(self) -> None:
         """Eager steps over a scratch clone of the static state: the
         static state does not advance."""
@@ -252,89 +359,87 @@ class CompiledStep:
         for _ in range(WARMUP_STEPS.get(self.device.type, 0)):
             scratch, _ = self.step_fn(scratch, self.raw)
 
-    def _capture(self) -> None:
-        """Warm up, then record the step: on a CUDA device as a graph (run
-        by the first replay), on the CPU by running it once."""
-        counts = _cuda.launch_counts()
-        try:
-            with torch.no_grad():
-                if self.cuda:
-                    self._capture_graph()
-                else:
-                    self._warm_up()
-                    _cuda.reset_launch_counts()
-                    out, self._out_tmpl = self._body()
-                    self.per_step = _cuda.launch_counts()
-                    # the step's own outputs become the static buffers
-                    self._out = [o.clone() for o in out]
-        finally:
-            _cuda.LAUNCHES.clear()
-            _cuda.LAUNCHES.update(counts)
-
-    def _capture_graph(self) -> None:
-        dev = self.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.device(dev), torch.cuda.stream(side):
-            self._warm_up()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        _cuda.reset_launch_counts()
-        try:
-            with torch.cuda.device(dev), torch.cuda.graph(graph):
-                out, out_tmpl = self._body()
-        except Exception as e:
-            raise RuntimeError(
-                f"{self.name}: CUDA graph capture failed on {dev} "
-                f"({type(e).__name__}: {e}); a compiled step admits no host "
-                "synchronisation and no pageable copy (jit=False runs it "
-                "eagerly)") from e
-        self.per_step = _cuda.launch_counts()
-        self._graph = graph
-        self._out, self._out_tmpl = out, out_tmpl
-        self._pinned = DeviceCache.held_values()
-
-    def _replay(self) -> None:
-        if self._graph is not None:
-            with torch.cuda.device(self.device):
-                self._graph.replay()
-        else:
-            counts = _cuda.launch_counts()
-            with torch.no_grad():
-                out, _ = self._body()
-            _cuda.LAUNCHES.clear()
-            _cuda.LAUNCHES.update(counts)
-            copy_all(self._out, out)
-        _cuda.add_launches(self.per_step)
-
     def borrowed(self, state, raw_u8):
         """``(state, outputs)`` with the outputs the graph's own buffers,
         overwritten by the next call: for loops that enqueue the fetch of
         every output before their next step."""
         self._take_input(raw_u8)
         self._take_state(state)
-        if self._out is None:
-            self._capture()
-            if self.cuda:
-                self._replay()
-            else:      # the CPU ran the step in the capture
-                _cuda.add_launches(self.per_step)
-        else:
-            self._replay()
-        return self._returned_state(), unflatten(self._out_tmpl, self._out)
+        out = self._run()
+        return self._returned_state(), out
 
     def __call__(self, state, raw_u8):
         state, out = self.borrowed(state, raw_u8)
-        leaves, tmpl = flatten(out)
-        owned = [torch.empty_like(t) for t in leaves]
-        copy_all(owned, leaves)
-        return state, unflatten(tmpl, owned)
+        return state, _owned(out)
+
+
+class CompiledFn(_Recorded):
+    """``fn(*args)`` replayed from a CUDA graph over static copies of its
+    tensor arguments, none of them donated: the counterpart of
+    ``jax.jit(fn)`` (see the module's docstring)."""
+
+    def __init__(self, fn, device, name: str | None = None):
+        super().__init__(device, name or getattr(fn, "__qualname__", "fn"))
+        self.fn = fn
+        self._tmpl = None        # the argument tuple's template
+
+    def static_args(self) -> tuple:
+        """The static argument buffers (after the first call): a caller
+        that writes its arguments straight into them, or passes them back,
+        saves the copies."""
+        if self._static is None:
+            raise RuntimeError(f"{self.name}: not called yet")
+        return unflatten(self._tmpl, self._static)
+
+    def _take_args(self, args) -> None:
+        leaves, tmpl = flatten(tuple(args))
+        if self._static is None:
+            self._tmpl = tmpl
+            self._static = [t.detach().to(
+                self.device, copy=True, memory_format=torch.contiguous_format)
+                for t in leaves]
+            return
+        if tmpl != self._tmpl:
+            raise ValueError(f"{self.name}: called with arguments of "
+                             "another structure than at the capture")
+        for i, (dst, src) in enumerate(zip(self._static, leaves)):
+            if src is dst:
+                continue
+            if src.shape != dst.shape or src.dtype != dst.dtype:
+                raise ValueError(
+                    f"{self.name}: compiled for argument tensor {i} "
+                    f"{dst.dtype} {tuple(dst.shape)}, got {src.dtype} "
+                    f"{tuple(src.shape)}")
+            dst.copy_(src)
+
+    def _body(self):
+        return self._own_outputs(self.fn(*self.static_args()))
+
+    def _warm_up(self) -> None:
+        args = self.static_args()
+        for _ in range(WARMUP_STEPS.get(self.device.type, 0)):
+            self.fn(*args)
+
+    def borrowed(self, *args):
+        """The outputs as the graph's own buffers, overwritten by the next
+        call."""
+        self._take_args(args)
+        return self._run()
+
+    def __call__(self, *args):
+        return _owned(self.borrowed(*args))
 
 
 def jit_step(init_fn, step_fn, device, name: str | None = None):
     """``(init_fn, step)``: ``step`` is ``step_fn`` compiled with its state
     donated (``CompiledStep``), ``init_fn`` unchanged."""
     return init_fn, CompiledStep(init_fn, step_fn, device, name)
+
+
+def jit_fn(fn, device, name: str | None = None) -> CompiledFn:
+    """``fn`` compiled without donation (``CompiledFn``): the counterpart
+    of ``jax.jit(fn)``."""
+    return CompiledFn(fn, device, name)
 
 
 def jit_on_one_device(init_fn, step_fn, devices, jit: bool, name: str):

@@ -6,9 +6,11 @@ Each stage is timed with the slope method (k1 and k2 chained calls, one
 synchronisation, min over repeats; the difference over k2 - k1 removes the
 fixed cost) on representative block-sized inputs, batched over channels.
 On a CUDA device the interval is read from CUDA events, on the CPU from
-``time.perf_counter``.  Each stage runs eagerly: the JAX package jits each
-stage, and the port leaves the table uncompiled (``utils/jit.py`` compiles
-the receivers' block steps, not these stages).
+``time.perf_counter``.  Each stage is compiled before it is timed, as the
+JAX package jits each stage: ``utils/jit.py::jit_fn`` captures it as one
+CUDA graph, and the timed calls replay it over the graph's own argument and
+output buffers (no copy in or out), so a row is the stage's device time and
+not the host's launch overhead.
 
 Where each stage runs on the card: ``fir_decimate``, ``fir_block`` and the
 mono ``fir_resample`` (up = 1) launch the FIR-bank kernel
@@ -44,14 +46,21 @@ from rtsdr_tpu_torch.ops.fir import (
     resample_zi,
 )
 from rtsdr_tpu_torch.ops.pll import pll, pll_init
+from rtsdr_tpu_torch.utils.jit import jit_fn
 
 K1, K2, REPEATS = 4, 14, 2
 
 
-def _slope(fn, args, device: torch.device, k1=K1, k2=K2, repeats=REPEATS):
-    """Seconds per call: (t(k2) - t(k1)) / (k2 - k1), each t the min of
-    ``repeats`` runs of k chained calls and one synchronisation."""
+def _slope(fn, args, device: torch.device, name: str = "stage", k1=K1,
+           k2=K2, repeats=REPEATS):
+    """Seconds per call of ``fn`` compiled (``jit_fn``): (t(k2) - t(k1)) /
+    (k2 - k1), each t the min of ``repeats`` runs of k chained calls and
+    one synchronisation."""
     cuda = device.type == "cuda"
+    jf = jit_fn(fn, device, name=name)
+    jf.borrowed(*args)                       # the capture
+    args = jf.static_args()
+    fn = jf.borrowed
 
     def run(k):
         if cuda:
@@ -110,7 +119,7 @@ def stage_timings(cfg: ReceiverConfig = MODE0, n_channels: int = 256,
     stages = []
 
     def add(name, fn, args, ref_note=""):
-        dt = _slope(fn, args, dev)
+        dt = _slope(fn, args, dev, name)
         stages.append({
             "stage": name,
             "sec_per_block_batch": dt,

@@ -5,7 +5,9 @@ self-test without recorded captures (own copy of
 impairments (clock error, pilot detune and phase noise), an RDS encoder + pulse shaper so the
 synthetic station can carry known groups, and a wideband-capture
 synthesizer (K such stations side by side in one capture at K x the RF
-rate) for the channelizer, the wideband receiver and the band scanner."""
+rate) for the channelizer, the wideband receiver and the band scanner;
+and random inputs of the frame layer's resync walk that reach every branch
+(its kernel against its plain version)."""
 
 from __future__ import annotations
 
@@ -255,3 +257,49 @@ def ps_station_words(n_groups: int, pi: int, ps: str, pty: int = 5) -> list:
         d = (ord(ps[2 * seg]) << 8) | ord(ps[2 * seg + 1])
         words.extend([pi, b, (205 << 8) | 205, d])
     return words
+
+
+def sync_walk_inputs(rng: np.random.Generator, lanes: int, w_max: int,
+                     base_pos=None, last_position=None, bad_count=None
+                     ) -> dict:
+    """Random inputs of the frame layer's resync walk (``pipeline/frame.py::
+    resolve_sync``) over ``lanes`` lanes of ``w_max`` windows that reach
+    every branch: entry anchors unsynced (-1), on the 26-spaced lattice
+    inside the block and behind it; bad counts near the resync threshold
+    (10); exact matches at densities from sparse to dense; repairs on the
+    lattice and off it; valid tails cut at a random window.  The entry
+    integers may be given (a later block of a chained run).  Returns numpy
+    arrays: ``sid`` (L, W) int32, ``w_valid`` and ``corr`` (L, W) bool,
+    ``base_pos``, ``last_position``, ``bad_count`` (L,) int32."""
+    w = np.arange(w_max)
+    if base_pos is None:
+        base_pos = rng.integers(0, 100_000, lanes)
+    if last_position is None:
+        kind = np.arange(lanes) % 3
+        last_position = np.select(
+            [kind == 0, kind == 1],
+            [np.full(lanes, -1),
+             base_pos - 26 + rng.integers(0, w_max, lanes)],
+            base_pos - 26 - rng.integers(1, 200, lanes))
+    if bad_count is None:
+        bad_count = rng.choice([0, 5, 8, 9, 10], lanes)
+    density = rng.choice([0.05, 0.2, 0.5, 0.9], lanes)[:, None]
+    sid = (rng.random((lanes, w_max)) < density) * rng.integers(
+        1, 6, (lanes, w_max))
+    # the lattice of the entry anchor, or of the first match where the lane
+    # enters unsynced: mostly matched, else often repaired
+    first = np.argmax(sid > 0, axis=-1)
+    anchor = np.where(last_position >= 0, last_position, base_pos + first)
+    lattice = ((base_pos[:, None] + w - anchor[:, None]) % 26 == 0) & (
+        base_pos[:, None] + w > anchor[:, None])
+    hit = rng.random((lanes, w_max))
+    sid = np.where(lattice & (hit < 0.6), rng.integers(1, 6, (lanes, w_max)),
+                   np.where(lattice, 0, sid))
+    corr = (lattice & (hit >= 0.6) & (hit < 0.85)) | (
+        (rng.random((lanes, w_max)) < 0.15) & (sid == 0))
+    n_windows = np.where(rng.random(lanes) < 0.5, w_max,
+                         rng.integers(1, w_max + 1, lanes))
+    return dict(sid=sid.astype(np.int32), w_valid=w < n_windows[:, None],
+                corr=corr & (sid == 0), base_pos=base_pos.astype(np.int32),
+                last_position=last_position.astype(np.int32),
+                bad_count=bad_count.astype(np.int32))

@@ -6,13 +6,17 @@
         [--time-shards T [--handoff {exact,stale,iterate}]
                          [--devices cuda:0,cuda:0,...]]
         [--no-rds] [--no-frame] [--resync] [--fuse-if-bank] [--eager]
+    python3 tools/torch_profile_step.py --scan K [--eager]
 
 Runs ``rtsdr_tpu_torch``'s ``Receiver(cfg, (C,))`` (``--mode 0``, the
 default: the full mode-0 step, audio + RDS DSP + bit layer; ``--mode 1``:
 MODE1, audio through the x24/125 resampler; ``--mode 1rds``: MODE1_RDS;
 ``--no-rds`` the audio step alone, ``--no-frame`` without the bit layer,
-``--resync`` with the bit layer's window-by-window sync walk,
+``--resync`` with the bit layer's sync walk (one launch of K7),
 ``--fuse-if-bank`` with the band-pass bank inside the ingest kernel) — or,
+with ``--scan K``, the band scanner ``make_band_scanner(cfg, K)`` over the
+same wideband captures as ``--wideband K`` (one capture per step), compiled
+as the CLI runs it (``utils/jit.py::jit_fn``) — or,
 with ``--wideband K --captures B``, ``make_wideband_receiver(cfg, K, (B,))``
 (B captures at K x the RF rate per step, K x B stations; five live slots in
 16, the rest empty) — or, with ``--time-shards T``, the time-sharded
@@ -25,11 +29,14 @@ the GPU over noisy synthetic FM stations that carry RDS and traces
 ``--steps`` steady steps
 with ``torch.profiler`` (CPU + CUDA activities), after timing as many
 untraced steps on the host clock.  The step is the compiled one
-(``utils/jit.py``: one CUDA graph replayed per step, what users run);
+(``utils/jit.py``: one CUDA graph replayed per step, what users run; a
+compiled step is given its own input tensor, so its device time includes
+the copy into the graph's input buffer);
 ``--eager`` runs the eager step instead (the time-sharded spread route is
 eager either way).  Prints one JSON line: which step ran, the card's name
-and power limit, the host-clock time per step, and device time per step by
-kernel name (hand-written kernels and the stock PyTorch ops
+and power limit, the host clock of the first step (a compiled step's
+warm-ups and capture included) and per steady step, and device time per
+step by kernel name (hand-written kernels and the stock PyTorch ops
 around them), with the device's idle share of the traced window; from the
 trace's device events, each stream's busy time, the time in which any
 stream was busy (``device_busy_union_ms_per_step``, and the idle share
@@ -59,6 +66,7 @@ from rtsdr_tpu_torch.pipeline.receiver import Receiver  # noqa: E402
 from rtsdr_tpu_torch.pipeline.wideband import (  # noqa: E402
     make_wideband_receiver,
 )
+from rtsdr_tpu_torch.pipeline.scan import make_band_scanner  # noqa: E402
 from rtsdr_tpu_torch.utils.jit import CompiledStep, jit_step  # noqa: E402
 from rtsdr_tpu_torch.utils.signals import (  # noqa: E402
     encode_rds_blocks,
@@ -108,6 +116,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mode", choices=("0", "1", "1rds"), default="0")
     ap.add_argument("--wideband", type=int, default=None, metavar="K")
+    ap.add_argument("--scan", type=int, default=None, metavar="K",
+                    help="the band scanner over K slots")
     ap.add_argument("--captures", type=int, default=8, metavar="B",
                     help="with --wideband: captures per step")
     ap.add_argument("--time-shards", type=int, default=None, metavar="T")
@@ -153,19 +163,39 @@ def main() -> int:
         ap.error("--devices goes with --time-shards")
     if args.no_rds or cfg.rds is None:
         kwargs["enable_rds"] = False
-    if args.wideband:
+    if args.scan and (args.wideband or args.time_shards):
+        ap.error("--scan takes neither --wideband nor --time-shards")
+    if args.wideband or args.scan:
         # every K-th-of-three slot live, the rest empty; captures after the
         # first are the same band under their own noise
-        k_w, c = args.wideband, args.captures
+        k_w = args.wideband or args.scan
+        c = 1 if args.scan else args.captures
         rows = wideband_capture_iq(
             n_blocks * cfg.iq_len, k_w,
             {slot: station(slot) for slot in range(1, k_w, 3)}, cfg.rf.fs
         ).reshape(n_blocks, 1, k_w * cfg.block_size)
         amp = 2
-        init_fn, step_fn = make_wideband_receiver(cfg, k_w, (c,), **kwargs)
-        if not args.eager:
-            init_fn, step_fn = jit_step(init_fn, step_fn, dev)
-        shape = {"wideband_slots": k_w, "captures": c, "channels": k_w * c}
+        if args.scan:
+            # the scanner's step returns (metrics, state); one capture
+            rows = rows[:, 0]
+            init_fn, scan_fn = make_band_scanner(cfg, k_w, device=dev)
+            if not args.eager:
+                from rtsdr_tpu_torch.utils.jit import jit_fn
+
+                scan_fn = jit_fn(scan_fn, dev, name="band scanner")
+
+            def step_fn(state, raw, scan_fn=scan_fn):
+                metrics, state = scan_fn(state, raw)
+                return state, metrics
+            shape = {"scan_slots": k_w}
+            kwargs = {}
+        else:
+            init_fn, step_fn = make_wideband_receiver(cfg, k_w, (c,),
+                                                      **kwargs)
+            if not args.eager:
+                init_fn, step_fn = jit_step(init_fn, step_fn, dev)
+            shape = {"wideband_slots": k_w, "captures": c,
+                     "channels": k_w * c}
     else:
         c = args.channels
         rows = np.stack([
@@ -192,14 +222,21 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
 
     def block(b):
+        if args.scan:
+            return rows[b]
         x = rows[b].repeat(-(-c // rows.shape[1]), 1)[:c].to(torch.int16)
         x += torch.randint(-amp, amp + 1, x.shape, generator=gen, device=dev,
                            dtype=torch.int16)
         return x.clamp_(0, 255).to(torch.uint8)
 
     state = init_fn()
-    for b in range(2):                                     # warm-up
-        state, _ = step_fn(state, block(b))
+    first = block(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = step_fn(state, first)       # compiled: warm-ups and capture
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    state, _ = step_fn(state, block(1))
     blocks = [block(2 + b) for b in range(2 * args.steps)]
     torch.cuda.synchronize()
 
@@ -234,9 +271,10 @@ def main() -> int:
     launches = sum(k["calls_per_step"] for k in kernels.values())
     result = {"card": card,
               "step": ("compiled" if isinstance(step_fn, CompiledStep)
-                       else "eager"),
+                       or (args.scan and not args.eager) else "eager"),
               "mode": args.mode, **shape, "steps": args.steps,
-              "receiver": kwargs, "wall_ms_per_step": wall_ms / args.steps,
+              "receiver": kwargs, "first_step_ms": first_ms,
+              "wall_ms_per_step": wall_ms / args.steps,
               "device_launches_per_step": launches}
     if not kernels:
         result["device_time"] = "not measured (profiler saw no device time)"
