@@ -113,7 +113,13 @@ git-ignored ``rtsdr_tpu_torch/build``), then
      with ``torch.cuda._sleep`` queued on the maker's stream before every
      hand-over (outputs bit for bit the undelayed run's), MODE1_RDS at
      T = 4 over 8 blocks (PI decoded); ms per block beside the stacked
-     route's, launches per step, ``distinct_devices: 1``;
+     route's, launches per step, ``distinct_devices: 1``; these runs step
+     eagerly (``jit=False``: the per-place record and the counts read the
+     wrappers' calls, which a replay does not make), then each but the
+     delayed one runs again compiled after the window, its outputs bit for
+     bit the eager run's and its ms per block beside the eager figure, and
+     the delayed run once more compiled (the sleeps captured before each
+     hand-over), bit for bit the undelayed run;
      ``timeshard_mode1_rds`` — MODE1_RDS at T = 4 over 16 blocks with
      ``resync``: the encoded PI decoded; ``timeshard_routes`` (not counted)
      — the ``split`` ingest against ``fused`` at T = 2, MODE1 at T = 4
@@ -134,8 +140,16 @@ git-ignored ``rtsdr_tpu_torch/build``), then
      the audio-only receiver at C = 1,024 (6 steps), MODE1_RDS C = 1 with
      ``resync`` (8 blocks; its cuBLAS resampler held to
      ``TOL_JIT_MATMUL``), wideband 16 x 8, the channel-sharded receiver
-     on a one-card mesh and the stacked time-sharded receiver at C =
-     1,024, T = 4, ``exact``: outputs and state bit for bit, launches per
+     on a one-card mesh, the wideband-sharded receiver (16 x 8) and the
+     channel-sharded receiver (C = 1,024) each as two compiled parts on
+     this card (``ComposedStep``: the code a mesh over two GPUs runs, but
+     for the peer copies; the same two channel shards as one graph beside
+     it), the stacked time-sharded receiver at C =
+     1,024, T = 4, ``exact``, and the spread route over four streams of
+     this card (one graph holding the four branches): C = 1 with
+     ``resync`` over 8 blocks with the cache flood between its halves,
+     C = 1,024 ``exact`` and ``stale``, MODE1_RDS C = 1 with ``resync``:
+     outputs and state bit for bit, launches per
      step per kernel equal, one eager step under
      ``torch.cuda.set_sync_debug_mode("error")``, the host clock per step
      of both forms (eager, compiled, compiled, eager) and the compiled
@@ -299,6 +313,7 @@ N_JIT_FLOOD = 2 * 64 + 8      # new tap sets through the wrappers
 N_JIT_M1_BLOCKS = 8
 N_JIT_WB_STEPS = 6
 JIT_TS_T = 4
+N_JIT_SPREAD_BLOCKS = 8      # the spread route's C = 1 row
 JIT_HOST_STEPS = 8            # steps per host-clock timing of a form
 N_JIT_WIDE = 4096             # the device-bound width of the in-place row
 # MODE1's audio resampler is a torch.matmul: cuBLAS may pick another
@@ -380,8 +395,9 @@ def main() -> int:
     from rtsdr_tpu_torch.ops.pll import PLLState, pll, pll_init, pll_loop
     from rtsdr_tpu_torch.parallel import timeshard as timeshard_mod
     from rtsdr_tpu_torch.parallel.channels import (
-        make_channel_sharded_receiver, make_wideband_sharded_receiver)
-    from rtsdr_tpu_torch.parallel.mesh import make_mesh
+        compose_wideband, make_channel_sharded_receiver,
+        make_wideband_sharded_receiver, shard_rows)
+    from rtsdr_tpu_torch.parallel.mesh import make_mesh, row_split
     from rtsdr_tpu_torch.parallel.scaling import measure_scaling
     from rtsdr_tpu_torch.parallel.timeshard import make_time_sharded_receiver
     from rtsdr_tpu_torch.pipeline import audio as audio_mod
@@ -1387,8 +1403,9 @@ def main() -> int:
                                  (cuda_fir, "fir_bank_carried"),
                                  (cuda_pll, "pll_cuda")]
     for handoff in ("exact", "stale"):
+        # eager: a replayed graph calls no wrapper
         init, step = make_time_sharded_receiver(
-            cfg, sp_mesh, N_BATCH_CHANNELS, pll_handoff=handoff)
+            cfg, sp_mesh, N_BATCH_CHANNELS, pll_handoff=handoff, jit=False)
         st = init()
         for b in range(2):
             st, _ = step(st, batch_block(b))
@@ -2549,11 +2566,14 @@ def main() -> int:
             return [tree]
         return [x for v in tree for x in _leaf_list(v)]
 
-    def spread_run(cfg_, blocks, t_shards, c=1, **kw):
+    def spread_run(cfg_, blocks, t_shards, c=1, jit=False, **kw):
+        """The eager step unless ``jit``: the per-place record and the
+        launch counts below read the wrappers' calls, which a replayed
+        graph does not make."""
         mesh = make_mesh(1, t_shards, devices=[card0] * t_shards)
         assert mesh.spread
-        return timed_run(*make_time_sharded_receiver(cfg_, mesh, c, **kw),
-                         blocks)
+        return timed_run(*make_time_sharded_receiver(cfg_, mesh, c, jit=jit,
+                                                     **kw), blocks)
 
     def spread_per_step(t_shards, handoff="exact", mode1=False,
                         resync=False):
@@ -2617,8 +2637,11 @@ def main() -> int:
     timeshard_mod.on_place = seen_on_place
     _cuda.reset_launch_counts()
     sp_want, sp_rows, sp_fail = {}, [], []
+    sp_again = []       # (row, run arguments, eager outputs): run compiled
     for t_shards in SPREAD_SHARDS:
         outs, ms = spread_run(cfg, sp_blocks, t_shards, resync=True)
+        sp_again.append((len(sp_rows), (cfg, sp_blocks, t_shards),
+                         dict(resync=True), outs))
         add_counts(sp_want, N_SPREAD_BLOCKS,
                    spread_per_step(t_shards, resync=True))
         st_outs, st_ms = sp_stacked[t_shards]
@@ -2642,6 +2665,8 @@ def main() -> int:
         add_counts(sp_want, N_TS_BATCH_STEPS,
                    spread_per_step(SPREAD_BATCH_T, handoff))
         sp_batch[handoff] = outs
+        sp_again.append((len(sp_rows), (cfg, tsb_blocks, SPREAD_BATCH_T),
+                         dict(c=N_BATCH_CHANNELS, pll_handoff=handoff), outs))
         st_outs, st_ms = spb_stacked[handoff]
         if handoff == "exact":
             row, ok = batch_check(outs, ms, SPREAD_BATCH_T)
@@ -2688,15 +2713,22 @@ def main() -> int:
                     len(sp_places) - sp_places.index(place)))
         return real_record(place)
 
-    timeshard_mod.time_shard_places = keep_places
-    shards_mod.record = timeshard_mod.record = delayed_record
-    try:
-        outs, ms = spread_run(cfg, tsb_blocks, SPREAD_BATCH_T,
-                              c=N_BATCH_CHANNELS)
-    finally:
-        shards_mod.record = timeshard_mod.record = real_record
-        timeshard_mod.time_shard_places = real_places
+    def delayed_run(jit):
+        """The C = 1,024 ``exact`` run with the sleeps; compiled, the
+        capture records each sleep before its hand-over, so every replay
+        runs each maker behind its readers as well."""
+        timeshard_mod.time_shard_places = keep_places
+        shards_mod.record = timeshard_mod.record = delayed_record
+        try:
+            return spread_run(cfg, tsb_blocks, SPREAD_BATCH_T,
+                              c=N_BATCH_CHANNELS, jit=jit)
+        finally:
+            shards_mod.record = timeshard_mod.record = real_record
+            timeshard_mod.time_shard_places = real_places
+
+    outs, ms = delayed_run(False)
     add_counts(sp_want, N_TS_BATCH_STEPS, spread_per_step(SPREAD_BATCH_T))
+    sp_delayed = len(sp_rows)
     row = {"channels": N_BATCH_CHANNELS, "time_shards": SPREAD_BATCH_T,
            "handoff": "exact", "delayed_producers": True,
            "sleep_cycles_per_hand_over_by_shard": [
@@ -2708,11 +2740,12 @@ def main() -> int:
     sp_rows.append(row)
     if not row["outputs_bit_equal_to_undelayed"]:
         sp_fail.append(row)
-    del sp_batch
     # MODE1_RDS at T = 4: the encoded PI decoded
     outs, ms = spread_run(cfg1, m1sp_blocks, SPREAD_BATCH_T, resync=True)
     add_counts(sp_want, N_SPREAD_M1_BLOCKS,
                spread_per_step(SPREAD_BATCH_T, mode1=True, resync=True))
+    sp_again.append((len(sp_rows), (cfg1, m1sp_blocks, SPREAD_BATCH_T),
+                     dict(resync=True), outs))
     dec = GroupDecoder()
     for o in outs:
         dec.feed(type(o.rds)(*(x[0].cpu().numpy() for x in o.rds)))
@@ -2730,6 +2763,25 @@ def main() -> int:
     sp_counts = _cuda.launch_counts()
     # ============================== end of the spread path
     timeshard_mod.on_place = real_on_place
+    # the same runs compiled (one CUDA graph over the shards' streams),
+    # after the window: outputs bit for bit the eager run's, ms per block
+    # beside the eager figure
+    for i, args, kw, e_outs in sp_again:
+        outs, ms = spread_run(*args, jit=True, **kw)
+        same = outputs_equal(outs, e_outs)
+        sp_rows[i].update({
+            "compiled_ms_per_64ms_block": statistics.median(ms[1:]),
+            "compiled_first_step_ms_with_capture": ms[0],
+            "compiled_outputs_bit_equal_to_eager": same})
+        if not same:
+            sp_fail.append(sp_rows[i])
+    outs, ms = delayed_run(True)
+    row = sp_rows[sp_delayed]
+    row.update({"compiled_outputs_bit_equal_to_undelayed": outputs_equal(
+        outs, sp_batch["exact"]), "compiled_step_ms": ms})
+    if not row["compiled_outputs_bit_equal_to_undelayed"]:
+        sp_fail.append(row)
+    del sp_again, e_outs, sp_batch
     emit({"timeshard_spread": {
         "runs": sp_rows, "launches": sp_counts,
         "distinct_devices": len(sp_stepped),
@@ -2970,7 +3022,8 @@ def main() -> int:
         """``make(jit)`` -> (init, step); the path's report."""
         e_init, e_step = make(False)
         c_init, c_step = make(True)
-        if not isinstance(c_step, jit_mod.CompiledStep):
+        if not isinstance(c_step, (jit_mod.CompiledStep,
+                                   jit_mod.ComposedStep)):
             raise SystemExit(f"chip_smoke: jit path {label} is not compiled")
         n = len(blocks)
         _cuda.reset_launch_counts()
@@ -3147,6 +3200,22 @@ def main() -> int:
 
     jit_rows.append(jit_path(f"wideband {WB_K} x {WB_CAPTURES}, resync",
                              wideband_jit, jwb_blocks)[0])
+
+    # the wideband-sharded step as two compiled parts on this card (the
+    # code a mesh over two GPUs runs, but for the peer copies): the
+    # channelizer's part hands the other its slots' I/Q
+    def wideband_two_parts(j):
+        init, step = make_wideband_receiver(
+            cfg, WB_K, (WB_CAPTURES,), channel_sharding=[dev, dev],
+            device=dev, **wb_kw)
+        if not j:
+            return init, step
+        return init, compose_wideband(init, step, [(dev, [0]), (dev, [1])],
+                                      "wideband-sharded, two parts")
+
+    jit_rows.append(jit_path(
+        f"wideband-sharded two-part composition {WB_K} x {WB_CAPTURES}, "
+        "resync", wideband_two_parts, jwb_blocks)[0])
     del jwb_blocks
     torch.cuda.empty_cache()
     jit_rows.append(jit_path(
@@ -3162,6 +3231,60 @@ def main() -> int:
             cfg, make_mesh(1, JIT_TS_T, devices=[dev]), N_BATCH_CHANNELS,
             jit=j),
         [batch_block(b) for b in range(N_TS_BATCH_STEPS)])[0])
+    torch.cuda.empty_cache()
+
+    # the spread route (one stream per time shard of this card): one graph
+    # holds the T forked branches.  C = 1 with resync and the cache flood
+    # between the halves, C = 1,024 exact and stale, MODE1_RDS
+    spread_j = make_mesh(1, JIT_TS_T, devices=[dev] * JIT_TS_T)
+    rep = jit_path(
+        f"time-sharded spread C = 1, T = {JIT_TS_T}, resync, cache flood "
+        "at the middle",
+        lambda j: make_time_sharded_receiver(cfg, spread_j, 1, resync=True,
+                                             jit=j),
+        [b[None] for b in st_blocks[:N_JIT_SPREAD_BLOCKS]], mid=flood)[0]
+    rep["cache_flood_tap_sets"] = N_JIT_FLOOD
+    jit_rows.append(rep)
+    for handoff in ("exact", "stale"):
+        jit_rows.append(jit_path(
+            f"time-sharded spread C = {N_BATCH_CHANNELS}, T = {JIT_TS_T}, "
+            f"{handoff}",
+            lambda j, h=handoff: make_time_sharded_receiver(
+                cfg, spread_j, N_BATCH_CHANNELS, pll_handoff=h, jit=j),
+            [batch_block(b) for b in range(N_TS_BATCH_STEPS)])[0])
+        torch.cuda.empty_cache()
+    jit_rows.append(jit_path(
+        f"time-sharded spread MODE1_RDS C = 1, T = {JIT_TS_T}, resync",
+        lambda j: make_time_sharded_receiver(cfg1, spread_j, 1, resync=True,
+                                             jit=j),
+        [torch.as_tensor(m1_station[b][None]).to(dev)
+         for b in range(N_JIT_M1_BLOCKS)])[0])
+    # the channel-sharded receiver as two compiled parts on this card, one
+    # shard each (the composition a mesh over two GPUs builds, but for the
+    # peer copies)
+    halves = row_split(N_BATCH_CHANNELS, 2)
+
+    def channels_two_parts(j):
+        shards = [make_receiver(cfg, (N_BATCH_CHANNELS // 2,), device=dev)
+                  for _ in halves]
+        return shard_rows([s[0] for s in shards], [s[1] for s in shards],
+                          halves, [dev, dev], j,
+                          "channel-sharded receiver, two parts",
+                          groups=[(dev, [0]), (dev, [1])])
+
+    jit_rows.append(jit_path(
+        f"channel-sharded two-part composition C = {N_BATCH_CHANNELS}",
+        channels_two_parts,
+        [batch_block(b) for b in range(N_BATCH_STEPS)])[0])
+    torch.cuda.empty_cache()
+    # the same two shards as one graph (a mesh naming this card twice):
+    # what the composition's device time is set against
+    jit_rows.append(jit_path(
+        f"channel-sharded two shards, one graph, C = {N_BATCH_CHANNELS}",
+        lambda j: make_channel_sharded_receiver(
+            cfg, make_mesh(2, 1, devices=[dev, dev]), N_BATCH_CHANNELS,
+            jit=j)[:2],
+        [batch_block(b) for b in range(N_BATCH_STEPS)])[0])
     torch.cuda.empty_cache()
 
     # MODE0 C = 4,096 (device-bound): the compiled step given the block

@@ -33,10 +33,11 @@ def measure_scaling(
     The rate is a slope: (time of k2 steps - time of k1 steps) / (k2 - k1),
     each the best of two runs, on the host clock after a synchronise.
 
-    Every count runs the eager step (``jit=False``): a mesh over two or more
-    devices is not compiled yet (``utils/jit.py::jit_on_one_device``), so a
-    compiled one-device baseline would set each efficiency against another
-    step."""
+    Every count runs the compiled step, what users run and what the JAX
+    sweep times (``jax.jit``): one ``CompiledStep`` on one device, one part
+    per device on two or more (``utils/jit.py::ComposedStep``), so each
+    efficiency sets a compiled step against a compiled baseline.  The
+    untimed warm-up runs of each count take the capture."""
     mesh_all = make_mesh(devices=devices)
     n = len(mesh_all.devices)
     if device_counts is None:
@@ -48,7 +49,7 @@ def measure_scaling(
         mesh = make_mesh(n_dev, 1, devices=mesh_all.devices)
         n_ch = channels_per_device * n_dev
         init_fn, step_fn, _ = make_channel_sharded_receiver(
-            cfg, mesh, n_ch, torch.float32, jit=False, **kwargs)
+            cfg, mesh, n_ch, torch.float32, **kwargs)
         raw = rng.integers(0, 256, (n_ch, cfg.block_size), dtype=np.uint8)
 
         def run(k):

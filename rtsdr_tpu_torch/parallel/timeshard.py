@@ -45,7 +45,10 @@ methods.
   the mixer + resampler's its zero-stuffed mixed tail; ``'exact'`` chains
   T PLL launches, ``'stale'`` makes T independent ones, ``'iterate'`` 2T.
   The carried state and the outputs stay on the channel shard's first
-  device in the serial layout, so a state resumes in either route.
+  device in the serial layout, so a state resumes in either route.  With
+  every shard of a row on one GPU the step compiles to one CUDA graph:
+  each hand-over's event forks a shard's stream from the capturing one,
+  and ``join`` brings every shard's stream back before the capture ends.
 """
 
 from __future__ import annotations
@@ -78,12 +81,12 @@ from rtsdr_tpu_torch.ops.ingestfir import (
     normalize_deinterleave,
 )
 from rtsdr_tpu_torch.ops.pll import PLLState, pll, pll_extrapolate_by
+from rtsdr_tpu_torch.parallel.channels import shard_rows
 from rtsdr_tpu_torch.parallel.mesh import (
     CHANNEL_AXIS,
     TIME_AXIS,
     Mesh,
     row_split,
-    rows_on,
 )
 from rtsdr_tpu_torch.pipeline.audio import AudioState, audio_lpf_taps
 from rtsdr_tpu_torch.pipeline.frame import make_frame
@@ -94,13 +97,11 @@ from rtsdr_tpu_torch.pipeline.receiver import (
     ReceiverState,
     make_receiver,
 )
-from rtsdr_tpu_torch.utils.jit import jit_on_one_device
 from rtsdr_tpu_torch.utils.shards import (
     caller_place,
     move,
     on_place,
     record,
-    step_shards,
     time_shard_places,
 )
 
@@ -291,7 +292,8 @@ class _SpreadAxis:
 
     def join(self):
         """Home waits for each shard's work of the step, so what the
-        caller queues next follows all of it."""
+        caller queues next follows all of it (in a capture: every shard's
+        stream joins the capturing one again, as a capture must end)."""
         if self.home.stream is not None:
             for place in self.places:
                 self.home.stream.wait_event(record(place))
@@ -343,13 +345,15 @@ def make_time_sharded_receiver(
     On a spread mesh (``mesh.spread``) each time shard steps on its own
     device and stream; state and outputs are as on a stacked one.
 
-    ``jit`` (default True): the stacked route on a mesh of one device is
-    compiled with its state donated, as the JAX package's
-    ``jax.jit(shard_map(...), donate_argnums=0)`` (``utils/jit.py``: the
-    state it returns is updated in place by the next call).  The spread
-    route, and a mesh over two or more devices, step eagerly whatever
-    ``jit`` says (a capture across the per-shard streams is not built
-    yet).
+    ``jit`` (default True): the step is compiled with its state donated,
+    as the JAX package's ``jax.jit(shard_map(...), donate_argnums=0)``
+    (``utils/jit.py``: the state it returns is updated in place by the next
+    call): on a mesh of one device one ``CompiledStep``, whose graph on the
+    spread route holds the T branches forked onto the shards' streams and
+    joined back; on a mesh over two or more devices one part per device
+    (``parallel/channels.py::shard_rows``).  A mesh row spread over two or
+    more distinct GPUs steps eagerly whatever ``jit`` says: its hand-overs
+    are peer copies between devices, which one device's graph cannot hold.
 
     ``ingest_impl``: ``'fused'`` (the ingest kernel: on the stacked route
     over every chunk and its left neighbour's raw tail in place,
@@ -682,15 +686,9 @@ def make_time_sharded_receiver(
     else:
         bodies = [lambda st, raw: shard_body(ax, st, raw)] * n_sh
 
-    def init_fn() -> tuple:
-        return tuple(init() for init in serial_inits)
-
-    def step_fn(state: tuple, raw_u8):
-        return step_shards(
-            bodies, state,
-            (rows_on(raw_u8, sl, dev) for sl, dev in zip(rows, mesh.devices)),
-            mesh.devices[0])
-
-    return jit_on_one_device(
-        init_fn, step_fn, mesh.devices, jit and not mesh.spread,
-        f"time-sharded receiver ({n_sh} x {T} shards, {pll_handoff})")
+    # a row spread over distinct GPUs steps eagerly (see the docstring)
+    rows_on_one_device = all(len(set(row)) == 1 for row in mesh.time_devices)
+    return shard_rows(
+        serial_inits, bodies, rows, mesh.devices, jit and rows_on_one_device,
+        f"time-sharded receiver ({n_sh} x {T} shards, {pll_handoff}, "
+        f"{'spread' if mesh.spread else 'stacked'})")

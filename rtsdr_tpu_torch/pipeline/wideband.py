@@ -58,6 +58,19 @@ class WidebandState(NamedTuple):
         return self.chan_zi.dim() - 1
 
 
+class ShardedStages(NamedTuple):
+    """The stages of a channel-sharded wideband step, which
+    ``parallel/channels.py::compose_wideband`` compiles one part per device
+    from: ``front(state, raw_u8) -> (iq, chan_zi, mix_phase)`` (the
+    channelizer and the residual NCO) and each station shard's receiver
+    step over its ``k_sh`` stations of ``iq``'s axis ``k_axis``."""
+
+    front: object
+    steps: tuple
+    k_axis: int
+    k_sh: int
+
+
 def make_wideband_receiver(
     cfg: ReceiverConfig,
     n_rf_channels: int,
@@ -94,7 +107,8 @@ def make_wideband_receiver(
     stations split into that many equal contiguous groups, each decoded on
     its device; the channelizer runs on ``device``.  ``state.rx`` is then a
     tuple of the groups' receiver states, and outputs are gathered on
-    ``device`` in station order.
+    ``device`` in station order; ``step_fn.stages`` (``ShardedStages``)
+    holds the step's stages.
     """
     dev = resolve_device(device)
     require_kernel_dtype(dev, dtype)
@@ -195,7 +209,9 @@ def make_wideband_receiver(
                              mix_phase=mix_phase)
 
     @torch.no_grad()
-    def step_fn(state: WidebandState, raw_u8: torch.Tensor):
+    def front_fn(state: WidebandState, raw_u8: torch.Tensor):
+        """The channelizer and the residual NCO: the receivers' input and
+        the new ``chan_zi`` and ``mix_phase``."""
         if use_composed:
             raw_iq, chan_zi = composed_channelize_u8(
                 raw_u8, g_taps, state.chan_zi, cfg.rf.decim)
@@ -222,8 +238,16 @@ def make_wideband_receiver(
                                   i_in * s + q_in * c], dim=-2)
             mix_phase = torch.remainder(state.mix_phase + blk_adv,
                                         2.0 * np.pi)
+        return raw_iq, chan_zi, mix_phase
+
+    @torch.no_grad()
+    def step_fn(state: WidebandState, raw_u8: torch.Tensor):
+        raw_iq, chan_zi, mix_phase = front_fn(state, raw_u8)
         rx_state, out = step_rx(state.rx, raw_iq)
         return WidebandState(chan_zi=chan_zi, rx=rx_state,
                              mix_phase=mix_phase), out
 
+    if shard_devs is not None:
+        step_fn.stages = ShardedStages(
+            front_fn, tuple(step for _, step in shard_rx), k_axis, k_sh)
     return init_fn, step_fn

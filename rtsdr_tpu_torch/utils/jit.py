@@ -1,9 +1,11 @@
-"""Compiled functions on one device: the block step with donated state,
-the counterpart of ``jax.jit(step, donate_argnums=0)``
-(``rtsdr_tpu/pipeline/receiver.py``, the JAX CLI's wideband loop, its
-channel- and time-sharded receivers), and any function without donation,
-the counterpart of ``jax.jit(fn)`` (the JAX CLI's band scanner, the stage
-table of ``utils/profiling.py``).
+"""Compiled functions: the block step with donated state, the counterpart
+of ``jax.jit(step, donate_argnums=0)`` (``rtsdr_tpu/pipeline/receiver.py``,
+the JAX CLI's wideband loop, its channel-, wideband- and time-sharded
+receivers), and any function without donation, the counterpart of
+``jax.jit(fn)`` (the JAX CLI's band scanner, the stage table of
+``utils/profiling.py``).  A step whose state lies on one device is one
+``CompiledStep``; one over two or more devices is a ``ComposedStep`` of one
+``CompiledStep`` per device.
 
 ``jit_step(init_fn, step_fn, device)`` returns ``(init_fn, step)`` with
 ``step(state, raw_u8) -> (state, outputs)`` as before.  On a CUDA device
@@ -57,12 +59,22 @@ and ``static_args()`` hands out the buffers for a caller that writes its
 inputs straight into them.  A call with other shapes or dtypes than the
 capture's raises.
 
+``ComposedStep(parts, split, merge, feed, gather, name)``: a step whose
+state spans devices, as a mesh over several GPUs holds it, compiled as one
+``CompiledStep`` per device (its docstring); the sharded receivers build
+one part per distinct device of their mesh (``device_groups``).  Within
+one capture a step may fork work onto other streams of its device and
+join them (the spread route of ``parallel/timeshard.py``): the graph then
+holds the forked branches.
+
 On the CPU (``device='cpu'``) both wrappers run the function eagerly each
 call and write its results into their static buffers, so the donation,
 ownership and launch-count rules run, and are tested, without a card.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -272,15 +284,20 @@ class CompiledStep(_Recorded):
             dst.copy_(raw)
 
     # -- state -------------------------------------------------------------
-    def _take_state(self, state) -> None:
-        leaves, _ = flatten(state)
+    def check_donated(self, state) -> None:
+        """Raise if ``state`` holds a tree this step returned before its
+        latest call (donated, so its buffers now hold a later state)."""
         if any(tag[0] is self._token and tag[1] != self._gen
                for tag in (getattr(t, "_rtsdr_jit", None) or (None, 0)
-                           for t in leaves)):
+                           for t in flatten(state)[0])):
             raise RuntimeError(
                 f"{self.name}: this state was donated to an earlier call of "
                 "the compiled step and its buffers now hold a later state; "
                 "pass the state the last call returned (or jit=False)")
+
+    def _take_state(self, state) -> None:
+        self.check_donated(state)
+        leaves, _ = flatten(state)
         if self._static is None:
             # the static tree: one contiguous tensor per leaf, laid out as
             # init_fn's (no two leaves share memory: the copy-back writes
@@ -442,14 +459,64 @@ def jit_fn(fn, device, name: str | None = None) -> CompiledFn:
     return CompiledFn(fn, device, name)
 
 
-def jit_on_one_device(init_fn, step_fn, devices, jit: bool, name: str):
-    """``(init_fn, step)`` of a sharded receiver: compiled (``jit_step``)
-    when ``jit`` and every shard lies on one device, else eager.  A mesh
-    over two or more devices steps eagerly whatever ``jit`` says: a graph
-    per device is not built yet."""
-    if jit and len(set(devices)) == 1:
-        return jit_step(init_fn, step_fn, devices[0], name=name)
-    return init_fn, step_fn
+class ComposedStep:
+    """A step over state that lies on two or more devices: one
+    ``CompiledStep`` per device (a *part*), composed, as XLA compiles one
+    program per device of a mesh for ``jax.jit(step, donate_argnums=0)``.
+    A part holds the work of every shard on its device, reads its own
+    static input buffer and keeps its own donated state tree.
+
+    ``parts``: the ``CompiledStep``s, in the order they step;
+    ``split(state)`` -> each part's state tree, ``merge(trees)`` -> the
+    state; ``feed(k, raw, outs)`` -> part k's input from the block and the
+    outputs of the parts before it (copied into part k's input buffer: a
+    host-to-device, peer or local copy); ``gather(outs)`` -> the outputs,
+    new tensors on one device.  A call writes each part's input and
+    replays the parts in order, each with its device current.
+
+    Donation holds across the parts: every part's tree is checked before
+    any part steps, so passing a consumed state raises before anything
+    runs; each part consumes and empties its own tree.  The gathered
+    outputs are the caller's (``borrowed`` is the same call)."""
+
+    def __init__(self, parts, split, merge, feed, gather, name: str):
+        self.parts, self.name = list(parts), name
+        self.split, self.merge = split, merge
+        self.feed, self.gather = feed, gather
+
+    @property
+    def per_step(self) -> dict:
+        """Kernel launches one call makes: the parts' replays."""
+        total: dict = {}
+        for part in self.parts:
+            for k, n in part.per_step.items():
+                total[k] = total.get(k, 0) + n
+        return total
+
+    def __call__(self, state, raw_u8):
+        trees = self.split(state)
+        for part, tree in zip(self.parts, trees):
+            part.check_donated(tree)
+        new, outs = [], []
+        for k, (part, tree) in enumerate(zip(self.parts, trees)):
+            guard = (torch.cuda.device(part.device) if part.cuda
+                     else contextlib.nullcontext())
+            with guard:
+                tree, out = part.borrowed(tree, self.feed(k, raw_u8, outs))
+            new.append(tree)
+            outs.append(out)
+        return self.merge(new), self.gather(outs)
+
+    borrowed = __call__
+
+
+def device_groups(devices) -> list:
+    """``[(device, [shard indices])]``: the shards on each distinct device
+    of ``devices``, in order of first use."""
+    groups: dict = {}
+    for i, d in enumerate(devices):
+        groups.setdefault(torch.device(d), []).append(i)
+    return list(groups.items())
 
 
 def borrowing(step, shape):

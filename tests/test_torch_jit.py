@@ -24,7 +24,8 @@ from rtsdr_tpu_torch.io.stream import StreamRunner
 from rtsdr_tpu_torch.ops import _cuda
 from rtsdr_tpu_torch.ops.fir import DeviceCache
 from rtsdr_tpu_torch.parallel.channels import make_channel_sharded_receiver
-from rtsdr_tpu_torch.parallel.mesh import make_mesh
+from rtsdr_tpu_torch.parallel import timeshard
+from rtsdr_tpu_torch.parallel.mesh import Mesh, make_mesh
 from rtsdr_tpu_torch.parallel.timeshard import make_time_sharded_receiver
 from rtsdr_tpu_torch.pipeline.receiver import Receiver, make_receiver
 from rtsdr_tpu_torch.pipeline.wideband import make_wideband_receiver
@@ -355,14 +356,29 @@ def test_replay_adds_the_recorded_launches():
         _cuda.LAUNCHES.update(saved)
 
 
-def test_jit_on_a_spread_mesh_steps_eagerly():
-    """The spread route is left eager whatever ``jit`` says (its
-    docstring); the stacked route compiles."""
+def test_jit_on_a_spread_mesh_steps_eagerly(monkeypatch):
+    """A mesh row spread over distinct GPUs steps eagerly whatever ``jit``
+    says (the docstring: its hand-overs are peer copies, which no one
+    device's graph holds); a spread row on one device compiles, as the
+    stacked route does."""
     spread = make_mesh(1, 2, devices=[CPU, CPU])
     assert spread.spread
     _, step = make_time_sharded_receiver(MODE0, spread, 1)
-    assert not isinstance(step, CompiledStep)
+    assert isinstance(step, CompiledStep)
     _, step = make_time_sharded_receiver(MODE0, make_mesh(1, 2, devices=[CPU]),
                                          1)
     assert isinstance(step, CompiledStep)
-
+    # rows naming GPUs (no card here: the receiver's parts are stand-ins;
+    # only the rule that decides ``jit`` runs)
+    seen = []
+    monkeypatch.setattr(timeshard, "require_kernel_dtype", lambda *a: None)
+    monkeypatch.setattr(timeshard, "make_receiver",
+                        lambda *a, **k: (None, None))
+    monkeypatch.setattr(timeshard, "time_shard_places", lambda devs: ())
+    monkeypatch.setattr(timeshard, "shard_rows",
+                        lambda *a: seen.append(a[4]) or (None, None))
+    gpus = (torch.device("cuda", 0), torch.device("cuda", 1))
+    for row in (gpus, (gpus[0],) * 2):
+        make_time_sharded_receiver(MODE0, Mesh((row,), True), 1)
+    make_time_sharded_receiver(MODE0, Mesh((row,), True), 1, jit=False)
+    assert seen == [False, True, False]

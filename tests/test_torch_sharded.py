@@ -208,9 +208,9 @@ def test_measure_scaling_on_repeated_cpu_mesh():
 
 
 def test_measure_scaling_runs_one_kind_of_step(monkeypatch):
-    """Every device count of the sweep runs the same (eager) step: a
-    compiled one-device baseline against eager multi-device counts would
-    make each efficiency compare two different steps."""
+    """Every device count of the sweep runs the same (compiled) step: a
+    baseline of one kind against counts of another would make each
+    efficiency compare two different steps."""
     kinds = []
 
     def recording(*a, **kw):
@@ -223,7 +223,7 @@ def test_measure_scaling_runs_one_kind_of_step(monkeypatch):
                     k1=1, k2=2, devices=["cpu", "cpu"],
                     enable_rds=False, enable_stereo=False)
     assert len(kinds) == 2 and len(set(kinds)) == 1
-    assert not issubclass(kinds[0], CompiledStep)
+    assert issubclass(kinds[0], CompiledStep)
 
 
 def test_single_process_helpers():

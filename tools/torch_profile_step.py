@@ -6,7 +6,8 @@
         [--time-shards T [--handoff {exact,stale,iterate}]
                          [--devices cuda:0,cuda:0,...]]
         [--no-rds] [--no-frame] [--resync] [--fuse-if-bank] [--eager]
-    python3 tools/torch_profile_step.py --scan K [--eager]
+        [--out FILE]
+    python3 tools/torch_profile_step.py --scan K [--eager] [--out FILE]
 
 Runs ``rtsdr_tpu_torch``'s ``Receiver(cfg, (C,))`` (``--mode 0``, the
 default: the full mode-0 step, audio + RDS DSP + bit layer; ``--mode 1``:
@@ -31,9 +32,10 @@ with ``torch.profiler`` (CPU + CUDA activities), after timing as many
 untraced steps on the host clock.  The step is the compiled one
 (``utils/jit.py``: one CUDA graph replayed per step, what users run; a
 compiled step is given its own input tensor, so its device time includes
-the copy into the graph's input buffer);
-``--eager`` runs the eager step instead (the time-sharded spread route is
-eager either way).  Prints one JSON line: which step ran, the card's name
+the copy into the graph's input buffer; on the spread route one graph
+holds the T shards' branches); ``--eager`` runs the eager step instead.
+Prints one JSON line (and writes it to ``--out FILE``, the step and PLL
+times ``tools/torch_comm_model.py --profile FILE`` reads): which step ran, the card's name
 and power limit, the host clock of the first step (a compiled step's
 warm-ups and capture included) and per steady step, and device time per
 step by kernel name (hand-written kernels and the stock PyTorch ops
@@ -67,7 +69,11 @@ from rtsdr_tpu_torch.pipeline.wideband import (  # noqa: E402
     make_wideband_receiver,
 )
 from rtsdr_tpu_torch.pipeline.scan import make_band_scanner  # noqa: E402
-from rtsdr_tpu_torch.utils.jit import CompiledStep, jit_step  # noqa: E402
+from rtsdr_tpu_torch.utils.jit import (  # noqa: E402
+    CompiledStep,
+    ComposedStep,
+    jit_step,
+)
 from rtsdr_tpu_torch.utils.signals import (  # noqa: E402
     encode_rds_blocks,
     fm_multiplex_iq,
@@ -133,6 +139,8 @@ def main() -> int:
     ap.add_argument("--fuse-if-bank", action="store_true")
     ap.add_argument("--eager", action="store_true",
                     help="the eager step (default: the compiled one)")
+    ap.add_argument("--out", default=None, metavar="FILE",
+                    help="also write the JSON line to FILE")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -270,8 +278,9 @@ def main() -> int:
     busy_ms = sum(k["ms_per_step"] for k in kernels.values())
     launches = sum(k["calls_per_step"] for k in kernels.values())
     result = {"card": card,
-              "step": ("compiled" if isinstance(step_fn, CompiledStep)
-                       or (args.scan and not args.eager) else "eager"),
+              "step": ("compiled" if isinstance(step_fn, (
+                  CompiledStep, ComposedStep)) or (args.scan and not args.eager)
+                  else "eager"),
               "mode": args.mode, **shape, "steps": args.steps,
               "receiver": kwargs, "first_step_ms": first_ms,
               "wall_ms_per_step": wall_ms / args.steps,
@@ -294,6 +303,9 @@ def main() -> int:
                 "ms_per_step": sum(k["ms_per_step"] for k in small),
                 "calls_per_step": sum(k["calls_per_step"] for k in small)}})
     print(json.dumps(result))
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(json.dumps(result) + "\n")
     return 0
 
 
