@@ -170,9 +170,13 @@ git-ignored ``rtsdr_tpu_torch/build``), then
      replayed graph runs no Python);
      ``stage_timings`` — ``utils/profiling.py`` at C = 1,024, each stage
      compiled (``jit_fn``) and replayed as a graph, one line per stage with
-     the card's name and power limit; ``trace`` — one MODE0 step
-     at C = 1,024 under ``utils/trace.py``, whose Chrome trace must show the
-     kernels of K1-K4 as device events;
+     the card's name and power limit; ``trace`` — one compiled MODE0 step
+     at C = 1,024 under ``utils/trace.py`` (``tools/torch_trace_check.py``'s
+     ``trace_step``), whose Chrome trace must show the kernels of K1-K4 as
+     device events; every profiler session of this script opens through
+     ``utils/trace.py::profile``, which has CUPTI torn down after each, so
+     that device events late in the process are not dropped at the
+     window's start;
  11. what had never run on the card: ``batch_runner_1024`` —
      ``BatchRunner`` over 1,024 capture files, 3 blocks, each station's
      audio and frame outputs equal to its row of the batched receiver
@@ -187,8 +191,25 @@ git-ignored ``rtsdr_tpu_torch/build``), then
      blocks: clean and 15 dB SNR at CLI defaults (groups >= transmitted
      - 2), +200 Hz pilot detune at CLI defaults (<= 1 group) and with the
      robust clock (>= 3), the thresholds of
-     ``tests/test_torch_golden_campaign.py`` (counted);
- 13. for each counted window the launch counts, set to 0 just before, must
+     ``tests/test_torch_golden_campaign.py`` (counted); beside each of the
+     three scenarios the golden decoder's column (``tests/torch_oracles.py``,
+     numpy + scipy on the host, outside the window), equal to the syncs and
+     groups ``campaign_r5.json`` records;
+ 13. the measurement tools: ``scaling`` — ``tools/torch_scaling_sweep.py``
+     over C = 1, 1,024 and 4,096 for the mono and the full chain (the block
+     written once into the compiled step's input buffer, slope timing; each
+     chain counted), then the latency of a block through the compiled
+     ``StreamRunner`` at C = 1 fed at the air rate (counted); ``ingest`` —
+     ``tools/torch_bench_ingest.py`` with 1, 4 and 16 pipes into a pinned
+     staging array and 1,024 pipes on into a compiled function's input
+     buffer (blocks, bytes and rows as written, the device's sum of the
+     last block right), then the (1,024, 307,200) host-to-device copy
+     against the compiled MODE0 step (counted); ``pll_envelope`` —
+     ``tools/torch_pll_envelope.py``'s full grid on the card (K2 and K3 at
+     ``loop_div`` 1, 2 and 4 over 36 lanes; counted), the clean centre
+     point locked at div 1, and the grid at 2 blocks on the card against
+     the plain versions on the CPU (lock and jitter within 0.05);
+ 14. for each counted window the launch counts, set to 0 just before, must
      equal steps x launches per step (the walk K7: one per step of each
      receiver with ``resync`` on).
 
@@ -333,6 +354,26 @@ N_WB_OTHER_BLOCKS = 3
 # discriminator, which reads them at ~0.1 and amplifies rounding
 TOL_STRAY = 0.02
 N_CAMPAIGN_BLOCKS = 12
+# the golden decoder's column of campaign_r5.json at 12 blocks (syncs,
+# groups); the golden pass is numpy + scipy on the host, and the port's
+# synthesizer gives the JAX tool's streams value for value
+GOLDEN_CAMPAIGN = {"clean": (33, 7), "snr15": (33, 7),
+                   "detune+200": (23, 5)}
+# the measurement tools' phases: channel counts of the sweep, its repeats,
+# the stream-latency streams, the ingest pipe counts and blocks per pipe,
+# the rows of the device path, and the PLL envelope's card-against-CPU
+# comparison (blocks; tolerances of tests/test_torch_golden_pll.py)
+SCALING_CHANNELS = (1, 1024, 4096)
+SCALING_REPEATS = 3
+N_LATENCY_RUNS = 6
+INGEST_PIPES = (1, 4, 16)
+N_INGEST_BLOCKS = 100
+INGEST_DEVICE_ROWS = 1024
+N_INGEST_DEVICE_BLOCKS = 8
+N_ENVELOPE_CHECK_BLOCKS = 2
+TOL_ENVELOPE_LOCK = 0.05
+TOL_ENVELOPE_JITTER = 0.05
+ENVELOPE_PHASE_HELD = 0.5   # jitter is defined where the loop holds a phase
 # the checkpoint keys of a MODE0 receiver state with RDS and the frame
 # layer: those of rtsdr_tpu.utils.checkpoint (tests/test_torch_checkpoint.py
 # holds the port's and the JAX package's keys to this list)
@@ -350,10 +391,6 @@ CHECKPOINT_KEYS = [
                              "last_position", "bad_count", "offset_frac",
                              "derot_phase")),
 ]
-# the CUDA kernels of K1-K4 (their __global__ names), which a trace of one
-# MODE0 step must show as device events
-TRACE_KERNELS = {"K1": "ingest_kernel", "K2": "fir_bank_kernel",
-                 "K3": "pll_kernel", "K4": "resample_rrc_kernel"}
 MIN_STREAM_SYNCS = 40
 MAX_STREAM_FALSE_POSITIVES = 25
 
@@ -414,10 +451,10 @@ def main() -> int:
     from rtsdr_tpu_torch.utils import jit as jit_mod
     from rtsdr_tpu_torch.utils import profiling as prof_mod
     from rtsdr_tpu_torch.utils import shards as shards_mod
+    from rtsdr_tpu_torch.utils import trace as trace_mod
     from rtsdr_tpu_torch.utils.checkpoint import (
         load_state, save_state, state_keys)
     from rtsdr_tpu_torch.utils.profiling import stage_timings
-    from rtsdr_tpu_torch.utils.trace import trace
     from rtsdr_tpu_torch.utils.signals import (
         encode_rds_blocks, fm_multiplex_iq, ps_station_words, rds_baseband,
         sync_walk_inputs, wideband_capture_iq)
@@ -427,6 +464,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     cfg = MODE0
     card = card_line()
@@ -488,12 +526,9 @@ def main() -> int:
         its device events over ``calls`` calls): a kernel's own time where
         its wrapper's host work exceeds it, as events around calls would
         not show.  None where the profiler sees no device time."""
-        from torch.profiler import ProfilerActivity, profile
-
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with trace_mod.profile() as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
@@ -2991,12 +3026,9 @@ def main() -> int:
         """Device events (kernels, copies, fills) per call of ``fn`` in a
         profiler trace, counted as ``tools/torch_profile_step.py`` counts
         them."""
-        from torch.profiler import ProfilerActivity, profile
-
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with trace_mod.profile() as prof:
             for _ in range(steps):
                 fn()
             torch.cuda.synchronize()
@@ -3358,26 +3390,19 @@ def main() -> int:
     # ===== 14. one MODE0 step under utils/trace.py: the Chrome trace holds
     # K1-K4 as device events
     t_tr = time.perf_counter()
+    sys.path.insert(0, os.path.join(here, "tools"))
+    from torch_trace_check import TRACE_KERNELS, trace_step
+
     rx_tr = Receiver(cfg, (N_BATCH_CHANNELS,))
     tr_raw = batch_block(0)
     st_tr, _ = rx_tr.step(rx_tr.init(), tr_raw)            # warm-up
     torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        with trace(tmp):
-            rx_tr.step(st_tr, batch_block(1))
-        files = [f for f in os.listdir(tmp) if f.endswith(".json")]
-        with open(os.path.join(tmp, files[0])) as f:
-            events = json.load(f)["traceEvents"]
-    device_events = [e for e in events if e.get("cat") == "kernel"]
-    seen = {k: sum(1 for e in device_events if name in e.get("name", ""))
-            for k, name in TRACE_KERNELS.items()}
-    rep_tr = {"channels": N_BATCH_CHANNELS, "trace_files": len(files),
-              "events": len(events), "device_kernel_events":
-              len(device_events), "kernel_events_by_kernel": seen,
-              "kernel_names": TRACE_KERNELS,
-              "seconds": time.perf_counter() - t_tr}
+    st_tr, rep_tr = trace_step(rx_tr.step, st_tr, batch_block(1))
+    rep_tr.update(channels=N_BATCH_CHANNELS, kernel_names=TRACE_KERNELS,
+                  process_seconds=time.perf_counter() - t_start,
+                  seconds=time.perf_counter() - t_tr)
     emit({"trace": rep_tr, "card": card})
-    if len(files) != 1 or not all(seen.values()):
+    if not rep_tr["all_seen"]:
         raise SystemExit(f"chip_smoke: the trace does not show K1-K4 on "
                          f"the card: {rep_tr}")
     del rx_tr, st_tr
@@ -3609,14 +3634,150 @@ def main() -> int:
                  for n in ("clean", "snr15"))
              and cp["detune+200"]["rx_groups"] <= 1
              and cp["detune+200/robust"]["rx_groups"] >= 3)
+    # the golden column beside the card's yield: tests/torch_oracles.py on
+    # the host, outside the counted window, held to campaign_r5.json's
+    t_gold = time.perf_counter()
+    for n in cp_names:
+        g_syncs, g_groups = dcamp.golden_yield(cp_streams[n][0],
+                                               N_CAMPAIGN_BLOCKS)
+        cp[n].update(golden_syncs=g_syncs, golden_groups=g_groups,
+                     golden_record=list(GOLDEN_CAMPAIGN[n]))
+    gold_s = time.perf_counter() - t_gold
+    gold_ok = all((cp[n]["golden_syncs"], cp[n]["golden_groups"])
+                  == GOLDEN_CAMPAIGN[n] for n in cp_names)
     emit({"campaign": {"rows": cp_rows, "blocks": N_CAMPAIGN_BLOCKS,
                        "thresholds": "clean, snr15: groups >= tx - 2; "
-                       "detune+200: <= 1 at CLI defaults, >= 3 robust",
-                       "synthesis_seconds": cp_syn_s, "launches": cp_counts,
+                       "detune+200: <= 1 at CLI defaults, >= 3 robust; "
+                       "golden column equal to campaign_r5.json's",
+                       "synthesis_seconds": cp_syn_s,
+                       "golden_host_seconds": gold_s, "launches": cp_counts,
                        "seconds": time.perf_counter() - t_cp},
           "card": card})
-    if not cp_ok:
+    if not cp_ok or not gold_ok:
         raise SystemExit(f"chip_smoke: the decode campaign is off: {cp_rows}")
+
+    # ===== 17. the channel sweep (tools/torch_scaling_sweep.py) at C = 1,
+    # 1,024 and 4,096, mono and full, the block in the step's input buffer;
+    # then one block's trip through the compiled StreamRunner at C = 1
+    import torch_bench_ingest as bingest
+    import torch_pll_envelope as penv
+    import torch_scaling_sweep as sweep
+
+    t_sc = time.perf_counter()
+    sc_steps = (sweep.K1 + sweep.K2) * (1 + SCALING_REPEATS)
+    sc_rows, sc_counts = {}, {}
+    for chain in sweep.CHAINS:
+        _cuda.reset_launch_counts()
+        sc_rows[chain] = sweep.sweep_chain(chain, SCALING_CHANNELS, dev,
+                                           repeats=SCALING_REPEATS, card=card)
+        # each count's receiver made as many steps; the full chain's are
+        # the RDS path's, the mono chain's run the ingest kernel
+        per_step = (rds_per_step if chain == "full"
+                    else {"ingest.fm_audio": 1})
+        sc_counts[chain] = expect_counts(
+            f"scaling {chain}", sc_steps * len(SCALING_CHANNELS), per_step)
+    _cuda.reset_launch_counts()
+    lat = sweep.stream_latency(dev, N_LATENCY_RUNS, card=card)[
+        "stream_latency"]
+    # the runs and the one before them that takes the capture
+    n_lat = (N_LATENCY_RUNS + 1) * lat["blocks_per_run"]
+    lat["launches"] = expect_counts("stream latency", n_lat, rds_per_step,
+                                    walks=n_lat)
+    rep_sc = {"chains": sc_rows, "knee": {c: sweep.knee(r)
+                                          for c, r in sc_rows.items()},
+              "repeats": SCALING_REPEATS, "steps_per_count": sc_steps,
+              "launches": sc_counts, "stream_latency": lat,
+              "input": "written once into step.input_buffer",
+              "seconds": time.perf_counter() - t_sc}
+    emit({"scaling": rep_sc, "card": card})
+    sc_ok = (all(r["fits"] and np.isfinite(r["ms_per_step"])
+                 and r["ms_per_step"] > 0 for rs in sc_rows.values()
+                 for r in rs)
+             and all([r["channels"] for r in rs] == list(SCALING_CHANNELS)
+                     for rs in sc_rows.values())
+             and lat["int16_bytes_out"] == lat["int16_bytes_expected"]
+             and all(np.isfinite(x) and x > 0 for x in lat["last_block_ms"]))
+    if not sc_ok:
+        raise SystemExit(f"chip_smoke: the channel sweep is off: {rep_sc}")
+    torch.cuda.empty_cache()
+
+    # ===== 18. ingest (tools/torch_bench_ingest.py): N pipes through the
+    # C++ readers into one pinned staging array, then 1,024 pipes on into a
+    # compiled function's input buffer, and the (1,024, 307,200) copy
+    # against the compiled step
+    t_in = time.perf_counter()
+    in_rows = [bingest.run_one(n, N_INGEST_BLOCKS, cfg.block_size,
+                               device="pinned") for n in INGEST_PIPES]
+    in_rows.append(bingest.run_one(INGEST_DEVICE_ROWS, N_INGEST_DEVICE_BLOCKS,
+                                   cfg.block_size, device="cuda"))
+    for r in in_rows:
+        r["scaling_eff"] = (r["gb_per_s"] / r["pipes"]) / in_rows[0]["gb_per_s"]
+    _cuda.reset_launch_counts()
+    cvs = bingest.copy_vs_step(INGEST_DEVICE_ROWS, dev)["copy_vs_step"]
+    cvs["launches"] = expect_counts(
+        "copy against step", (sweep.K1 + sweep.K2) * (1 + 3), rds_per_step)
+    rep_in = {"runs": in_rows, "copy_vs_step": cvs,
+              "seconds": time.perf_counter() - t_in}
+    emit({"ingest": rep_in, "card": card})
+    in_ok = (all(r["blocks"] == r["blocks_written"]
+                 and r["bytes"] == r["bytes_written"]
+                 and r["last_rows_equal_written"]
+                 and r["writer_threads_alive_after"] == 0
+                 and np.isfinite(r["gb_per_s"]) and r["gb_per_s"] > 0
+                 for r in in_rows)
+             and in_rows[-1]["device_sum_equal"] is True
+             and cvs["copied_equal"]
+             and all(np.isfinite(cvs[k]) and cvs[k] > 0
+                     for k in ("h2d_copy_ms", "step_ms")))
+    if not in_ok:
+        raise SystemExit(f"chip_smoke: ingest is off: {rep_in}")
+    torch.cuda.empty_cache()
+
+    # ===== 19. the PLL loop-rate envelope (tools/torch_pll_envelope.py):
+    # the full grid on the card, K2 and K3 (loop_div 1, 2, 4) at 36 lanes;
+    # then the same grid at 2 blocks on the card against the plain versions
+    t_pe = time.perf_counter()
+    _cuda.reset_launch_counts()
+    env = penv.envelope(device=dev)
+    n_env = len(penv.INSTANCES) * len(penv.DIVS) * penv.BLOCKS
+    env_counts = expect_counts("PLL envelope", n_env,
+                               {"fir_bank.none": 1, "pll": 1})
+    env_summary = penv.summary(env)
+    t_cpu = time.perf_counter()
+    chk = {d: penv.envelope(N_ENVELOPE_CHECK_BLOCKS, device=d)
+           for d in (dev, "cpu")}
+    cpu_s = time.perf_counter() - t_cpu
+    pairs = [(a, b) for name in penv.INSTANCES for div in penv.DIVS
+             for a, b in zip(chk[dev][name][div], chk["cpu"][name][div])]
+    lock_err = max(abs(a["lock"] - b["lock"]) for a, b in pairs)
+    jit_err = max((abs(a["jitter_rad"] - b["jitter_rad"]) for a, b in pairs
+                   if min(a["lock"], b["lock"]) > ENVELOPE_PHASE_HELD),
+                  default=0.0)
+    centre = {name: next(r for r in env[name][1] if r["detune_hz"] == 0.0
+                         and r["snr_db"] is None) for name in env}
+    rep_pe = {"points": [r for per_div in env.values()
+                         for recs in per_div.values() for r in recs],
+              "summary": env_summary, "blocks": penv.BLOCKS,
+              "launches": env_counts, "centre_div1": centre,
+              "check_blocks": N_ENVELOPE_CHECK_BLOCKS,
+              "card_vs_cpu_max_lock_err": lock_err,
+              "card_vs_cpu_max_jitter_err_phase_held": jit_err,
+              "tolerances": {"lock": TOL_ENVELOPE_LOCK,
+                             "jitter_rad": TOL_ENVELOPE_JITTER,
+                             "jitter_where_lock_above": ENVELOPE_PHASE_HELD},
+              "cpu_check_seconds": cpu_s,
+              "seconds": time.perf_counter() - t_pe}
+    emit({"pll_envelope": rep_pe, "card": card})
+    pe_ok = (all(c["lock"] >= penv.SETTLE and c["settle_block"] >= 0
+                 for c in centre.values())
+             and all(np.isfinite(r["lock"]) and np.isfinite(r["jitter_rad"])
+                     for r in rep_pe["points"])
+             and len(rep_pe["points"]) == 2 * len(penv.DIVS) * 36
+             and lock_err <= TOL_ENVELOPE_LOCK
+             and jit_err <= TOL_ENVELOPE_JITTER)
+    if not pe_ok:
+        raise SystemExit(f"chip_smoke: the PLL envelope is off: "
+                         f"{ {k: rep_pe[k] for k in rep_pe if k != 'points'} }")
 
     # -------------------------------------------------- the kernels line
     # name -> (source, the TPU kernel it replaces, launches in the window

@@ -12,6 +12,7 @@ test_dft_matches_quadratic_definition``.
 
 import importlib
 import json
+import os
 import math
 import pathlib
 import sys
@@ -181,6 +182,22 @@ def test_trace_raises_when_the_profiler_cannot_start(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="profiler refused"):
         with trace(str(tmp_path / "t")):
             pass
+
+
+def test_profile_tears_cupti_down_after_each_session(monkeypatch):
+    """Every session of ``profile`` (and so of ``trace``) asks the profiler
+    to tear CUPTI down at its end, unless the environment says otherwise;
+    on the CPU it records the host alone."""
+    from rtsdr_tpu_torch.utils.trace import profile
+
+    monkeypatch.delenv("TEARDOWN_CUPTI", raising=False)
+    with profile() as prof:
+        _ = torch.ones(16).sum()
+    assert os.environ["TEARDOWN_CUPTI"] == "1"
+    assert prof.activities == {torch.profiler.ProfilerActivity.CPU}
+    monkeypatch.setenv("TEARDOWN_CUPTI", "0")
+    profile()
+    assert os.environ["TEARDOWN_CUPTI"] == "0"
 
 
 # ------------------------------------------------------------- tools

@@ -12,10 +12,10 @@ independent of either decode path), reporting RDS group yield for
     error correction off), and in a second pass with the robust options
     (``--clock gardner --derotate``);
   * the golden decoder (scipy golden front end + ``golden_rds_dsp`` +
-    ``GoldenFrameDecoder`` of ``tests/oracles.py``), on the host.  That
-    module reads its coefficient tables from the JAX package, so the
-    golden pass is a CPU-side reference: ``--no-golden`` leaves it out,
-    and nothing else of this tool imports either.
+    ``GoldenFrameDecoder`` of ``tests/torch_oracles.py``, the jax-free copy
+    of ``tests/oracles.py``'s), numpy and scipy on the host beside either
+    device; ``--no-golden`` leaves it out.  Nothing of this tool imports
+    JAX or the JAX package.
 
 ``--channels C`` runs the scenario streams as the rows of ONE batched
 receiver of C channels (the scenarios repeated in order to fill the rows),
@@ -170,7 +170,8 @@ def golden_yield(u8, n_blocks):
     """Golden chain (scipy front end + model bit layer) -> accepted
     syndrome count and assembled-group estimate (4 consecutive accepted
     syndromes at 26-bit spacing ~= 1 group)."""
-    from oracles import GoldenFrameDecoder, golden_mono_stereo, golden_rds_dsp
+    from torch_oracles import (
+        GoldenFrameDecoder, golden_mono_stereo, golden_rds_dsp)
 
     outs = golden_mono_stereo(u8, n_blocks)
     fm = outs["fm"].reshape(n_blocks, -1)

@@ -74,6 +74,11 @@ def main() -> int:
     import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
 
+    # what rtsdr_tpu_torch/utils/trace.py::profile does (a --repo tree may
+    # predate it): CUPTI torn down after each session, so that its device
+    # timestamps do not drift against the next session's window
+    os.environ.setdefault("TEARDOWN_CUPTI", "1")
+
     if not torch.cuda.is_available():
         print("torch_profile_kernels: no CUDA device", file=sys.stderr)
         return 1

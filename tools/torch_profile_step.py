@@ -30,10 +30,16 @@ the GPU over noisy synthetic FM stations that carry RDS and traces
 ``--steps`` steady steps
 with ``torch.profiler`` (CPU + CUDA activities), after timing as many
 untraced steps on the host clock.  The step is the compiled one
-(``utils/jit.py``: one CUDA graph replayed per step, what users run; a
-compiled step is given its own input tensor, so its device time includes
-the copy into the graph's input buffer; on the spread route one graph
-holds the T shards' branches); ``--eager`` runs the eager step instead.
+(``utils/jit.py``: one CUDA graph replayed per step, what users run; on
+the spread route one graph holds the T shards' branches); ``--eager`` runs
+the eager step instead.  Each steady step's block comes as the runners
+bring it (``io/batch.py``, ``io/stream.py``): from a pinned staging buffer
+of ``io/staging.py::Feeder`` (two blocks, filled before the window, in
+turn) with one host-to-device copy straight into the compiled step's
+input buffer (``step.input_buffer``; the eager step and a composition over
+several devices get a new device tensor), then the step ``borrowed``.  The
+copy is reported on its own (``input_h2d_ms_per_step``) and
+``step_busy_ms_per_step`` is the device time without it.
 Prints one JSON line (and writes it to ``--out FILE``, the step and PLL
 times ``tools/torch_comm_model.py --profile FILE`` reads): which step ran, the card's name
 and power limit, the host clock of the first step (a compiled step's
@@ -60,6 +66,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from rtsdr_tpu_torch.config import MODE0, MODE1, MODE1_RDS  # noqa: E402
+from rtsdr_tpu_torch.io.staging import Feeder  # noqa: E402
 from rtsdr_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from rtsdr_tpu_torch.parallel.timeshard import (  # noqa: E402
     make_time_sharded_receiver,
@@ -72,8 +79,10 @@ from rtsdr_tpu_torch.pipeline.scan import make_band_scanner  # noqa: E402
 from rtsdr_tpu_torch.utils.jit import (  # noqa: E402
     CompiledStep,
     ComposedStep,
+    borrowing,
     jit_step,
 )
+from rtsdr_tpu_torch.utils.trace import profile  # noqa: E402
 from rtsdr_tpu_torch.utils.signals import (  # noqa: E402
     encode_rds_blocks,
     fm_multiplex_iq,
@@ -145,8 +154,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
-    from torch.profiler import ProfilerActivity, profile
-
     dev = torch.device("cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -193,7 +200,8 @@ def main() -> int:
                 scan_fn = jit_fn(scan_fn, dev, name="band scanner")
 
             def step_fn(state, raw, scan_fn=scan_fn):
-                metrics, state = scan_fn(state, raw)
+                metrics, state = (scan_fn(state, raw) if args.eager
+                                  else scan_fn.borrowed(state, raw))
                 return state, metrics
             shape = {"scan_slots": k_w}
             kwargs = {}
@@ -245,20 +253,33 @@ def main() -> int:
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
     state, _ = step_fn(state, block(1))
-    blocks = [block(2 + b) for b in range(2 * args.steps)]
+    # the runners' input path: a pinned staging buffer, one copy into the
+    # compiled step's input buffer, the step borrowed
+    in_shape = tuple(first.shape)
+    if args.scan:
+        call, into = step_fn, (None if args.eager
+                               else scan_fn.static_args()[1])
+    else:
+        call, into = borrowing(step_fn, in_shape)
+    feeder = Feeder(in_shape, dev, into)
+    for b in (2, 3):
+        feeder.staging()[...] = block(b).cpu().numpy()
     torch.cuda.synchronize()
+
+    def steady(n):
+        nonlocal state
+        for _ in range(n):
+            feeder.staging()         # the other pre-filled buffer
+            state, _ = call(state, feeder.push())
 
     # host clock over steady steps, without the profiler ...
     t0 = time.perf_counter()
-    for raw in blocks[:args.steps]:
-        state, out = step_fn(state, raw)
+    steady(args.steps)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     # ... then the same number of steps traced
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for raw in blocks[args.steps:]:
-            state, out = step_fn(state, raw)
+    with profile() as prof:
+        steady(args.steps)
         torch.cuda.synchronize()
 
     def dev_us(e):
@@ -277,12 +298,19 @@ def main() -> int:
                               "calls_per_step": e.count / args.steps}
     busy_ms = sum(k["ms_per_step"] for k in kernels.values())
     launches = sum(k["calls_per_step"] for k in kernels.values())
+    h2d_ms = sum(k["ms_per_step"] for name, k in kernels.items()
+                 if name.startswith("Memcpy HtoD"))
     result = {"card": card,
               "step": ("compiled" if isinstance(step_fn, (
                   CompiledStep, ComposedStep)) or (args.scan and not args.eager)
                   else "eager"),
               "mode": args.mode, **shape, "steps": args.steps,
-              "receiver": kwargs, "first_step_ms": first_ms,
+              "receiver": kwargs,
+              "input": ("pinned staging -> step.input_buffer "
+                        "(io/staging.py::Feeder, as io/batch.py)"
+                        if into is not None else
+                        "pinned staging -> a new device tensor"),
+              "first_step_ms": first_ms,
               "wall_ms_per_step": wall_ms / args.steps,
               "device_launches_per_step": launches}
     if not kernels:
@@ -293,6 +321,8 @@ def main() -> int:
         small = [k for name, k in kernels.items() if name not in top]
         result.update({
             "device_busy_ms_per_step": busy_ms,
+            "input_h2d_ms_per_step": h2d_ms,
+            "step_busy_ms_per_step": busy_ms - h2d_ms,
             "device_idle_share_of_wall": max(
                 0.0, 1.0 - busy_ms / (wall_ms / args.steps)),
             **streams,
