@@ -7,7 +7,8 @@ per-block allocations), and the device sees a single (N, block_size)
 ``non_blocking`` transfer per step.  Two staging buffers alternate per
 block and output fetch/emission of block b overlaps block b+1's compute,
 exactly like the single-station ``StreamRunner`` (``io/staging.py`` says
-why two are sufficient).
+why two are sufficient).  The reader loop and each block's drain are spans
+of ``utils/trace.py`` (``rtsdr.read``, ``rtsdr.emit``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from rtsdr_tpu_torch.io.stream import fetch_list, fetched_frame
 from rtsdr_tpu_torch.pipeline.receiver import Receiver
 from rtsdr_tpu_torch.runtime import BlockReader
 from rtsdr_tpu_torch.utils.jit import borrowing
+from rtsdr_tpu_torch.utils.trace import annotate
 
 
 class BatchRunner:
@@ -42,6 +44,7 @@ class BatchRunner:
         self._step, into = borrowing(self.rx.step, shape)
         self._feeder = Feeder(shape, self.rx.device, into)
         self._fetcher = Fetcher(self.rx.device)
+        self.blocks_read = 0     # the streams' blocks read so far
 
     def close(self) -> None:
         for r in self.readers:
@@ -58,9 +61,13 @@ class BatchRunner:
         transfer; None when ANY stream hits EOF (streams advance in
         lock-step, as the batched state requires)."""
         buf = self._feeder.staging()
-        for c, r in enumerate(self.readers):
-            if not r.read_block_into(buf[c]):
-                return None
+        with annotate("rtsdr.read", block=self.blocks_read,
+                      bytes=self._feeder.nbytes) as span:
+            for c, r in enumerate(self.readers):
+                if not r.read_block_into(buf[c]):
+                    span.add(bytes=c * self.cfg.block_size)
+                    return None
+        self.blocks_read += 1
         return self._feeder.push()
 
     def run(
@@ -83,15 +90,16 @@ class BatchRunner:
         def drain(ticket):
             if ticket is None:
                 return
-            # ONE device->host fetch per output leaf, then row slices
-            arrays = self._fetcher.wait(ticket)
-            left, right = arrays[:2]
-            rds = fetched_frame(arrays) if rds_hook is not None else None
-            for c in range(self.n):
-                if emit is not None:
-                    emit(c, left[c], right[c])
-                if rds is not None:
-                    rds_hook(c, type(rds)(*(leaf[c] for leaf in rds)))
+            with annotate("rtsdr.emit", block=ticket.block):
+                # ONE device->host fetch per output leaf, then row slices
+                arrays = self._fetcher.wait(ticket)
+                left, right = arrays[:2]
+                rds = fetched_frame(arrays) if rds_hook is not None else None
+                for c in range(self.n):
+                    if emit is not None:
+                        emit(c, left[c], right[c])
+                    if rds is not None:
+                        rds_hook(c, type(rds)(*(leaf[c] for leaf in rds)))
 
         while max_blocks is None or n_blocks < max_blocks:
             batch = self.read_batch()

@@ -17,12 +17,19 @@ after the NEXT block's kernels were enqueued on the same stream.  So:
     computing meanwhile.
 
 On the CPU device both degrade to plain tensor/numpy copies.
+
+Each call is a span of ``utils/trace.py`` (``rtsdr.push``,
+``rtsdr.fetch_start``, ``rtsdr.fetch_wait``).
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
+
+from rtsdr_tpu_torch.utils.trace import annotate
 
 
 class Feeder:
@@ -40,6 +47,7 @@ class Feeder:
                                   pin_memory=self.cuda) for _ in range(2)]
         self._slot = 0
         self.into = into
+        self.nbytes = self._bufs[0].nbytes
 
     def staging(self) -> np.ndarray:
         """The next staging buffer as a numpy view (fill it, then call
@@ -50,11 +58,21 @@ class Feeder:
     def push(self) -> torch.Tensor:
         """Device tensor of the buffer ``staging`` last handed out."""
         buf = self._bufs[self._slot]
-        if self.into is not None:
-            return self.into.copy_(buf, non_blocking=True)
-        if not self.cuda:
-            return buf.clone()
-        return buf.to(self.device, non_blocking=True)
+        with annotate("rtsdr.push", bytes=self.nbytes):
+            if self.into is not None:
+                return self.into.copy_(buf, non_blocking=True)
+            if not self.cuda:
+                return buf.clone()
+            return buf.to(self.device, non_blocking=True)
+
+
+class Ticket(NamedTuple):
+    """A fetch under way: the event after its copies (None on the CPU),
+    the host arrays, and the block it serves (``utils/trace.py``; None
+    while no session records)."""
+    event: object
+    arrays: tuple
+    block: int | None
 
 
 class Fetcher:
@@ -65,8 +83,15 @@ class Fetcher:
         self._bufs: list = [None, None]
         self._slot = 0
 
-    def start(self, tensors: tuple):
+    def start(self, tensors: tuple) -> Ticket:
         """Begin fetching ``tensors``; returns a ticket for ``wait``."""
+        with annotate("rtsdr.fetch_start", copies=len(tensors)) as span:
+            event, arrays = self._start(tensors)
+            if span:
+                span.add(bytes=sum(a.nbytes for a in arrays))
+        return Ticket(event, arrays, span.block)
+
+    def _start(self, tensors: tuple):
         if not self.cuda:
             # copies: a compiled step's outputs are its own buffers, which
             # the next step overwrites
@@ -86,10 +111,10 @@ class Fetcher:
         return event, tuple(b.numpy() for b in bufs)
 
     @staticmethod
-    def wait(ticket) -> tuple:
+    def wait(ticket: Ticket) -> tuple:
         """Block until the ticket's copies are done; the host arrays (valid
         until the next-but-one ``start``)."""
-        event, arrays = ticket
-        if event is not None:
-            event.synchronize()
-        return arrays
+        with annotate("rtsdr.fetch_wait", block=ticket.block):
+            if ticket.event is not None:
+                ticket.event.synchronize()
+        return ticket.arrays

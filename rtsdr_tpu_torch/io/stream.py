@@ -5,7 +5,8 @@ things: the C++ reader thread prefetches stdin blocks, eager launches
 return before the device finishes, and output fetch/emission of block b
 happens while block b+1 computes (``io/staging.py``).  A block's frame
 outputs come to the host with its audio, as one fetch after the next step
-was queued.
+was queued.  A block's read and its drain are spans of ``utils/trace.py``
+(``rtsdr.read``, ``rtsdr.emit``), each carrying the block's index.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from rtsdr_tpu_torch.pipeline.frame import SYNDROME_NAMES, FrameOutputs
 from rtsdr_tpu_torch.pipeline.receiver import Receiver
 from rtsdr_tpu_torch.runtime import BlockReader, emit_int16_interleave
 from rtsdr_tpu_torch.utils.jit import borrowing
+from rtsdr_tpu_torch.utils.trace import annotate
 
 
 def format_rds_events(frame_out) -> list[str]:
@@ -107,12 +109,14 @@ class StreamRunner:
             nonlocal n_syncs, n_false_pos, n_corrected
             if ticket is None:
                 return
-            arrays = fetcher.wait(ticket)
-            if emit is not None:
-                emit(emit_int16_interleave(arrays[0], arrays[1],
-                                           scale).tobytes())
-            fo = fetched_frame(arrays)
-            if fo is not None:
+            with annotate("rtsdr.emit", block=ticket.block):
+                arrays = fetcher.wait(ticket)
+                if emit is not None:
+                    emit(emit_int16_interleave(arrays[0], arrays[1],
+                                               scale).tobytes())
+                fo = fetched_frame(arrays)
+                if fo is None:
+                    return
                 if rds_log is not None:
                     for line in format_rds_events(fo):
                         rds_log(line)
@@ -127,7 +131,12 @@ class StreamRunner:
 
         with BlockReader(fd_in, cfg.block_size) as reader:
             while max_blocks is None or n_blocks < max_blocks:
-                if not reader.read_block_into(feeder.staging()):
+                with annotate("rtsdr.read", block=n_blocks,
+                              bytes=cfg.block_size) as span:
+                    got = reader.read_block_into(feeder.staging())
+                    if not got:
+                        span.add(bytes=0)
+                if not got:
                     break
                 state, out = step(state, feeder.push())
                 ticket = fetcher.start(fetch_list(out))

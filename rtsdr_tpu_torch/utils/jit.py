@@ -48,6 +48,9 @@ and every call replays it:
   work and are taken back out of ``ops/_cuda.py``'s ``LAUNCHES``; each
   replay adds the launches its capture recorded, so a window counts the
   same launches per step compiled or eager.
+* Spans.  The warm-up and capture together are one ``rtsdr.capture`` span
+  of ``utils/trace.py``, each replay one ``rtsdr.replay`` (its
+  ``launches``: the sum of ``per_step``).
 
 ``jit_fn(fn, device)`` returns a ``CompiledFn``: ``fn(*args)`` captured in
 the same way (the warm-ups, then one graph; pinning and launch counts as
@@ -81,6 +84,7 @@ import torch
 from rtsdr_tpu_torch.device import resolve_device
 from rtsdr_tpu_torch.ops import _cuda
 from rtsdr_tpu_torch.ops.fir import DeviceCache
+from rtsdr_tpu_torch.utils.trace import annotate
 
 #: eager warm-up steps before a capture, by device type: on a GPU they fill
 #: the tap and plan caches, cuBLAS's workspace and the kernels' one-time
@@ -184,7 +188,7 @@ class _Recorded:
         by the first replay), on the CPU by running it once."""
         counts = _cuda.launch_counts()
         try:
-            with torch.no_grad():
+            with annotate("rtsdr.capture"), torch.no_grad():
                 if self.cuda:
                     self._capture_graph()
                 else:
@@ -221,16 +225,19 @@ class _Recorded:
         self._pinned = DeviceCache.held_values()
 
     def _replay(self) -> None:
-        if self._graph is not None:
-            with torch.cuda.device(self.device):
-                self._graph.replay()
-        else:
-            counts = _cuda.launch_counts()
-            with torch.no_grad():
-                out, _ = self._body()
-            _cuda.LAUNCHES.clear()
-            _cuda.LAUNCHES.update(counts)
-            copy_all(self._out, out)
+        with annotate("rtsdr.replay") as span:
+            if span:
+                span.add(launches=sum(self.per_step.values()))
+            if self._graph is not None:
+                with torch.cuda.device(self.device):
+                    self._graph.replay()
+            else:
+                counts = _cuda.launch_counts()
+                with torch.no_grad():
+                    out, _ = self._body()
+                _cuda.LAUNCHES.clear()
+                _cuda.LAUNCHES.update(counts)
+                copy_all(self._out, out)
         _cuda.add_launches(self.per_step)
 
     def _run(self):
