@@ -5,10 +5,13 @@ C++ BlockReader (one producer thread per fd), the N blocks land in the
 rows of one pinned staging array (``BlockReader.read_block_into`` — no
 per-block allocations), and the device sees a single (N, block_size)
 ``non_blocking`` transfer per step.  Two staging buffers alternate per
-block and output fetch/emission of block b overlaps block b+1's compute,
-exactly like the single-station ``StreamRunner`` (``io/staging.py`` says
-why two are sufficient).  The reader loop and each block's drain are spans
-of ``utils/trace.py`` (``rtsdr.read``, ``rtsdr.emit``).
+block and output fetch/emission of block b overlaps block b+1's compute
+(``io/staging.py`` says why two are sufficient).  Unlike the
+single-station ``StreamRunner``, the loop holds block b until block b+1
+is read even when b+1 has not arrived: a rule that drains early would
+have to ask all N readers.  The reader loop and each block's drain are
+spans of ``utils/trace.py`` (``rtsdr.read``, ``rtsdr.emit`` with
+``early`` = 0).
 """
 
 from __future__ import annotations
@@ -63,6 +66,8 @@ class BatchRunner:
         buf = self._feeder.staging()
         with annotate("rtsdr.read", block=self.blocks_read,
                       bytes=self._feeder.nbytes) as span:
+            if span:    # the whole batches waiting in every reader
+                span.add(ready=min(r.ready() for r in self.readers))
             for c, r in enumerate(self.readers):
                 if not r.read_block_into(buf[c]):
                     span.add(bytes=c * self.cfg.block_size)
@@ -90,7 +95,7 @@ class BatchRunner:
         def drain(ticket):
             if ticket is None:
                 return
-            with annotate("rtsdr.emit", block=ticket.block):
+            with annotate("rtsdr.emit", block=ticket.block, early=0):
                 # ONE device->host fetch per output leaf, then row slices
                 arrays = self._fetcher.wait(ticket)
                 left, right = arrays[:2]

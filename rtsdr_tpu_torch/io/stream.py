@@ -2,15 +2,24 @@
 
 Counterpart of ``rtsdr_tpu/io/stream.py``.  The host loop pipelines three
 things: the C++ reader thread prefetches stdin blocks, eager launches
-return before the device finishes, and output fetch/emission of block b
-happens while block b+1 computes (``io/staging.py``).  A block's frame
-outputs come to the host with its audio, as one fetch after the next step
-was queued.  A block's read and its drain are spans of ``utils/trace.py``
-(``rtsdr.read``, ``rtsdr.emit``), each carrying the block's index.
+return before the device finishes, and, while the input runs ahead of the
+loop, output fetch/emission of block b happens while block b+1 computes
+(``io/staging.py``).  When the next block has not arrived (a live
+source), block b is drained at once rather than a block period later.  A
+block's frame outputs come to the host with its audio, as one fetch.  A
+block's read and its drain are spans of ``utils/trace.py``
+(``rtsdr.read``, ``rtsdr.emit``), each carrying the block's index; the
+read also the reader's backlog when it began (``ready``), the drain
+whether it came before the next block's read (``early``).  A pipe the
+loop reads is made to hold a whole block, so that a writer's block
+arrives in one read.
 """
 
 from __future__ import annotations
 
+import fcntl
+import os
+import stat
 from typing import Callable
 
 import numpy as np
@@ -51,6 +60,20 @@ def format_rds_events(frame_out) -> list[str]:
     return lines
 
 
+def hold_a_block(fd: int, nbytes: int) -> None:
+    """Let the pipe that ``fd`` reads hold ``nbytes`` (one block), so that
+    a block written at once arrives in one read instead of in turns of
+    writer and reader a pipe's 64 KiB at a time.  A file or a terminal, a
+    pipe that holds as much already, or a system that refuses is left as
+    it is."""
+    try:
+        if (stat.S_ISFIFO(os.fstat(fd).st_mode)
+                and fcntl.fcntl(fd, fcntl.F_GETPIPE_SZ) < nbytes):
+            fcntl.fcntl(fd, fcntl.F_SETPIPE_SZ, nbytes)
+    except (OSError, AttributeError):
+        pass
+
+
 def fetch_list(out) -> tuple:
     """The tensors of a step's outputs that the host loops fetch: left,
     right, then the frame outputs' leaves when the bit layer ran."""
@@ -70,7 +93,12 @@ class StreamRunner:
     (default True) and the other ``kwargs`` go to ``Receiver``: compiled,
     each block is copied straight into the step's static input and its
     outputs are fetched from the step's own buffers before the next step
-    is enqueued."""
+    is enqueued.
+
+    A block's outputs are drained after the next block's step is queued
+    when that block is already waiting in the reader, and at once when it
+    is not: the loop follows its input, with the same work and the same
+    output either way."""
 
     def __init__(self, cfg: ReceiverConfig, dtype=torch.float32,
                  device="cuda", jit: bool = True, **kwargs):
@@ -105,11 +133,11 @@ class StreamRunner:
         n_corrected = 0
         pending = None  # ticket for the previous block's outputs
 
-        def drain(ticket):
+        def drain(ticket, early=0):
             nonlocal n_syncs, n_false_pos, n_corrected
             if ticket is None:
                 return
-            with annotate("rtsdr.emit", block=ticket.block):
+            with annotate("rtsdr.emit", block=ticket.block, early=early):
                 arrays = fetcher.wait(ticket)
                 if emit is not None:
                     emit(emit_int16_interleave(arrays[0], arrays[1],
@@ -129,10 +157,13 @@ class StreamRunner:
                 n_false_pos += int(np.sum(fo.is_false_pos[:n_w]))
                 n_corrected += int(np.sum(fo.corrected[:n_w]))
 
+        hold_a_block(fd_in, cfg.block_size)
         with BlockReader(fd_in, cfg.block_size) as reader:
             while max_blocks is None or n_blocks < max_blocks:
                 with annotate("rtsdr.read", block=n_blocks,
                               bytes=cfg.block_size) as span:
+                    if span:
+                        span.add(ready=reader.ready())
                     got = reader.read_block_into(feeder.staging())
                     if not got:
                         span.add(bytes=0)
@@ -143,6 +174,11 @@ class StreamRunner:
                 drain(pending)  # overlap: emit block b-1 while b computes
                 pending = ticket
                 n_blocks += 1
+                if reader.ready() == 0:
+                    # the next block has not arrived: holding this one
+                    # would make it wait for it
+                    drain(pending, early=1)
+                    pending = None
         drain(pending)
         return {"blocks": n_blocks, "rds_events": n_syncs,
                 "rds_false_positives": n_false_pos,

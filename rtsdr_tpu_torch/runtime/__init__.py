@@ -1,15 +1,16 @@
 """ctypes bindings for the native host runtime (librtsdr_runtime.so); own
 copy of ``rtsdr_tpu/runtime``.
 
-Builds the shared library on first use if missing (g++ via make); every
-function has a pure-NumPy fallback so the framework works without a
-toolchain.
+Builds the shared library on first use when it is missing or older than
+``ingest.cpp`` (g++ via make); every function has a pure-NumPy fallback so
+the framework works without a toolchain.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import stat
 import subprocess
 
 import numpy as np
@@ -24,13 +25,13 @@ def _load():
     global _lib, _build_failed
     if _lib is not None or _build_failed:
         return _lib
-    if not os.path.exists(_SO):
-        try:
-            subprocess.run(["make", "-C", _DIR], check=True,
-                           capture_output=True)
-        except Exception:
-            _build_failed = True
-            return None
+    try:
+        # make rebuilds the library when it is missing or older than
+        # ingest.cpp, and leaves it alone otherwise
+        subprocess.run(["make", "-C", _DIR], check=True,
+                       capture_output=True)
+    except (OSError, subprocess.CalledProcessError):
+        pass    # no toolchain: a library built before, else NumPy
     try:
         lib = ctypes.CDLL(_SO)
     except OSError:
@@ -50,6 +51,8 @@ def _load():
     lib.rtsdr_reader_acquire.restype = ctypes.c_int
     lib.rtsdr_reader_slot.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.rtsdr_reader_slot.restype = ctypes.POINTER(ctypes.c_uint8)
+    lib.rtsdr_reader_ready.argtypes = [ctypes.c_void_p]
+    lib.rtsdr_reader_ready.restype = ctypes.c_int
     lib.rtsdr_reader_release.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.rtsdr_reader_destroy.argtypes = [ctypes.c_void_p]
     _lib = lib
@@ -106,6 +109,8 @@ class BlockReader:
     def __init__(self, fd: int, block_size: int, n_slots: int = 4):
         self._lib = _load()
         self.block_size = block_size
+        # a regular file's next block waits on no writer
+        self._regular = stat.S_ISREG(os.fstat(fd).st_mode)
         if self._lib is None:
             self._file = os.fdopen(os.dup(fd), "rb", buffering=0)
             self._h = None
@@ -160,6 +165,19 @@ class BlockReader:
         ctypes.memmove(dst.ctypes.data, ptr, self.block_size)
         self._lib.rtsdr_reader_release(self._h, slot)
         return True
+
+    def ready(self) -> int:
+        """Whole blocks the next read takes without waiting on a writer,
+        asked without waiting: the blocks read ahead (a block still
+        arriving does not count), -1 once the stream has ended and none
+        is left.  Over a regular file at least 1 until then: its next
+        block is there to read.  Without the native library: 1 over a
+        regular file, 0 over a pipe, a FIFO or a terminal, and never -1:
+        it does not look ahead for the end."""
+        if self._h is None:
+            return int(self._regular)
+        n = self._lib.rtsdr_reader_ready(self._h)
+        return 1 if n == 0 and self._regular else n
 
     def close(self):
         if self._h is not None:

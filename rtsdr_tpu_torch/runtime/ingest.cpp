@@ -153,6 +153,14 @@ struct BlockReader {
     return s;
   }
 
+  // Whole blocks waiting to be acquired, without waiting: -1 once the
+  // stream has ended and none is left.  A block still arriving counts 0.
+  int ready() {
+    std::lock_guard<std::mutex> lk(mu);
+    if (ready_slots.empty() && eof.load()) return -1;
+    return static_cast<int>(ready_slots.size());
+  }
+
   void release(int slot) {
     {
       std::lock_guard<std::mutex> lk(mu);
@@ -174,6 +182,10 @@ void* rtsdr_reader_create(int fd, int64_t block_size, int n_slots) {
 
 int rtsdr_reader_acquire(void* h) {
   return static_cast<BlockReader*>(h)->acquire();
+}
+
+int rtsdr_reader_ready(void* h) {
+  return static_cast<BlockReader*>(h)->ready();
 }
 
 const uint8_t* rtsdr_reader_slot(void* h, int slot) {

@@ -69,8 +69,11 @@ def _warm_stream_runner(data):
 
 def _check_blocks(recs, n_blocks):
     """Each of ``n_blocks`` blocks has the six spans once, in the loop's
-    order, the fetch's wait inside the block's drain; block b's drain
-    starts after block b + 1's read (the one-block hold)."""
+    order, the fetch's wait inside the block's drain; every read carries
+    the reader's backlog (``ready``) and every drain ``early``.  Block b's
+    drain starts after block b + 1's read ends when it was held
+    (``early`` 0: the one-block hold), and ends before that read starts
+    when it was drained early (``early`` 1)."""
     by_block: dict = {}
     for r in recs:
         by_block.setdefault(r["block"], []).append(r)
@@ -86,14 +89,18 @@ def _check_blocks(recs, n_blocks):
         assert all(spans[n]["parent"] is None for n in PER_BLOCK
                    if n != "rtsdr.fetch_wait")
         assert all(r["t0_ns"] <= r["t1_ns"] for r in by_block[b])
-        if b + 1 < n_blocks:
-            nxt = {r["name"]: r for r in by_block[b + 1]}
+        assert emit["attrs"]["early"] in (0, 1)
+        assert spans["rtsdr.read"]["attrs"]["ready"] >= 0
+        assert emit["t0_ns"] >= spans["rtsdr.fetch_start"]["t1_ns"]
+        nxt = {r["name"]: r for r in by_block.get(b + 1, [])}
+        if emit["attrs"]["early"]:
+            assert emit["t1_ns"] <= nxt["rtsdr.read"]["t0_ns"]
+        else:
             assert emit["t0_ns"] >= nxt["rtsdr.read"]["t1_ns"]
-            assert emit["t0_ns"] >= spans["rtsdr.fetch_start"]["t1_ns"]
     # the read that met the end of the stream: one more, with no bytes
     eof = by_block.get(n_blocks, [])
-    assert [(r["name"], r["attrs"]) for r in eof] == [("rtsdr.read",
-                                                      {"bytes": 0})]
+    assert [r["name"] for r in eof] == ["rtsdr.read"]
+    assert eof[0]["attrs"]["bytes"] == 0
     return by_block
 
 
@@ -123,10 +130,19 @@ def test_stream_runner_spans_under_trace(capture_bytes, tmp_path):
     assert stats["blocks"] == 6
     recs = tr.recorded()
     by_block = _check_blocks(recs, 6)
+    # a pipe's reader at the end: nothing had arrived, or the end
+    assert by_block[6][0]["attrs"]["ready"] in (0, -1)
     assert not any(r["name"] == "rtsdr.capture" for r in recs)
     for b in range(6):
         spans = {r["name"]: r for r in by_block[b]}
-        assert spans["rtsdr.read"]["attrs"] == {"bytes": MODE0.block_size}
+        assert spans["rtsdr.read"]["attrs"]["bytes"] == MODE0.block_size
+        assert set(spans["rtsdr.read"]["attrs"]) == {"bytes", "ready"}
+        assert set(spans["rtsdr.emit"]["attrs"]) == {"early"}
+        if not spans["rtsdr.emit"]["attrs"]["early"]:
+            # held because the next block was waiting (or the stream had
+            # ended): nothing took it from the reader before its read
+            nxt = {r["name"]: r for r in by_block[b + 1]}
+            assert nxt["rtsdr.read"]["attrs"]["ready"] != 0
         assert spans["rtsdr.push"]["attrs"] == {"bytes": MODE0.block_size}
         fetch = spans["rtsdr.fetch_start"]["attrs"]
         assert fetch["copies"] == 2 and fetch["bytes"] == 2 * 3072 * 4
@@ -168,7 +184,14 @@ def test_batch_runner_spans_under_trace(capture_bytes, tmp_path):
     recs.sort(key=lambda r: r["t0_ns"])
     by_block = _check_blocks(recs, 4)
     read = {r["name"]: r for r in by_block[0]}["rtsdr.read"]
-    assert read["attrs"] == {"bytes": 2 * MODE0.block_size}
+    assert read["attrs"]["bytes"] == 2 * MODE0.block_size
+    # files: a next block to read until the end
+    ready = {r["block"]: r["attrs"]["ready"] for r in recs
+             if r["name"] == "rtsdr.read"}
+    assert all(ready[b] >= 1 for b in range(4)) and ready[4] in (1, -1)
+    # the BatchRunner holds every block
+    assert all(r["attrs"] == {"early": 0} for r in recs
+               if r["name"] == "rtsdr.emit")
 
 
 def _counting_step():

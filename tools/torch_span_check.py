@@ -3,8 +3,12 @@
 span costs, whether the spans sit on the trace's clock, and where the live
 loop's device idle time goes.
 
-    python3 tools/torch_span_check.py [--lead 8] [--blocks 24] [--steps 48]
-        [--warm-steps 300] [--out FILE] [--keep DIR]
+    python3 tools/torch_span_check.py [cost] [live] [host] [file]
+        [--lead 8] [--blocks 24] [--steps 48] [--warm-steps 300]
+        [--out FILE] [--keep DIR]
+
+The parts named run in that order (``cost``, ``live`` and ``host`` when
+none is named).
 
 ``cost``: microseconds a span, ``annotate`` with no profiler session (the
 shared no-op), inside a ``utils/trace.py::profile`` session (the region
@@ -32,7 +36,20 @@ over the wall from the first traced block's ``rtsdr.read`` to the last
   and the share of it that a ``rtsdr.read`` event covers;
 * ``hold_ms`` (``emit`` start after ``fetch_start`` end, a block),
   ``read_ms``, ``block_ms`` (a block's spans, the fetch's wait inside
-  ``emit``) and ``span_ms`` (each span), medians.
+  ``emit``) and ``span_ms`` (each span), medians;
+* ``latency_ms``: a block's emit after its write returned, median and
+  largest over the traced blocks; ``early_share``: the traced blocks'
+  drains made before the next block's read (``rtsdr.emit``'s ``early``;
+  None for a runner whose drains carry no such mark).
+
+``file``: the same runner over a regular file of ``FILE_BLOCKS``
+blocks written ``FILE_REPEAT`` times over, with no profiler session:
+blocks a second, the rate of a stream whose input is always ahead of the
+loop, in ``FILE_REPS`` runs as the runner goes (``held``: every block held
+for the next) and as many with every block drained at once (``drain``:
+``BlockReader.ready`` pinned to 0, the runner's other route), in turns;
+and ``early_share`` in one more run inside a session of the host (0 when
+every block was held).
 
 ``host``: the resident loop (``benchmark/drivers/resident.py``'s) at C = 1
 and C = 1,024, ``--steps`` steps each: the host's time in the compiled
@@ -49,6 +66,7 @@ Prints one JSON line a part; ``--out`` also writes them to a file.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -57,6 +75,7 @@ import sys
 import tempfile
 import threading
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -140,6 +159,8 @@ def live(n_lead: int, n_blocks: int, keep: str | None = None) -> dict:
     blocks = data.reshape(-1, bs)
     runner = StreamRunner(MODE0, resync=True)
 
+    written, emitted = [], []
+
     def writer(fd, blocks, period):
         with os.fdopen(fd, "wb", buffering=0) as f:
             t0 = time.monotonic()
@@ -148,13 +169,17 @@ def live(n_lead: int, n_blocks: int, keep: str | None = None) -> dict:
                 if wait > 0:
                     time.sleep(wait)
                 f.write(blk.tobytes())
+                written.append(time.monotonic())
 
     def run(blocks, period):
+        written.clear()
+        emitted.clear()
         r_fd, w_fd = os.pipe()
         th = threading.Thread(target=writer, args=(w_fd, blocks, period))
         th.start()
         try:
-            return runner.run(r_fd, emit=lambda pcm: None)
+            return runner.run(
+                r_fd, emit=lambda pcm: emitted.append(time.monotonic()))
         finally:
             th.join()
             os.close(r_fd)
@@ -223,6 +248,10 @@ def live(n_lead: int, n_blocks: int, keep: str | None = None) -> dict:
             lags.append((h2d[i] - t) / 1e3)
     span = lambda r: (r["t1_ns"] - r["t0_ns"]) / 1e6  # noqa: E731
     idle_ns = sum(b - a for a, b in idle)
+    latency = [(emitted[b] - written[b]) * 1e3
+               for b in range(n_lead, min(len(emitted), len(written)))]
+    early = [by_block[b]["rtsdr.emit"]["attrs"]["early"] for b in traced
+             if "early" in by_block[b]["rtsdr.emit"]["attrs"]]
     return {
         "part": "live", "blocks": stats["blocks"], "traced_blocks":
         len(traced), "wall_ms": (w1 - w0) / 1e6,
@@ -244,6 +273,10 @@ def live(n_lead: int, n_blocks: int, keep: str | None = None) -> dict:
         "block_ms": statistics.median(
             sum(span(r) for r in by_block[b].values() if r["parent"] is None)
             for b in traced),
+        "latency_ms": {"median": statistics.median(latency),
+                       "max": max(latency)},
+        "early_share": (sum(early) / len(early)
+                        if len(early) == len(traced) else None),
         "spans_per_block": max(len(by_block[b]) for b in traced),
         "span_ms": {nm: statistics.median(span(by_block[b][nm])
                                           for b in traced)
@@ -321,8 +354,66 @@ def host(channels: int, steps: int, warm_steps: int) -> dict:
     return out
 
 
+FILE_BLOCKS, FILE_REPEAT, FILE_REPS = 240, 8, 5
+
+
+def file_rate() -> dict:
+    """``live``'s runner over a regular file: blocks a second a run, held
+    and drained at once in turns, and the share of early drains in one
+    more run inside a profiler session of the host."""
+    from rtsdr_tpu_torch.runtime import BlockReader
+
+    data = fm_multiplex_iq(FILE_BLOCKS * MODE0.iq_len)
+    runner = StreamRunner(MODE0, resync=True)
+    total = FILE_BLOCKS * FILE_REPEAT
+    rates = {"held": [], "drain": []}
+
+    def once(path, route, session=contextlib.nullcontext()):
+        with open(path, "rb") as f, session, (
+                mock.patch.object(BlockReader, "ready", lambda self: 0,
+                                  create=True)
+                if route == "drain" else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            stats = runner.run(f.fileno(), emit=lambda pcm: None)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        if stats["blocks"] != total:
+            raise RuntimeError(f"{stats['blocks']} of {total} blocks")
+        return total / dt
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "station.iq")
+        with open(path, "wb") as f:
+            for _ in range(FILE_REPEAT):
+                data.tofile(f)
+        once(path, "held")                    # captures the step
+        for rep in range(FILE_REPS):
+            for route in (("held", "drain") if rep % 2 == 0
+                          else ("drain", "held")):
+                rates[route].append(once(path, route))
+        tr.clear()
+        once(path, "held", torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]))
+    early = [r["attrs"]["early"] for r in tr.recorded()
+             if r["name"] == "rtsdr.emit" and "early" in r["attrs"]]
+    tr.clear()
+    del runner
+    torch.cuda.empty_cache()
+    return {"part": "file", "blocks": total, "reps": FILE_REPS,
+            "blocks_per_s": rates,
+            "blocks_per_s_median": {k: statistics.median(v)
+                                    for k, v in rates.items()},
+            "early_share": sum(early) / len(early) if early else None}
+
+
+PARTS = ("cost", "live", "host", "file")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("parts", nargs="*", metavar="PART",
+                    help=f"of {', '.join(PARTS)}: the parts to run "
+                    "(default: cost, live, host)")
     ap.add_argument("--lead", type=int, default=8)
     ap.add_argument("--blocks", type=int, default=24)
     ap.add_argument("--n-off", type=int, default=200_000)
@@ -335,6 +426,8 @@ def main() -> int:
                     help="write the live loop's Chrome trace and records "
                     "into DIR")
     args = ap.parse_args()
+    if set(args.parts) - set(PARTS):
+        ap.error(f"unknown part: {sorted(set(args.parts) - set(PARTS))}")
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
@@ -344,10 +437,18 @@ def main() -> int:
     ).stdout.strip()
     head = {"part": "card", "card": card, "torch": torch.__version__,
             "cuda": torch.version.cuda}
-    parts = [lambda: head, lambda: cost(args.n_off, args.n_on),
-             lambda: live(args.lead, args.blocks, args.keep)]
-    parts += [lambda c=c: host(c, args.steps, args.warm_steps)
-              for c in (1, 1024)]
+    chosen = args.parts or ("cost", "live", "host")
+    parts = [lambda: head]
+    for name in chosen:
+        if name == "cost":
+            parts.append(lambda: cost(args.n_off, args.n_on))
+        elif name == "live":
+            parts.append(lambda: live(args.lead, args.blocks, args.keep))
+        elif name == "host":
+            parts += [lambda c=c: host(c, args.steps, args.warm_steps)
+                      for c in (1, 1024)]
+        else:
+            parts.append(file_rate)
     for part in parts:
         line = part()
         print(json.dumps(line), flush=True)
