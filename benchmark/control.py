@@ -8,10 +8,12 @@ own size:
 
 For each seed, one process runs the cell (set-up and a short window, the
 benchmark's own driver), then compares what the timed path produced with
-the float64 reference (the program's reading); compares the control, the
-reference in bfloat16 put in the program's place from the same starting
-states, with it (the control's reading); and the reference in float32
-likewise (a witness of what rounding at the program's precision does).
+the float64 reference (the program's reading; ``check.reference``: the
+configuration's reference front, then the golden receiver); compares the
+control, the reference in bfloat16 put in the program's place from the
+same starting states, with it (the control's reading); and the reference
+in float32 likewise (a witness of what rounding at the program's
+precision does).
 With ``--fault``, each seed also runs once for each planted fault
 (``benchmark/harness/faults.py``) and gives that run's reading and
 ``correct``.  ``--window-items`` and ``--start-blocks`` compare more
@@ -31,7 +33,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from benchmark.harness import check, core, faults  # noqa: E402
+from benchmark.harness import check, core, drive, faults  # noqa: E402
 
 
 def _as_program(items, outputs):
@@ -60,14 +62,17 @@ def readings(ctx, run, dump: list | None) -> dict:
         out[name] = check.compare(items, check.on_outputs(items, refs,
                                                           resync), pull_in)
     if dump is not None:
-        traffic = run.block_of.__self__
+        # a station's carrier-to-noise ratio where the driver's blocks come
+        # from a ring of stations (``drive.Traffic``)
+        traffic = getattr(run.block_of, "__self__", None)
         for k, it in enumerate(run.items):
-            station = int(traffic.station[it["stream"]])
+            cnr_db = (traffic.params[int(traffic.station[it["stream"]])][
+                "cnr_db"] if isinstance(traffic, drive.Traffic) else None)
             for n_b, b in enumerate(it["blocks"][:len(it["outputs"])]):
                 dump.append({
                     "seed": ctx.seed, "kind": it["kind"],
                     "stream": it["stream"], "block": b, "n_b": n_b,
-                    "cnr_db": traffic.params[station]["cnr_db"],
+                    "cnr_db": cnr_db,
                     "program": _symbols(it["outputs"][n_b]),
                     "float64": _symbols(refs[k][n_b]),
                     "float32": _symbols(others["reference_float32"][k][n_b]),

@@ -7,17 +7,30 @@ each.  Per item the entry driver keeps what the timed path produced: L
 and R audio (floats, or the int16 the stream runner emits) and the bit
 layer's outputs.
 
-The reference (``benchmark/reference/golden.py``) works each item out from
-the same raw bytes.  A start item runs from the reference's own initial
-state.  A window item cannot: the stream's state at block ``s`` is the sum
-of thousands of blocks.  Its filters' histories are finite, so the
-reference rebuilds them from the raw bytes of blocks ``s - 2`` and
-``s - 1``; the two recurrences that never forget, the PLLs and the bit
-layer's sync state, it takes from the program's state before block
-``s - 1`` (the PLLs, which then run a whole block in the reference) and
-before block ``s`` (the bit layer).  The start items check the stereo loop
-(through L and R), the RDS chain and the bit layer's state across blocks
-without any state of the program's.
+The reference works each item out from the same raw bytes: the
+configuration's reference front turns what a stream carries into the
+station's I and Q at ``rf.fs``, and the golden receiver
+(``benchmark/reference/golden.py``) decodes them from the RF low-pass on.
+The front is ``benchmark/reference/front_<name>.py``, named by the
+configuration file's ``reference_front`` ("u8", a station's own u8 I/Q,
+where it names none).  It holds a class ``Front(config, precision)`` with
+``init(lanes)`` and ``step(state, raws, where) -> (state, i, q)``:
+``raws`` what ``block_of`` gives for each lane, ``where`` each lane's
+``(stream, block)``, ``i`` and ``q`` (lanes, block_size // 2) float64.
+Its memory is finite, under half a block, or closed-form in ``where`` (a
+mixing phase that follows absolute time), so that a window item can
+rebuild it as it rebuilds the filters.
+
+A start item runs from the reference's own initial state.  A window item
+cannot: the stream's state at block ``s`` is the sum of thousands of
+blocks.  Its front's and filters' histories are finite, so the reference
+rebuilds them from the raw bytes of blocks ``s - 2`` and ``s - 1``; the
+two recurrences that never forget, the PLLs and the bit layer's sync
+state, it takes from the program's state before block ``s - 1`` (the
+PLLs, which then run a whole block in the reference) and before block
+``s`` (the bit layer).  The start items check the stereo loop (through L
+and R), the RDS chain and the bit layer's state across blocks without any
+state of the program's.
 
 Numbers compared, each with a limit from the workload file:
 
@@ -66,6 +79,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from benchmark.harness import core
 from benchmark.reference import golden
 
 FRAME_KEYS = ("syndrome_id", "is_sync", "is_false_pos", "is_resync",
@@ -96,9 +110,10 @@ def sample_items(rng: np.random.Generator, n_streams: int, n_start: int,
 
 def state_rows(state, c) -> dict:
     """The two never-forgetting recurrences of the program's state
-    (``ReceiverState``) for stream ``c`` (None: an unbatched state), as
-    tensors still on the device: the stereo pilot loop, the RDS carrier
-    loop and the bit layer."""
+    (``ReceiverState``) at row ``c`` (an index, or a tuple of them over
+    several batch axes; None: an unbatched state), as tensors still on the
+    device: the stereo pilot loop, the RDS carrier loop and the bit
+    layer."""
     def rows(tree, fields):
         return {f: (getattr(tree, f) if c is None else getattr(tree, f)[c]
                     ).clone() for f in fields}
@@ -141,22 +156,35 @@ def _inject(ref_state: dict, snaps: list[dict], key: str, lanes) -> None:
                       for f in golden.PLL_FIELDS}
 
 
+def load_front(config: dict, precision: str):
+    """The configuration's reference front (module docstring)."""
+    name = config.get("reference_front", "u8")
+    return core.load_module("reference", "front_" + name).Front(config,
+                                                                precision)
+
+
 def reference(config: dict, precision: str, block_of, items: list[dict]
               ) -> list[list[dict]]:
     """The reference's outputs of every item: per item, a list of one dict
     per compared block (``left``, ``right``, ``frame``), with
-    ``frame_on_program`` (``on_outputs``).  ``block_of(c, b)`` is the raw
-    block stream ``c`` carries at its block ``b``."""
+    ``frame_on_program`` (``on_outputs``).  ``block_of(c, b)`` is what
+    stream ``c`` carries at its block ``b``, as the configuration's front
+    takes it."""
     rx = golden.Receiver(config, precision)
+    front = load_front(config, precision)
+
+    def through_front(fst, where):
+        return front.step(fst, [block_of(c, b) for c, b in where], where)
     out: list = [None] * len(items)
     start = [k for k, it in enumerate(items) if it["kind"] == "start"]
     if start:
         n_blocks = len(items[start[0]]["blocks"])
-        st = rx.init(len(start))
+        fst, st = front.init(len(start)), rx.init(len(start))
         per = [[] for _ in start]
         for b in range(n_blocks):
-            raw = np.stack([block_of(items[k]["stream"], b) for k in start])
-            st, o = rx.step(st, raw)
+            fst, i_rf, q_rf = through_front(
+                fst, [(items[k]["stream"], b) for k in start])
+            st, o = rx.step(st, i_rf, q_rf)
             for lane in range(len(start)):
                 per[lane].append({"left": o["left"][lane],
                                   "right": o["right"][lane],
@@ -168,16 +196,19 @@ def reference(config: dict, precision: str, block_of, items: list[dict]
         lanes = list(range(len(window)))
         its = [items[k] for k in window]
 
-        def raw_at(back):
-            return np.stack([block_of(it["stream"], it["blocks"][0] - back)
-                             for it in its])
-        st = rx.init(len(window))
-        st, _ = rx.step(st, raw_at(2), run="front")
+        fst, st = front.init(len(window)), rx.init(len(window))
+
+        def iq_at(back):
+            nonlocal fst
+            fst, i_rf, q_rf = through_front(
+                fst, [(it["stream"], it["blocks"][0] - back) for it in its])
+            return i_rf, q_rf
+        st, _ = rx.step(st, *iq_at(2), run="histories")
         _inject(st, [it["snap_prev"] for it in its], "pll_pilot", lanes)
         _inject(st, [it["snap_prev"] for it in its], "pll_rds", lanes)
-        st, _ = rx.step(st, raw_at(1), run="audio_rds")
+        st, _ = rx.step(st, *iq_at(1), run="audio_rds")
         _inject(st, [it["snap_at"] for it in its], "frame", lanes)
-        st, o = rx.step(st, raw_at(0))
+        st, o = rx.step(st, *iq_at(0))
         for lane, k in enumerate(window):
             out[k] = [{"left": o["left"][lane], "right": o["right"][lane],
                        "frame": o["frame"][lane]}]

@@ -7,8 +7,11 @@ does), its traffic mix (``benchmark/traffic/<traffic>.json``), its entry
 driver (``benchmark/drivers/<entry>.py``) and what its check samples and
 allows;
 each metric that ``BENCHMARK.json`` gives the cell is read by
-``benchmark/metrics/<metric>.py``.  A later cell or metric is a new file,
-not an edit.
+``benchmark/metrics/<metric>.py``; the check's reference takes a station's
+input through the front that the configuration file names
+(``reference_front``: ``benchmark/reference/front_<name>.py``, "u8" where
+it names none; ``harness/check.py``).  A later cell, metric or
+configuration's reference front is a new file, not an edit.
 
 A run: set-up (the traffic from the seed, the receiver built and its step
 captured, the cell's shapes warmed up), the measured window, then, once
@@ -100,7 +103,9 @@ class Run:
     attempted: int
     failed: int
     items: list
-    block_of: object          # (stream, block) -> raw u8 block
+    block_of: object          # (stream, block) -> what the stream carries
+    #                           there, as the configuration's reference
+    #                           front takes it (u8: the station's block)
     memory_peak_bytes: int
     latencies_s: list | None = None
     trace: dict | None = None

@@ -35,10 +35,17 @@ class Samples:
     blocks of a few streams) and window items triggered at times drawn from
     the seed.  A driver calls ``before_step(k, state, now)`` before each
     step ``k`` and ``outputs(k, get)`` when step ``k``'s outputs are on the
-    host (``get(c)`` gives stream c's)."""
+    host (``get(row)`` gives the outputs at a stream's row).
 
-    def __init__(self, ctx: core.Ctx, n_streams: int, batched: bool = True):
+    A stream's row in the state and the outputs is the stream itself, None
+    where the step is unbatched (``batched`` False), or ``rows[stream]``
+    where the driver gives ``rows``: a tuple of indices where the state
+    has more than one batch axis, such as (capture, slot)."""
+
+    def __init__(self, ctx: core.Ctx, n_streams: int, batched: bool = True,
+                 rows=None):
         self.batched = batched
+        self.rows = rows
         chk = ctx.workload["check"]
         rng = synth.rng_for(ctx.seed, 7)
         starts, window = check.sample_items(
@@ -60,7 +67,7 @@ class Samples:
         """Snapshot the program's state where an item needs it."""
         if self._armed is not None:
             item = self._armed
-            item["snap_at"] = check.state_rows(state, self._row(item))
+            item["snap_at"] = check.state_rows(state, self.row(item["stream"]))
             item["blocks"] = [k]
             self.wanted.setdefault(k, []).append(item)
             self.items.append(item)
@@ -71,18 +78,20 @@ class Samples:
             return
         _, c = self.pending.pop(0)
         self._armed = {"kind": "window", "stream": c, "outputs": []}
-        self._armed["snap_prev"] = check.state_rows(state,
-                                                    self._row(self._armed))
+        self._armed["snap_prev"] = check.state_rows(state, self.row(c))
 
-    def _row(self, item):
-        return item["stream"] if self.batched else None
+    def row(self, c: int):
+        """Stream ``c``'s row (class docstring)."""
+        if not self.batched:
+            return None
+        return c if self.rows is None else self.rows[c]
 
     def outputs(self, k: int, get) -> None:
         for item in self.items:
             if item["kind"] == "start" and k < self.start_blocks:
-                item["outputs"].append(get(item["stream"]))
+                item["outputs"].append(get(self.row(item["stream"])))
         for item in self.wanted.pop(k, []):
-            item["outputs"].append(get(item["stream"]))
+            item["outputs"].append(get(self.row(item["stream"])))
 
     def finished(self) -> list:
         """The items with their snapshots on the host; an item whose
@@ -95,8 +104,9 @@ class Samples:
 
 
 def host_outputs(arrays: tuple, c) -> dict:
-    """Stream ``c``'s outputs from what ``io/stream.py::fetch_list``
-    fetched (``c`` None: an unbatched step)."""
+    """The outputs at row ``c`` (``Samples.row``: an index, a tuple of
+    them, or None for an unbatched step) of what
+    ``io/stream.py::fetch_list`` fetched."""
     from rtsdr_tpu_torch.io.stream import fetched_frame
 
     def row(a):

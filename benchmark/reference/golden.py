@@ -6,6 +6,12 @@ with its own tables: the filters are ``scipy.signal.firwin`` designs, the
 RRC pulse and the RDS parity matrix are written out here.  It imports
 nothing of the program, of ``tests/`` or of JAX.
 
+It starts at the RF low-pass: its input is each lane's float64 I and Q at
+``rf.fs``, which the configuration's reference front makes from what a
+stream carries (``front_<name>.py`` beside this file, named by the
+configuration's ``reference_front``; ``front_u8.py``, a station's own u8
+I/Q, where it names none).
+
 It follows a configuration file (``benchmark/configs/*.json``) and its
 receiver settings: stereo on, the RDS chain, the bit layer with the clock
 offset held from the first block (``offset_mode`` "hold"), the C' offset
@@ -258,8 +264,9 @@ def frame_symbols(symbols: np.ndarray, st: dict, resync: bool,
 
 
 class Receiver:
-    """The whole receiver of one configuration file over lanes: ``init``
-    and ``step(state, raw)``, ``raw`` (L, block_size) u8."""
+    """The receiver of one configuration file from the RF low-pass on,
+    over lanes: ``init`` and ``step(state, i_rf, q_rf)``, each lane's I and
+    Q, (L, block_size // 2) float64 at ``rf.fs``."""
 
     def __init__(self, config: dict, precision: str = "float64"):
         self.cfg = config
@@ -313,16 +320,17 @@ class Receiver:
             "frame": [frame_init() for _ in range(lanes)],
         }
 
-    def step(self, state: dict, raw: np.ndarray, run: str = "full"):
-        """One block of every lane.  ``run``: "full", "audio_rds" (all but
-        the bit layer) or "front" (the stages before the PLLs only: their
-        histories for the next block).  Returns ``(state, outputs)``."""
+    def step(self, state: dict, i_rf: np.ndarray, q_rf: np.ndarray,
+             run: str = "full"):
+        """One block of every lane from its I and Q.  ``run``: "full",
+        "audio_rds" (all but the bit layer) or "histories" (the stages
+        before the PLLs only: their histories for the next block).  Returns
+        ``(state, outputs)``."""
         q = lambda x: to_precision(x, self.precision)  # noqa: E731
         s = dict(state)
         cfg = self.cfg
-        iq = (raw.astype(np.float64) - 128.0) / 128.0
-        i_if, s["rf_i"] = self.rf(state["rf_i"], iq[:, 0::2])
-        q_if, s["rf_q"] = self.rf(state["rf_q"], iq[:, 1::2])
+        i_if, s["rf_i"] = self.rf(state["rf_i"], i_rf)
+        q_if, s["rf_q"] = self.rf(state["rf_q"], q_rf)
         ip = np.concatenate([state["prev_i"][:, None], i_if[:, :-1]], -1)
         qp = np.concatenate([state["prev_q"][:, None], q_if[:, :-1]], -1)
         fm = q(np.arctan2(q_if * ip - i_if * qp, i_if * ip + q_if * qp))
@@ -333,7 +341,7 @@ class Receiver:
         extract, s["fm_if"] = self.extract(state["fm_if"], fm)
         pre_pll, s["extract_sq"] = self.squared(state["extract_sq"],
                                                 q(extract * extract))
-        if run == "front":
+        if run == "histories":
             return s, None
         st, r = cfg["stereo"], cfg["rds"]
         nco, _, s["pll_pilot"] = pll(pilot, state["pll_pilot"],
@@ -354,7 +362,7 @@ class Receiver:
         out = {"left": left, "right": right, "rrc_i": rrc_i, "rrc_q": rrc_q}
         if run == "full":
             frames, new = [], []
-            for lane in range(len(raw)):
+            for lane in range(len(i_rf)):
                 o, f = frame_block(rrc_i[lane], state["frame"][lane],
                                    r["sps"], self.resync)
                 frames.append(o)

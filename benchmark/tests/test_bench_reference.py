@@ -60,7 +60,7 @@ def test_equals_torch_oracles_mode0():
         fm_blocks.append(np.arctan2(q_if * ip - i_if * qp,
                                     i_if * ip + q_if * qp)[0])
         prev = (i_if[:, -1], q_if[:, -1])
-        st, out = rx.step(st, raw)
+        st, out = rx.step(st, x[:, 0::2], x[:, 1::2])
         outs.append(out)
     rds = orc.golden_rds_dsp(fm_blocks)
     dec = orc.GoldenFrameDecoder(offset_mode="hold")

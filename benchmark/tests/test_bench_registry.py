@@ -5,7 +5,7 @@ import json
 import os
 import re
 
-from benchmark.harness import core
+from benchmark.harness import check, core
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 
@@ -39,6 +39,9 @@ def test_each_file_is_found_by_name():
         assert set(cfg["reduced"]) <= assumed
         core.port_config(data)                 # the port runs these numbers
         core.receiver_kwargs(data)
+        # the check's reference front that the file names (u8 by default)
+        front = check.load_front(data, "float64")
+        assert callable(front.init) and callable(front.step)
     for m in bench["end_to_end"] + bench["per_layer"]:
         assert hasattr(core.load_module("metrics", m["name"]), "read")
 
