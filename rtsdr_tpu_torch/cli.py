@@ -540,6 +540,7 @@ def _wideband_decode(cfg, k, max_blocks, kwargs, rds_groups=False,
     from rtsdr_tpu_torch.pipeline.wideband import make_wideband_receiver
     from rtsdr_tpu_torch.runtime import BlockReader
     from rtsdr_tpu_torch.utils.jit import borrowing, jit_step
+    from rtsdr_tpu_torch.utils.trace import annotate
 
     # compiled with its state donated, as the JAX CLI's jax.jit(step_fn,
     # donate_argnums=0)
@@ -565,27 +566,29 @@ def _wideband_decode(cfg, k, max_blocks, kwargs, rds_groups=False,
 
     def drain(ticket):
         """Emit one block's outputs: ONE device->host fetch per leaf,
-        then row slices."""
+        then row slices (an ``rtsdr.emit`` span; every block is held
+        until the next one has been read)."""
         nonlocal events
         if ticket is None:
             return
-        arrays = fetcher.wait(ticket)
-        left, right = arrays[:2]
-        rds = fetched_frame(arrays)
-        for c in range(k):
-            if active is not None and not active[c]:
-                continue
-            if writers[c] is None:
-                writers[c] = WavStreamWriter(f"channel{c}.wav",
-                                             fs=int(cfg.audio_fs))
-            writers[c].write_float(left[c], right[c])
-            if rds is not None:
-                fo = type(rds)(*(leaf[c] for leaf in rds))
-                for line in format_rds_events(fo):
-                    print(f"[ch{c}] {line}", file=sys.stderr)
-                    events += 1
-                if decoders is not None:
-                    _feed_groups(decoders, c, fo, f"[ch{c}] ")
+        with annotate("rtsdr.emit", block=ticket.block, early=0):
+            arrays = fetcher.wait(ticket)
+            left, right = arrays[:2]
+            rds = fetched_frame(arrays)
+            for c in range(k):
+                if active is not None and not active[c]:
+                    continue
+                if writers[c] is None:
+                    writers[c] = WavStreamWriter(f"channel{c}.wav",
+                                                 fs=int(cfg.audio_fs))
+                writers[c].write_float(left[c], right[c])
+                if rds is not None:
+                    fo = type(rds)(*(leaf[c] for leaf in rds))
+                    for line in format_rds_events(fo):
+                        print(f"[ch{c}] {line}", file=sys.stderr)
+                        events += 1
+                    if decoders is not None:
+                        _feed_groups(decoders, c, fo, f"[ch{c}] ")
 
     pending = None
     try:
@@ -593,7 +596,14 @@ def _wideband_decode(cfg, k, max_blocks, kwargs, rds_groups=False,
         # host emission both overlap device compute
         with BlockReader(sys.stdin.fileno(), wbs) as reader:
             while max_blocks is None or blocks < max_blocks:
-                if not reader.read_block_into(feeder.staging()):
+                with annotate("rtsdr.read", block=blocks,
+                              bytes=wbs) as span:
+                    if span:
+                        span.add(ready=reader.ready())
+                    got = reader.read_block_into(feeder.staging())
+                    if not got:
+                        span.add(bytes=0)
+                if not got:
                     break
                 state, out = step(state, feeder.push())
                 ticket = fetcher.start(fetch_list(out))

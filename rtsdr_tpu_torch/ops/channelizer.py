@@ -30,6 +30,13 @@ Three routes, as in the reference:
 
 Streaming: the carried state is the input tail (complex samples, or raw
 bytes where 128 stands for 0), so chained blocks equal one long call.
+
+Spans: each call of ``pfb_channelize_u8`` and ``composed_channelize_u8`` is
+one ``rtsdr.channelize`` span of ``utils/trace.py`` (``route``,
+``captures``, ``slots``, ``shared`` and ``own``: the stations on the
+shared prototype and on their own taps, ``taps``: the bank's length), on
+an eager call and at a compiled step's capture; a replayed graph runs no
+span.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ import torch
 from rtsdr_tpu_torch.ops import _cuda
 from rtsdr_tpu_torch.ops.coeffs import lowpass_taps
 from rtsdr_tpu_torch.ops.fir import derived_from
+from rtsdr_tpu_torch.utils.trace import annotate
 
 
 def channelizer_taps(n_channels: int, taps_per_branch: int = 16,
@@ -200,6 +208,15 @@ def pfb_channelize_u8(raw_u8: torch.Tensor, h, zi_raw: torch.Tensor,
     ((..., K, 2, M) float32 stacked I/Q at the channel rate — the
     receivers' 'iq' frontend input — and the new byte tail).
     """
+    with annotate("rtsdr.channelize", route="pfb") as span:
+        if span:
+            span.add(captures=math.prod(raw_u8.shape[:-1]),
+                     slots=n_channels, shared=n_channels, own=0,
+                     taps=len(h))
+        return _pfb_channelize_u8(raw_u8, h, zi_raw, n_channels, block)
+
+
+def _pfb_channelize_u8(raw_u8, h, zi_raw, n_channels: int, block: int):
     k = n_channels
     h64, t = _padded_proto(h, k)
     l_zi = t * k + k - 1
@@ -555,6 +572,16 @@ def composed_channelize_u8(raw_u8: torch.Tensor, g: np.ndarray,
     own taps) is chosen on the host from ``g`` alone (``composed_plan``).
     A CPU tensor runs ``composed_channelize_u8_ref``.
     """
+    with annotate("rtsdr.channelize", route="composed") as span:
+        if span:
+            plan = composed_plan(g, decim)
+            span.add(captures=math.prod(raw_u8.shape[:-1]), slots=g.shape[0],
+                     shared=len(plan.shared), own=len(plan.own),
+                     taps=g.shape[1])
+        return _composed_channelize_u8(raw_u8, g, zi_raw, decim)
+
+
+def _composed_channelize_u8(raw_u8, g, zi_raw, decim: int):
     if not raw_u8.is_cuda:
         return composed_channelize_u8_ref(raw_u8, g, zi_raw, decim)
     k, g_l = g.shape

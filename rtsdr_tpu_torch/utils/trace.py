@@ -7,9 +7,10 @@ the program's spans (``annotate``).
 The spans mark the host loop's layer boundaries (attributes in brackets):
 
 * ``rtsdr.read``: ``StreamRunner.run``'s read of a block,
-  ``BatchRunner.read_batch``'s reader loop (``bytes``; ``ready``, the
-  whole blocks waiting in the reader when it began, the least over a
-  batch's readers, -1 at the end of the stream);
+  ``BatchRunner.read_batch``'s reader loop, the CLI's wideband loop's read
+  of a capture block (``bytes``; ``ready``, the whole blocks waiting in
+  the reader when it began, the least over a batch's readers, -1 at the
+  end of the stream);
 * ``rtsdr.push``: ``io/staging.py::Feeder.push`` (``bytes``);
 * ``rtsdr.replay``: one replay of a compiled step, ``utils/jit.py``
   (``launches``);
@@ -18,10 +19,14 @@ The spans mark the host loop's layer boundaries (attributes in brackets):
 * ``rtsdr.fetch_start``: ``Fetcher.start``, the outputs' copies queued
   (``copies``, ``bytes``);
 * ``rtsdr.fetch_wait``: ``Fetcher.wait``;
-* ``rtsdr.emit``: a runner's drain of one block's outputs (the fetch's
-  wait, ``emit``, ``rds_log``, ``frame_hook`` / ``rds_hook``; ``early``:
-  1 when drained before the next block's read, 0 when held until after
-  it).
+* ``rtsdr.emit``: a runner's or the CLI's wideband loop's drain of one
+  block's outputs (the fetch's wait, ``emit``, ``rds_log``,
+  ``frame_hook`` / ``rds_hook``, the wideband loop's wavs and RDS lines;
+  ``early``: 1 when drained before the next block's read, 0 when held
+  until after it);
+* ``rtsdr.channelize``: one call of the wideband channelizer,
+  ``ops/channelizer.py`` (``route``, ``captures``, ``slots``, ``shared``,
+  ``own``, ``taps``), eager or at a capture: never inside a replay.
 
 A span records only while a profiler session records (``profile``,
 ``trace``, or any ``torch.profiler`` session in its active steps); with
