@@ -430,7 +430,7 @@ def _read_exact_fd(fd: int, n: int) -> bytearray | None:
     pipes are not EOF).  Raw, not sys.stdin.buffer: a buffered reader
     over-fetches into its internal buffer, and any leftover there is
     invisible to a later raw-fd consumer — --auto hands the same stream
-    from the scan pass to _wideband_decode's BlockReader, so a buffered
+    from the scan pass to _wideband_decode's block reader, so a buffered
     scan would silently drop bytes at the handoff and misalign (even
     I/Q-swap) the entire decode."""
     parts = bytearray()
@@ -445,8 +445,8 @@ def _read_exact_fd(fd: int, n: int) -> bytearray | None:
 def _scan_band(cfg, k, max_blocks, device):
     """Run the band scanner over the next stdin blocks, compiled without
     donation as the JAX CLI jits it (``utils/jit.py::jit_fn``): the first
-    block captures the step, and each later block is written straight into
-    the compiled step's static input buffer.
+    block captures the step, and the step copies each later block into its
+    static input buffer.
 
     Returns (mean ScanMetrics of host arrays, verdicts, blocks consumed) or
     None if the capture is too short (<2 blocks; block 0 carries warm-up
@@ -455,7 +455,6 @@ def _scan_band(cfg, k, max_blocks, device):
     import numpy as np
     import torch
 
-    from rtsdr_tpu_torch.io.staging import Feeder
     from rtsdr_tpu_torch.pipeline.scan import (
         ScanMetrics,
         classify,
@@ -468,21 +467,13 @@ def _scan_band(cfg, k, max_blocks, device):
     state = init_fn()
     wbs = k * cfg.block_size
     fd = sys.stdin.fileno()
-    feeder = None
     acc = []
     blocks = 0
     while max_blocks is None or blocks < max_blocks:
         raw = _read_exact_fd(fd, wbs)
         if raw is None:
             break
-        if feeder is None:       # block 0: the call that captures
-            blk = torch.frombuffer(raw, dtype=torch.uint8).to(device)
-        else:
-            feeder.staging()[:] = np.frombuffer(raw, np.uint8)
-            blk = feeder.push()
-        m, state = step(state, blk)
-        if feeder is None:
-            feeder = Feeder((wbs,), step.device, into=step.static_args()[1])
+        m, state = step(state, torch.frombuffer(raw, dtype=torch.uint8))
         if blocks > 0:   # block 0 carries filter warm-up transients
             acc.append([x.cpu().numpy() for x in m])
         blocks += 1
@@ -529,18 +520,15 @@ def _wideband_decode(cfg, k, max_blocks, kwargs, rds_groups=False,
     RDS events, and group summaries are emitted only for active ones."""
     import numpy as np
 
-    from rtsdr_tpu_torch.io.staging import Feeder, Fetcher
     from rtsdr_tpu_torch.io.stream import (
-        fetch_list,
-        fetched_frame,
         format_rds_events,
+        run_stream,
+        station_outputs,
     )
     from rtsdr_tpu_torch.io.wav import WavStreamWriter
     from rtsdr_tpu_torch.ops.channelizer import channel_center_freqs
     from rtsdr_tpu_torch.pipeline.wideband import make_wideband_receiver
-    from rtsdr_tpu_torch.runtime import BlockReader
-    from rtsdr_tpu_torch.utils.jit import borrowing, jit_step
-    from rtsdr_tpu_torch.utils.trace import annotate
+    from rtsdr_tpu_torch.utils.jit import jit_step
 
     # compiled with its state donated, as the JAX CLI's jax.jit(step_fn,
     # donate_argnums=0)
@@ -555,62 +543,34 @@ def _wideband_decode(cfg, k, max_blocks, kwargs, rds_groups=False,
     print("wideband channel centers (Hz):",
           " ".join(f"{f / 1e6:+.3g}M" for f in freqs), file=sys.stderr)
 
-    wbs = k * cfg.block_size
-    step, into = borrowing(step, (wbs,))
-    feeder = Feeder((wbs,), device, into)
-    fetcher = Fetcher(device)
     writers: list = [None] * k
     decoders = _station_decoders(k, cfg, kwargs, rds_groups, pty_table)
-    blocks = 0
     events = 0
 
-    def drain(ticket):
-        """Emit one block's outputs: ONE device->host fetch per leaf,
-        then row slices (an ``rtsdr.emit`` span; every block is held
+    def drain(arrays):
+        """Emit one block's outputs, a station a row (every block is held
         until the next one has been read)."""
         nonlocal events
-        if ticket is None:
-            return
-        with annotate("rtsdr.emit", block=ticket.block, early=0):
-            arrays = fetcher.wait(ticket)
-            left, right = arrays[:2]
-            rds = fetched_frame(arrays)
-            for c in range(k):
-                if active is not None and not active[c]:
-                    continue
-                if writers[c] is None:
-                    writers[c] = WavStreamWriter(f"channel{c}.wav",
-                                                 fs=int(cfg.audio_fs))
-                writers[c].write_float(left[c], right[c])
-                if rds is not None:
-                    fo = type(rds)(*(leaf[c] for leaf in rds))
-                    for line in format_rds_events(fo):
-                        print(f"[ch{c}] {line}", file=sys.stderr)
-                        events += 1
-                    if decoders is not None:
-                        _feed_groups(decoders, c, fo, f"[ch{c}] ")
+        for c in range(k):
+            if active is not None and not active[c]:
+                continue
+            left, right, fo = station_outputs(arrays, c)
+            if writers[c] is None:
+                writers[c] = WavStreamWriter(f"channel{c}.wav",
+                                             fs=int(cfg.audio_fs))
+            writers[c].write_float(left, right)
+            if fo is not None:
+                for line in format_rds_events(fo):
+                    print(f"[ch{c}] {line}", file=sys.stderr)
+                    events += 1
+                if decoders is not None:
+                    _feed_groups(decoders, c, fo, f"[ch{c}] ")
 
-    pending = None
     try:
-        # prefetching C++ reader + one-block-lag drain: stdin reads and
-        # host emission both overlap device compute
-        with BlockReader(sys.stdin.fileno(), wbs) as reader:
-            while max_blocks is None or blocks < max_blocks:
-                with annotate("rtsdr.read", block=blocks,
-                              bytes=wbs) as span:
-                    if span:
-                        span.add(ready=reader.ready())
-                    got = reader.read_block_into(feeder.staging())
-                    if not got:
-                        span.add(bytes=0)
-                if not got:
-                    break
-                state, out = step(state, feeder.push())
-                ticket = fetcher.start(fetch_list(out))
-                drain(pending)
-                pending = ticket
-                blocks += 1
-        drain(pending)
+        # prefetching reader + one-block-lag drain: stdin reads and host
+        # emission both overlap device compute
+        blocks = run_stream(sys.stdin.fileno(), k * cfg.block_size, step,
+                            state, device, drain, max_blocks=max_blocks)
     finally:
         for w in writers:
             if w is not None:

@@ -1,4 +1,4 @@
-"""Host<->device staging for the streaming loops.
+"""Host<->device staging and the one host loop that drives it.
 
 Eager PyTorch launches return before the device finishes, so the host
 loop overlaps with device compute as long as no call blocks.  Two things
@@ -18,17 +18,21 @@ after the NEXT block's kernels were enqueued on the same stream.  So:
 
 On the CPU device both degrade to plain tensor/numpy copies.
 
-Each call is a span of ``utils/trace.py`` (``rtsdr.push``,
-``rtsdr.fetch_start``, ``rtsdr.fetch_wait``).
+``run_blocks`` is the loop every runner goes through (``StreamRunner``,
+``BatchRunner``, the CLI's wideband decode): read, push, step, start the
+fetch, drain the block before.  Each call is a span of ``utils/trace.py``
+(``rtsdr.read``, ``rtsdr.push``, ``rtsdr.fetch_start``,
+``rtsdr.fetch_wait``, ``rtsdr.emit``).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
+from rtsdr_tpu_torch.utils.jit import borrowing
 from rtsdr_tpu_torch.utils.trace import annotate
 
 
@@ -118,3 +122,56 @@ class Fetcher:
             if ticket.event is not None:
                 ticket.event.synchronize()
         return ticket.arrays
+
+
+def run_blocks(source, step, state, shape: tuple, device: torch.device,
+               fetch: Callable, drain: Callable, *,
+               max_blocks: int | None = None, early: bool = False) -> int:
+    """Step ``step`` over the blocks of ``source`` until it ends or
+    ``max_blocks`` have been read; returns the blocks stepped.
+
+    ``source``: ``read_block_into(buf)`` fills a staging buffer of
+    ``shape``, False at the end (``taken``, where the source has it: the
+    bytes it read before the end); ``ready()``, the whole blocks waiting
+    (``runtime.BlockReader``, ``io/batch.py::RowReader``).  Each block is
+    read under ``rtsdr.read`` (``bytes``, and ``ready`` asked only while a
+    session records), pushed, stepped (``utils/jit.py::borrowing`` of
+    ``step``, taken at each call), and its fetch of ``fetch(outputs)``
+    started; then the block before is drained: ``drain(host arrays)``
+    under ``rtsdr.emit`` while this block computes.  ``early``: after the
+    step, drain at once when ``source.ready()`` is 0 (the next block has
+    not arrived: holding this one would make it wait for it), span
+    attribute ``early`` 1; otherwise each block is held until the next has
+    been read (``early`` 0)."""
+    step, into = borrowing(step, shape)
+    feeder = Feeder(shape, device, into)
+    fetcher = Fetcher(device)
+
+    def finish(ticket, early):
+        with annotate("rtsdr.emit", block=ticket.block, early=early):
+            drain(fetcher.wait(ticket))
+
+    n_blocks = 0
+    pending = None  # ticket for the previous block's outputs
+    while max_blocks is None or n_blocks < max_blocks:
+        with annotate("rtsdr.read", block=n_blocks,
+                      bytes=feeder.nbytes) as span:
+            if span:
+                span.add(ready=source.ready())
+            got = source.read_block_into(feeder.staging())
+            if not got:
+                span.add(bytes=getattr(source, "taken", 0))
+        if not got:
+            break
+        state, out = step(state, feeder.push())
+        ticket = fetcher.start(fetch(out))
+        if pending is not None:
+            finish(pending, 0)  # overlap: emit block b-1 while b computes
+        pending = ticket
+        n_blocks += 1
+        if early and source.ready() == 0:
+            finish(pending, 1)
+            pending = None
+    if pending is not None:
+        finish(pending, 0)
+    return n_blocks

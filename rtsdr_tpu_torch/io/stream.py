@@ -1,18 +1,14 @@
 """Host streaming loop: fd -> prefetching reader -> device step -> emitter.
 
-Counterpart of ``rtsdr_tpu/io/stream.py``.  The host loop pipelines three
-things: the C++ reader thread prefetches stdin blocks, eager launches
-return before the device finishes, and, while the input runs ahead of the
-loop, output fetch/emission of block b happens while block b+1 computes
-(``io/staging.py``).  When the next block has not arrived (a live
-source), block b is drained at once rather than a block period later.  A
-block's frame outputs come to the host with its audio, as one fetch.  A
-block's read and its drain are spans of ``utils/trace.py``
-(``rtsdr.read``, ``rtsdr.emit``), each carrying the block's index; the
-read also the reader's backlog when it began (``ready``), the drain
-whether it came before the next block's read (``early``).  A pipe the
-loop reads is made to hold a whole block, so that a writer's block
-arrives in one read.
+Counterpart of ``rtsdr_tpu/io/stream.py``.  The host loop
+(``io/staging.py::run_blocks``) pipelines three things: the C++ reader
+thread prefetches stdin blocks, eager launches return before the device
+finishes, and, while the input runs ahead of the loop, output
+fetch/emission of block b happens while block b+1 computes.  When the next
+block has not arrived (a live source), ``StreamRunner`` drains block b at
+once rather than a block period later.  A block's frame outputs come to
+the host with its audio, as one fetch.  A pipe the runner reads is made to
+hold a whole block, so that a writer's block arrives in one read.
 """
 
 from __future__ import annotations
@@ -26,12 +22,10 @@ import numpy as np
 import torch
 
 from rtsdr_tpu_torch.config import ReceiverConfig
-from rtsdr_tpu_torch.io.staging import Feeder, Fetcher
+from rtsdr_tpu_torch.io.staging import run_blocks
 from rtsdr_tpu_torch.pipeline.frame import SYNDROME_NAMES, FrameOutputs
 from rtsdr_tpu_torch.pipeline.receiver import Receiver
 from rtsdr_tpu_torch.runtime import BlockReader, emit_int16_interleave
-from rtsdr_tpu_torch.utils.jit import borrowing
-from rtsdr_tpu_torch.utils.trace import annotate
 
 
 def format_rds_events(frame_out) -> list[str]:
@@ -88,6 +82,23 @@ def fetched_frame(arrays: tuple):
     return FrameOutputs(*arrays[2:]) if len(arrays) > 2 else None
 
 
+def station_outputs(arrays: tuple, c: int) -> tuple:
+    """Station ``c``'s (left, right, ``FrameOutputs`` | None): row ``c`` of
+    each array that ``fetch_list`` fetched for a batch of stations."""
+    left, right, *frame = (a[c] for a in arrays)
+    return left, right, (FrameOutputs(*frame) if frame else None)
+
+
+def run_stream(fd: int, nbytes: int, step, state, device, drain: Callable,
+               *, max_blocks: int | None = None, early: bool = False) -> int:
+    """``io/staging.py::run_blocks`` over ``fd``'s blocks of ``nbytes``
+    through a prefetching ``BlockReader``, each step's ``fetch_list``
+    fetched; returns the blocks stepped."""
+    with BlockReader(fd, nbytes) as reader:
+        return run_blocks(reader, step, state, (nbytes,), device, fetch_list,
+                          drain, max_blocks=max_blocks, early=early)
+
+
 class StreamRunner:
     """Single-station streaming receiver over a byte stream.  ``jit``
     (default True) and the other ``kwargs`` go to ``Receiver``: compiled,
@@ -123,63 +134,34 @@ class StreamRunner:
         """
         cfg = self.cfg
         scale = cfg.audio_scale if audio_scale is None else audio_scale
-        state = self.rx.init()
-        step, into = borrowing(self.rx.step, (cfg.block_size,))
-        feeder = Feeder((cfg.block_size,), self.rx.device, into)
-        fetcher = Fetcher(self.rx.device)
-        n_blocks = 0
         n_syncs = 0
         n_false_pos = 0
         n_corrected = 0
-        pending = None  # ticket for the previous block's outputs
 
-        def drain(ticket, early=0):
+        def drain(arrays):
             nonlocal n_syncs, n_false_pos, n_corrected
-            if ticket is None:
+            if emit is not None:
+                emit(emit_int16_interleave(arrays[0], arrays[1],
+                                           scale).tobytes())
+            fo = fetched_frame(arrays)
+            if fo is None:
                 return
-            with annotate("rtsdr.emit", block=ticket.block, early=early):
-                arrays = fetcher.wait(ticket)
-                if emit is not None:
-                    emit(emit_int16_interleave(arrays[0], arrays[1],
-                                               scale).tobytes())
-                fo = fetched_frame(arrays)
-                if fo is None:
-                    return
-                if rds_log is not None:
-                    for line in format_rds_events(fo):
-                        rds_log(line)
-                if frame_hook is not None:
-                    frame_hook(fo)
-                # count accepted (26-spaced) syncs and false positives
-                # separately: a log line is not necessarily a sync
-                n_w = int(fo.n_windows)
-                n_syncs += int(np.sum(fo.is_sync[:n_w]))
-                n_false_pos += int(np.sum(fo.is_false_pos[:n_w]))
-                n_corrected += int(np.sum(fo.corrected[:n_w]))
+            if rds_log is not None:
+                for line in format_rds_events(fo):
+                    rds_log(line)
+            if frame_hook is not None:
+                frame_hook(fo)
+            # count accepted (26-spaced) syncs and false positives
+            # separately: a log line is not necessarily a sync
+            n_w = int(fo.n_windows)
+            n_syncs += int(np.sum(fo.is_sync[:n_w]))
+            n_false_pos += int(np.sum(fo.is_false_pos[:n_w]))
+            n_corrected += int(np.sum(fo.corrected[:n_w]))
 
         hold_a_block(fd_in, cfg.block_size)
-        with BlockReader(fd_in, cfg.block_size) as reader:
-            while max_blocks is None or n_blocks < max_blocks:
-                with annotate("rtsdr.read", block=n_blocks,
-                              bytes=cfg.block_size) as span:
-                    if span:
-                        span.add(ready=reader.ready())
-                    got = reader.read_block_into(feeder.staging())
-                    if not got:
-                        span.add(bytes=0)
-                if not got:
-                    break
-                state, out = step(state, feeder.push())
-                ticket = fetcher.start(fetch_list(out))
-                drain(pending)  # overlap: emit block b-1 while b computes
-                pending = ticket
-                n_blocks += 1
-                if reader.ready() == 0:
-                    # the next block has not arrived: holding this one
-                    # would make it wait for it
-                    drain(pending, early=1)
-                    pending = None
-        drain(pending)
+        n_blocks = run_stream(fd_in, cfg.block_size, self.rx.step,
+                              self.rx.init(), self.rx.device, drain,
+                              max_blocks=max_blocks, early=True)
         return {"blocks": n_blocks, "rds_events": n_syncs,
                 "rds_false_positives": n_false_pos,
                 "rds_corrected": n_corrected}

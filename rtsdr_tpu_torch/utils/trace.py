@@ -6,11 +6,11 @@ the program's spans (``annotate``).
 
 The spans mark the host loop's layer boundaries (attributes in brackets):
 
-* ``rtsdr.read``: ``StreamRunner.run``'s read of a block,
-  ``BatchRunner.read_batch``'s reader loop, the CLI's wideband loop's read
-  of a capture block (``bytes``; ``ready``, the whole blocks waiting in
-  the reader when it began, the least over a batch's readers, -1 at the
-  end of the stream);
+* ``rtsdr.read``: ``io/staging.py::run_blocks``'s read of a block from
+  its source, the one host loop of ``StreamRunner``, ``BatchRunner`` and
+  the CLI's wideband decode (``bytes``, at the end what the source took
+  before it; ``ready``, the whole blocks waiting in the reader when it
+  began, the least over a batch's readers, -1 at the end of the stream);
 * ``rtsdr.push``: ``io/staging.py::Feeder.push`` (``bytes``);
 * ``rtsdr.replay``: one replay of a compiled step, ``utils/jit.py``
   (``launches``);
@@ -19,11 +19,11 @@ The spans mark the host loop's layer boundaries (attributes in brackets):
 * ``rtsdr.fetch_start``: ``Fetcher.start``, the outputs' copies queued
   (``copies``, ``bytes``);
 * ``rtsdr.fetch_wait``: ``Fetcher.wait``;
-* ``rtsdr.emit``: a runner's or the CLI's wideband loop's drain of one
-  block's outputs (the fetch's wait, ``emit``, ``rds_log``,
-  ``frame_hook`` / ``rds_hook``, the wideband loop's wavs and RDS lines;
-  ``early``: 1 when drained before the next block's read, 0 when held
-  until after it);
+* ``rtsdr.emit``: ``run_blocks``'s drain of one block's outputs (the
+  fetch's wait, then the caller's callback: ``emit``, ``rds_log``,
+  ``frame_hook`` / ``rds_hook``, the wideband decode's wavs and RDS lines;
+  ``early``: 1 when drained before the next block's read, which only
+  ``StreamRunner`` asks for, 0 when held until after it);
 * ``rtsdr.channelize``: one call of the wideband channelizer,
   ``ops/channelizer.py`` (``route``, ``captures``, ``slots``, ``shared``,
   ``own``, ``taps``), eager or at a capture: never inside a replay.

@@ -173,7 +173,6 @@ def test_batch_runner_spans_under_trace(capture_bytes, tmp_path):
                          **MONO) as runner:
             with tr.profile():
                 stats = runner.run(emit=lambda c, left, right: None)
-            assert runner.blocks_read == 4
     assert stats == {"blocks": 4, "stations": 2}
     recs = [r for r in tr.recorded() if r["name"] != "rtsdr.capture"]
     # the first block's replay is the capture on the CPU (the body runs

@@ -11,8 +11,8 @@ writer thread (``os.write`` of a pre-made block in a loop: the pipe, the
 reader and the staging, not synthesis) and read by one of the port's
 ``runtime.BlockReader``s (the C++ producer thread and its slot pool); the
 N blocks of a step land in the rows of one pinned staging array handed out
-by ``io/staging.py::Feeder``, as ``io/batch.py::BatchRunner.read_batch``
-fills it.  Pipe p sends its own two blocks in turn, so a row that took
+by ``io/staging.py::Feeder``, as ``io/batch.py::RowReader`` fills it in
+``BatchRunner``'s loop.  Pipe p sends its own two blocks in turn, so a row that took
 another pipe's bytes, or a stale block, shows: each run checks the last
 step's rows against what was written (``check_every`` checks every
 step).  Reports per N the blocks and bytes read, aggregate GB/s, station

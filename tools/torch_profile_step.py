@@ -32,8 +32,8 @@ with ``torch.profiler`` (CPU + CUDA activities), after timing as many
 untraced steps on the host clock.  The step is the compiled one
 (``utils/jit.py``: one CUDA graph replayed per step, what users run; on
 the spread route one graph holds the T shards' branches); ``--eager`` runs
-the eager step instead.  Each steady step's block comes as the runners
-bring it (``io/batch.py``, ``io/stream.py``): from a pinned staging buffer
+the eager step instead.  Each steady step's block comes as the runners'
+loop brings it (``io/staging.py::run_blocks``): from a pinned staging buffer
 of ``io/staging.py::Feeder`` (two blocks, filled before the window, in
 turn) with one host-to-device copy straight into the compiled step's
 input buffer (``step.input_buffer``; the eager step and a composition over
@@ -307,7 +307,7 @@ def main() -> int:
               "mode": args.mode, **shape, "steps": args.steps,
               "receiver": kwargs,
               "input": ("pinned staging -> step.input_buffer "
-                        "(io/staging.py::Feeder, as io/batch.py)"
+                        "(io/staging.py::Feeder, as run_blocks)"
                         if into is not None else
                         "pinned staging -> a new device tensor"),
               "first_step_ms": first_ms,
