@@ -209,6 +209,16 @@ git-ignored ``rtsdr_tpu_torch/build``), then
      ``loop_div`` 1, 2 and 4 over 36 lanes; counted), the clean centre
      point locked at div 1, and the grid at 2 blocks on the card against
      the plain versions on the CPU (lock and jitter within 0.05);
+     ``fetch_overlap`` — ``io/staging.py::Fetcher`` at width: the compiled
+     MODE0 step at C = 1,024 with ``resync``, 6 blocks through the
+     resident loop (a device copy into the step's input, ``borrowed``,
+     the fetch one step behind), each block's arrays equal to a device
+     clone of its outputs taken before the next step; then 8 such steps
+     traced: every device-to-host copy on a stream of no kernel, under a
+     ``rtsdr.fetch_start`` span with ``side`` 1, and most of its time
+     (at least 90 %) beside the next block's work on the step's stream
+     (its feed, a device copy, then its kernels); ``Fetcher.start``'s
+     host ms a step;
  14. for each counted window the launch counts, set to 0 just before, must
      equal steps x launches per step (the walk K7: one per step of each
      receiver with ``resync`` on).
@@ -3804,6 +3814,101 @@ def main() -> int:
     if not pe_ok:
         raise SystemExit(f"chip_smoke: the PLL envelope is off: "
                          f"{ {k: rep_pe[k] for k in rep_pe if k != 'points'} }")
+
+    # ===== 20. the output fetch (io/staging.py::Fetcher) at width: a
+    # snapshot on the step's stream, one copy to the host on a side stream
+    # beside the next step
+    from rtsdr_tpu_torch.io.staging import Fetcher
+    from rtsdr_tpu_torch.io.stream import fetch_list
+
+    t_fo = time.perf_counter()
+    rx_fo = Receiver(cfg, (N_BATCH_CHANNELS,), resync=True)
+    raw_fo = rx_fo.step.input_buffer((N_BATCH_CHANNELS, cfg.block_size))
+    gen_fo = torch.Generator(device=dev).manual_seed(22)
+    slabs_fo = torch.randint(0, 256, (2, N_BATCH_CHANNELS, cfg.block_size),
+                             generator=gen_fo, device=dev, dtype=torch.uint8)
+    fetcher_fo = Fetcher(dev)
+    fo = {"state": rx_fo.init(), "mismatch": 0, "host_ms": []}
+
+    def fo_steps(n, check):
+        pending = None
+        for k in range(n):
+            raw_fo.copy_(slabs_fo[k % 2], non_blocking=True)
+            fo["state"], out = rx_fo.step.borrowed(fo["state"], raw_fo)
+            leaves = fetch_list(out)
+            fo["leaves"] = len(leaves)
+            want = [t.clone() for t in leaves] if check else None
+            t0 = time.perf_counter()
+            ticket = fetcher_fo.start(leaves)
+            fo["host_ms"].append((time.perf_counter() - t0) * 1e3)
+            if pending is not None:
+                drain_fo(*pending)
+            pending = (ticket, want)
+        drain_fo(*pending)
+
+    def drain_fo(ticket, want):
+        arrays = fetcher_fo.wait(ticket)
+        if want is not None:
+            fo["mismatch"] += sum(
+                not np.array_equal(a, w.cpu().numpy())
+                for a, w in zip(arrays, want))
+
+    fo_steps(6, True)
+    fo["host_ms"].clear()
+    torch.cuda.synchronize()
+    trace_mod.clear()
+    with tempfile.TemporaryDirectory() as d_fo:
+        with trace_mod.profile() as prof_fo:
+            fo_steps(8, False)
+            torch.cuda.synchronize()
+        prof_fo.export_chrome_trace(os.path.join(d_fo, "t.json"))
+        with open(os.path.join(d_fo, "t.json")) as f:
+            ev_fo = json.load(f).get("traceEvents", [])
+    sides = [r["attrs"].get("side") for r in trace_mod.recorded()
+             if r["name"] == "rtsdr.fetch_start"]
+    def dev_events(keep):
+        return [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
+                 e.get("args", {}).get("stream")) for e in ev_fo
+                if keep(e.get("cat"), e.get("name", ""))]
+    kern_fo = dev_events(lambda cat, name: cat == "kernel")
+    d2h_fo = dev_events(lambda cat, name: cat == "gpu_memcpy"
+                        and "DtoH" in name)
+    kern_streams = {s_ for _, _, s_ in kern_fo}
+    side_streams = {s_ for _, _, s_ in d2h_fo}
+    # the busy intervals of every other stream's kernels and copies, merged
+    step_union = []
+    for k0, k1, st in sorted(dev_events(
+            lambda cat, name: cat in ("kernel", "gpu_memcpy", "gpu_memset"))):
+        if st in side_streams:
+            continue
+        if step_union and k0 <= step_union[-1][1]:
+            step_union[-1][1] = max(step_union[-1][1], k1)
+        else:
+            step_union.append([k0, k1])
+    # the last block's copy has no next step to run beside
+    followed = sorted(d2h_fo)[:-1]
+    beside_us = sum(max(0.0, min(b1, k1) - max(b0, k0))
+                    for b0, b1, _ in followed for k0, k1 in step_union)
+    d2h_us = sum(b1 - b0 for b0, b1, _ in d2h_fo)
+    rep_fo = {"channels": N_BATCH_CHANNELS, "steps_checked": 6,
+              "leaves": fo["leaves"],
+              "arrays_not_equal": fo["mismatch"],
+              "traced_steps": 8, "fetch_start_side": sides,
+              "d2h_copies": len(d2h_fo),
+              "d2h_ms_per_step": d2h_us / 1e3 / 8,
+              "d2h_beside_step_share": beside_us / max(
+                  sum(b1 - b0 for b0, b1, _ in followed), 1e-9),
+              "d2h_on_a_kernel_stream": sum(s_ in kern_streams
+                                            for _, _, s_ in d2h_fo),
+              "fetch_start_host_ms_median": statistics.median(fo["host_ms"]),
+              "seconds": time.perf_counter() - t_fo}
+    emit({"fetch_overlap": rep_fo, "card": card})
+    if not (fo["mismatch"] == 0 and sides == [1] * 8
+            and len(d2h_fo) == 8 and rep_fo["d2h_on_a_kernel_stream"] == 0
+            and rep_fo["d2h_beside_step_share"] >= 0.9):
+        raise SystemExit(f"chip_smoke: the output fetch is off: {rep_fo}")
+    del rx_fo, raw_fo, slabs_fo, fetcher_fo, fo
+    torch.cuda.empty_cache()
 
     # -------------------------------------------------- the kernels line
     # name -> (source, the TPU kernel it replaces, launches in the window

@@ -17,7 +17,9 @@ The spans mark the host loop's layer boundaries (attributes in brackets):
 * ``rtsdr.capture``: a compiled step's warm-up and capture, at its first
   call;
 * ``rtsdr.fetch_start``: ``Fetcher.start``, the outputs' copies queued
-  (``copies``, ``bytes``);
+  (``copies``: the tensors fetched; ``bytes``: their sum; ``side``: 1 when
+  the copy to the host was queued on a side stream behind a snapshot on
+  the device, 0 on the CPU);
 * ``rtsdr.fetch_wait``: ``Fetcher.wait``;
 * ``rtsdr.emit``: ``run_blocks``'s drain of one block's outputs (the
   fetch's wait, then the caller's callback: ``emit``, ``rds_log``,

@@ -350,16 +350,22 @@ def test_format_rds_events_equals_jax():
 def test_batch_runner_rds_hook_per_station(rds_capture, capture):
     """``rds_hook(channel, FrameOutputs)``: per-station host arrays, equal
     to what a single-station run of the same capture yields; a station
-    without RDS yields no syncs."""
+    without RDS yields no syncs.  The hooks keep copies: a block's host
+    arrays are the runner's until the next-but-one block's fetch."""
+    def kept(fo):
+        return FrameOutputs(*(np.array(a) for a in fo))
+
     single = []
     with open(rds_capture, "rb") as f:
         StreamRunner(MODE0, device="cpu").run(
-            f.fileno(), frame_hook=single.append, max_blocks=3)
+            f.fileno(), frame_hook=lambda fo: single.append(kept(fo)),
+            max_blocks=3)
     got = {0: [], 1: []}
     with open(rds_capture, "rb") as f0, open(capture, "rb") as f1:
         with BatchRunner(MODE0, [f0.fileno(), f1.fileno()],
                          device="cpu") as runner:
-            stats = runner.run(rds_hook=lambda c, fo: got[c].append(fo))
+            stats = runner.run(
+                rds_hook=lambda c, fo: got[c].append(kept(fo)))
     assert stats == {"blocks": 3, "stations": 2}
     assert len(got[0]) == len(got[1]) == 3
     for fo_b, fo_1 in zip(got[0], single):

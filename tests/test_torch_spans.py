@@ -145,7 +145,7 @@ def test_stream_runner_spans_under_trace(capture_bytes, tmp_path):
             assert nxt["rtsdr.read"]["attrs"]["ready"] != 0
         assert spans["rtsdr.push"]["attrs"] == {"bytes": MODE0.block_size}
         fetch = spans["rtsdr.fetch_start"]["attrs"]
-        assert fetch["copies"] == 2 and fetch["bytes"] == 2 * 3072 * 4
+        assert fetch == {"copies": 2, "bytes": 2 * 3072 * 4, "side": 0}
         assert spans["rtsdr.replay"]["attrs"] == {
             "launches": sum(runner.rx.step.per_step.values())}
 

@@ -37,9 +37,14 @@ loop brings it (``io/staging.py::run_blocks``): from a pinned staging buffer
 of ``io/staging.py::Feeder`` (two blocks, filled before the window, in
 turn) with one host-to-device copy straight into the compiled step's
 input buffer (``step.input_buffer``; the eager step and a composition over
-several devices get a new device tensor), then the step ``borrowed``.  The
-copy is reported on its own (``input_h2d_ms_per_step``) and
-``step_busy_ms_per_step`` is the device time without it.
+several devices get a new device tensor), then the step ``borrowed``, and
+its outputs are fetched as that loop fetches them, one step behind
+(``io/staging.py::Fetcher``: ``io/stream.py::fetch_list`` of a receiver's
+outputs, every tensor of the scanner's).  The input's copy is reported on
+its own (``input_h2d_ms_per_step``), and so are the fetch's copies
+(``output_d2h_ms_per_step``, and ``output_d2d_ms_per_step``: every
+device-to-device copy, the fetch's snapshot among them);
+``step_busy_ms_per_step`` is the device time without the three.
 Prints one JSON line (and writes it to ``--out FILE``, the step and PLL
 times ``tools/torch_comm_model.py --profile FILE`` reads): which step ran, the card's name
 and power limit, the host clock of the first step (a compiled step's
@@ -66,7 +71,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from rtsdr_tpu_torch.config import MODE0, MODE1, MODE1_RDS  # noqa: E402
-from rtsdr_tpu_torch.io.staging import Feeder  # noqa: E402
+from rtsdr_tpu_torch.io.staging import Feeder, Fetcher  # noqa: E402
+from rtsdr_tpu_torch.io.stream import fetch_list  # noqa: E402
 from rtsdr_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from rtsdr_tpu_torch.parallel.timeshard import (  # noqa: E402
     make_time_sharded_receiver,
@@ -264,13 +270,22 @@ def main() -> int:
     feeder = Feeder(in_shape, dev, into)
     for b in (2, 3):
         feeder.staging()[...] = block(b).cpu().numpy()
+    fetcher = Fetcher(dev)
+    fetch = ((lambda out: tuple(torch.utils._pytree.tree_leaves(out)))
+             if args.scan else fetch_list)
     torch.cuda.synchronize()
 
     def steady(n):
         nonlocal state
+        pending = None
         for _ in range(n):
             feeder.staging()         # the other pre-filled buffer
-            state, _ = call(state, feeder.push())
+            state, out = call(state, feeder.push())
+            ticket = fetcher.start(fetch(out))
+            if pending is not None:
+                fetcher.wait(pending)
+            pending = ticket
+        fetcher.wait(pending)
 
     # host clock over steady steps, without the profiler ...
     t0 = time.perf_counter()
@@ -298,8 +313,9 @@ def main() -> int:
                               "calls_per_step": e.count / args.steps}
     busy_ms = sum(k["ms_per_step"] for k in kernels.values())
     launches = sum(k["calls_per_step"] for k in kernels.values())
-    h2d_ms = sum(k["ms_per_step"] for name, k in kernels.items()
-                 if name.startswith("Memcpy HtoD"))
+    copy_ms = {d: sum(k["ms_per_step"] for name, k in kernels.items()
+                      if name.startswith(f"Memcpy {d}"))
+               for d in ("HtoD", "DtoH", "DtoD")}
     result = {"card": card,
               "step": ("compiled" if isinstance(step_fn, (
                   CompiledStep, ComposedStep)) or (args.scan and not args.eager)
@@ -321,8 +337,10 @@ def main() -> int:
         small = [k for name, k in kernels.items() if name not in top]
         result.update({
             "device_busy_ms_per_step": busy_ms,
-            "input_h2d_ms_per_step": h2d_ms,
-            "step_busy_ms_per_step": busy_ms - h2d_ms,
+            "input_h2d_ms_per_step": copy_ms["HtoD"],
+            "output_d2h_ms_per_step": copy_ms["DtoH"],
+            "output_d2d_ms_per_step": copy_ms["DtoD"],
+            "step_busy_ms_per_step": busy_ms - sum(copy_ms.values()),
             "device_idle_share_of_wall": max(
                 0.0, 1.0 - busy_ms / (wall_ms / args.steps)),
             **streams,
