@@ -13,7 +13,10 @@ git-ignored ``rtsdr_tpu_torch/build``), then
      (every station on the shared prototype), the smoke's one offset
      (15 + 1) and every station offset (own taps only), each case naming
      the stations of each route, then at K = 8 and 32 and in its generic
-     instance (K = 3, decim 2); every wrapper
+     instance (K = 3, decim 2); its two-stage role over a station map
+     (``k5_station_map``: 38 stations over 8 slots and one a slot, 27
+     captures, and one K5 launch a step of the compiled band38 receiver);
+     every wrapper
      call of the third step of the MODE1 / MODE1_RDS receivers (320,000-byte
      blocks, 16,000 IF samples, the x57/250 resampler with its 9,003 taps),
      of the wideband receiver at 8 captures x 16 slots, and of the band
@@ -403,6 +406,21 @@ CHECKPOINT_KEYS = [
 ]
 MIN_STREAM_SYNCS = 40
 MAX_STREAM_FALSE_POSITIVES = 25
+
+
+def band38_plan(cfg):
+    """Each station's slot and offset for every second 200 kHz channel from
+    88.3 to 105.9 MHz but the 7 on a slot edge, around 97.9 MHz at 8 x the
+    RF rate, as ``--wideband 8 --wideband-centers`` maps them."""
+    from rtsdr_tpu_torch import cli
+
+    edges = {895, 919, 943, 967, 991, 1015, 1039}       # 100 kHz units
+    chans = [883 + 4 * i for i in range(45) if 883 + 4 * i not in edges]
+    spec = ",".join(f"{(c - 979) * 100}k" for c in chans)
+    slots, offsets, err = cli._centers_to_offsets(cfg, 8, spec)
+    if err:
+        raise ValueError(err)
+    return slots, [float(o) for o in offsets]
 
 
 def emit(obj) -> None:
@@ -1183,6 +1201,93 @@ def main() -> int:
                            device=dev, dtype=torch.uint8) for _ in range(2)]
     k5_case(g, small, 2, 2, "one offset, generic instance", False)
     del small
+    torch.cuda.empty_cache()
+
+    # several stations a slot: K5's two-stage role over a station map, S =
+    # 38 over K = 8 (every second 200 kHz channel of the band but those on
+    # a slot edge, up to 5 a slot), and S = K on the identity map, 27
+    # captures of 8 x 307,200 bytes, two chained blocks each, against the
+    # plain version; one launch a call; then one K5 launch a step of the
+    # compiled wideband receiver with the map
+    band_slots, band_offs = band38_plan(cfg)
+    band_map = channelizer.station_map(8, band_slots)
+    band_cap = [torch.randint(0, 256, (27, 8 * cfg.block_size),
+                              generator=gen, device=dev, dtype=torch.uint8)
+                for _ in range(2)]
+    map_rows = []
+    for label, stations, offs in (
+            ("38 stations over 8 slots", band_map, band_offs),
+            ("one station a slot", None,
+             [200e3, -600e3, 800e3, -200e3, 400e3, 0.0, -800e3, 600e3])):
+        g, factors = channelizer.composed_rf_factors(
+            8, channelizer.channelizer_taps(8, 16), rf_h, cfg.rf.decim,
+            offsets_hz=offs, fs_ch=cfg.rf.fs, stations=stations)
+        plan = channelizer.composed_plan(g, cfg.rf.decim, factors, stations)
+        geo = channelizer.two_stage_geometry(plan, 27, cfg.block_size // 2
+                                             // cfg.rf.decim)
+        g_l1 = float(np.abs(g).sum(axis=1).max())
+        zi = channelizer.composed_zi_u8(g.shape[1], (27,), dev)
+        for blk in range(2):
+            _cuda.reset_launch_counts()
+            k_y, k_zi = channelizer.composed_channelize_u8(
+                band_cap[blk], g, zi, cfg.rf.decim, factors, stations)
+            launches = _cuda.launch_counts()
+            r_y, r_zi = channelizer.composed_channelize_u8_ref(
+                band_cap[blk], g, zi, cfg.rf.decim, block=32,
+                stations=stations)
+            timing = {}
+            if blk == 1:
+                timing = {"kernel_ms": time_ms(
+                    lambda: channelizer.composed_channelize_u8(
+                        band_cap[blk], g, zi, cfg.rf.decim, factors,
+                        stations))}
+            map_rows.append(check(
+                "channelizer.composed_stations",
+                f"u8 (27, {8 * cfg.block_size}), K = 8, S = {g.shape[0]}",
+                {"y": max_err(k_y, r_y),
+                 "new_zi_bytes_differing": float((k_zi != r_zi).sum()),
+                 "launches_off_by": float(abs(launches.get(
+                     "channelizer.composed_two_stage", 0) - 1)
+                     + sum(v for n_, v in launches.items()
+                           if n_ != "channelizer.composed_two_stage"))},
+                {"y": TOL_K5_REL * g_l1, "new_zi_bytes_differing": 0.0,
+                 "launches_off_by": 0.0},
+                case=label, block=blk, stations=g.shape[0],
+                per_slot=1 if stations is None else stations.per_slot,
+                tile=geo.tile, ns=geo.ns,
+                smem=geo.smem, sum_abs_g=g_l1, **timing))
+            zi = k_zi
+        del k_y, r_y, k_zi, r_zi
+    del band_cap
+    torch.cuda.empty_cache()
+    b_init, b_step = jit_mod.jit_step(*make_wideband_receiver(
+        cfg, 8, (2,), channel_offsets_hz=band_offs, channel_slots=band_slots,
+        enable_rds=False, device=dev), dev, name="wideband receiver, band38")
+    b_state = b_init()
+    b_raw = torch.randint(0, 256, (2, 8 * cfg.block_size), generator=gen,
+                          device=dev, dtype=torch.uint8)
+    for _ in range(2):                  # the capture's step, then a replay
+        b_state, b_out = b_step(b_state, b_raw)
+    _cuda.reset_launch_counts()
+    for _ in range(3):
+        b_state, b_out = b_step(b_state, b_raw)
+    torch.cuda.synchronize()
+    b_counts = _cuda.launch_counts()
+    if (b_counts.get("channelizer.composed_two_stage") != 3
+            or tuple(b_out.left.shape) != (2, 38, cfg.audio_len)
+            or not bool(torch.isfinite(b_out.left).all())):
+        emit({"k5_station_map_failed": {"launches": b_counts,
+                                        "left": list(b_out.left.shape)}})
+        raise SystemExit("chip_smoke: the band38 receiver's step is not "
+                         "one K5 launch a step")
+    emit({"k5_station_map": {
+        "cases": [{k: r[k] for k in ("case", "block", "errors", "tolerances",
+                                     "stations", "per_slot", "tile", "ns",
+                                     "smem") if k in r}
+                  | ({"kernel_ms": r["kernel_ms"]} if "kernel_ms" in r
+                     else {}) for r in map_rows],
+        "receiver_launches_3_steps": b_counts}, "card": card})
+    del b_state, b_out, b_raw, b_step
     torch.cuda.empty_cache()
 
     # MODE1 / MODE1_RDS: the receiver's own calls of the fm ingest entry

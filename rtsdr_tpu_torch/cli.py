@@ -9,8 +9,9 @@ stdout, RDS frame-sync events (and, with ``--rds-groups``, decoded group
 payloads) on stderr.  Runs on the GPU unless ``--device cpu`` is given.
 Mode 0 (2.4 MS/s, RDS) and mode 1 (2.5 MS/s, x24/125 audio; ``--rds`` adds
 RDS); ``--stations`` decodes many capture files as one batch;
-``--wideband K`` decodes K stations from one capture at K x the RF rate,
-``--scan`` surveys it, ``--auto`` does both.
+``--wideband K`` decodes K stations from one capture at K x the RF rate
+(with ``--wideband-centers``, the stations listed, several a slot where
+the band is dense), ``--scan`` surveys it, ``--auto`` does both.
 """
 
 from __future__ import annotations
@@ -93,7 +94,10 @@ def main(argv=None) -> int:
                         "suffixes ok, e.g. '+0.1M,-0.9M').  Each is "
                         "assigned to its nearest channel slot and the "
                         "residual offset is mixed out: OFF-GRID stations "
-                        "on the 100/200 kHz raster decode at full quality")
+                        "on the 100/200 kHz raster decode at full quality. "
+                        "A slot may take several (at least 200 kHz "
+                        "apart): then one channel<n>.wav per listed "
+                        "station, in the order given")
     p.add_argument("--scan", action="store_true",
                    help="with --wideband K: don't decode, just survey the "
                         "band — per-channel RSSI, 19 kHz pilot SNR and "
@@ -157,13 +161,24 @@ def main(argv=None) -> int:
                              rds_groups=args.rds_groups,
                              pty_table=args.pty_table)
     if args.wideband:
+        slots = None
         if args.wideband_centers:
-            offsets, err = _centers_to_offsets(cfg, args.wideband,
-                                               args.wideband_centers)
+            slots, offsets, err = _centers_to_offsets(
+                cfg, args.wideband, args.wideband_centers)
             if err:
                 print(f"error: {err}", file=sys.stderr)
                 return 1
-            kwargs["channel_offsets_hz"] = offsets
+            if len(set(slots)) == len(slots):
+                # one station a slot: every slot decodes, each listed
+                # station's offset mixed out in its own
+                per_slot = [0.0] * args.wideband
+                for c, off in zip(slots, offsets):
+                    per_slot[c] = off
+                kwargs["channel_offsets_hz"] = per_slot
+                slots = None
+            else:
+                kwargs["channel_offsets_hz"] = offsets
+                kwargs["channel_slots"] = slots
         active = None
         decode_blocks = args.blocks
         if args.auto:
@@ -179,6 +194,9 @@ def main(argv=None) -> int:
             _print_scan_table(cfg, args.wideband, mean, verdicts)
             active = [v != "empty" for v in verdicts]
             n_act = sum(active)
+            if slots is not None:
+                # a listed station decodes where its slot holds a station
+                active = [active[c] for c in slots]
             print(f"auto: {n_act}/{args.wideband} slots active after "
                   f"{used}-block scan; decoding those", file=sys.stderr)
             if not n_act:
@@ -381,48 +399,56 @@ def _parse_freq(s: str) -> float:
     return float(s) * mult
 
 
+#: the least distance between two listed stations: a station's channel
+STATION_SPACING_HZ = 200e3
+
+
 def _centers_to_offsets(cfg, k, spec):
     """Map real station centers (relative to the capture center) onto the
     K-slot grid: each listed frequency claims its NEAREST slot, and the
-    residual becomes that slot's mix-out offset.  Returns (offsets, err)."""
+    residual becomes its mix-out offset; a slot may take several stations,
+    at least ``STATION_SPACING_HZ`` apart.  Returns (slots, offsets, err):
+    one station per listed centre, in the order given."""
     import numpy as np
 
     from rtsdr_tpu_torch.ops.channelizer import channel_center_freqs
+    from rtsdr_tpu_torch.pipeline.wideband import passband_error
 
     slots = channel_center_freqs(k, k * cfg.rf.fs)
     fs_w = k * cfg.rf.fs
-    offsets = np.zeros(k)
-    taken: dict = {}
+    chosen, offsets, seen = [], [], []
     for tok in spec.split(","):
         if not tok.strip():
             continue
         try:
             f = _parse_freq(tok)
         except ValueError:
-            return None, f"bad frequency {tok!r}"
+            return None, None, f"bad frequency {tok!r}"
         # wrapped distance on the fs_w circle (slot 0 covers both edges)
         d = np.abs(np.mod(f - slots + fs_w / 2, fs_w) - fs_w / 2)
         c = int(np.argmin(d))
-        if c in taken:
-            return None, (f"{tok.strip()} and {taken[c]} both map to "
-                          f"channel {c} ({slots[c] / 1e6:+.1f}M)")
-        taken[c] = tok.strip()
+        for f2, tok2 in seen:
+            apart = abs(np.mod(f - f2 + fs_w / 2, fs_w) - fs_w / 2)
+            if apart < STATION_SPACING_HZ:
+                return None, None, (
+                    f"{tok.strip()} and {tok2} are {apart / 1e3:.0f} kHz "
+                    f"apart — under a station's "
+                    f"{STATION_SPACING_HZ / 1e3:.0f} kHz channel")
+        seen.append((f, tok.strip()))
         off = np.mod(f - slots[c] + fs_w / 2, fs_w) - fs_w / 2
         # decodability bound: the station's ±100 kHz spectrum must stay
         # inside its slot's passband after the mix-out.  A violation
         # almost always means an ABSOLUTE RF frequency was typed instead
         # of a capture-relative one (it wraps mod fs_w onto an arbitrary
         # slot); without this check the result is silent noise wavs.
-        limit = 0.5 * cfg.rf.fs - 100e3
-        if abs(off) > limit:
-            return None, (
-                f"{tok.strip()} is {off / 1e3:+.0f} kHz from its nearest "
-                f"slot center ({slots[c] / 1e6:+.1f}M) — beyond the "
-                f"decodable ±{limit / 1e3:.0f} kHz.  Frequencies are "
-                "relative to the capture center (e.g. '+0.1M'), not "
-                "absolute RF")
-        offsets[c] = off
-    return offsets, None
+        err = passband_error(tok.strip(), off, slots[c], cfg.rf.fs)
+        if err:
+            return None, None, (
+                f"{err}  Frequencies are relative to the capture center "
+                "(e.g. '+0.1M'), not absolute RF")
+        chosen.append(c)
+        offsets.append(float(off))
+    return chosen, np.asarray(offsets), None
 
 
 def _read_exact_fd(fd: int, n: int) -> bytearray | None:
@@ -512,11 +538,12 @@ def _band_scan(cfg, k, max_blocks, device) -> int:
 
 def _wideband_decode(cfg, k, max_blocks, kwargs, rds_groups=False,
                      active=None, pty_table="rbds") -> int:
-    """One wideband stdin capture -> K stations via the channelizer
-    (pipeline/wideband.py), channel<k>.wav per station.
+    """One wideband stdin capture -> its stations via the channelizer
+    (pipeline/wideband.py), channel<n>.wav per station: the K slots, or,
+    with ``channel_slots`` in ``kwargs``, the listed stations in order.
 
-    ``active``: optional per-slot mask (from --auto's scan pass) — the
-    batched step still decodes every slot (same device cost), but wavs,
+    ``active``: optional per-station mask (from --auto's scan pass) — the
+    batched step still decodes every station (same device cost), but wavs,
     RDS events, and group summaries are emitted only for active ones."""
     import numpy as np
 
@@ -537,21 +564,25 @@ def _wideband_decode(cfg, k, max_blocks, kwargs, rds_groups=False,
                              device, name=f"wideband receiver K={k}")
     state = init_fn()
     freqs = channel_center_freqs(k, k * cfg.rf.fs)
+    slots = kwargs.get("channel_slots")
+    if slots is not None:
+        freqs = freqs[list(slots)]
+    n = len(freqs)                            # stations decoded
     offs = kwargs.get("channel_offsets_hz")
     if offs is not None:
         freqs = freqs + np.asarray(offs)
     print("wideband channel centers (Hz):",
           " ".join(f"{f / 1e6:+.3g}M" for f in freqs), file=sys.stderr)
 
-    writers: list = [None] * k
-    decoders = _station_decoders(k, cfg, kwargs, rds_groups, pty_table)
+    writers: list = [None] * n
+    decoders = _station_decoders(n, cfg, kwargs, rds_groups, pty_table)
     events = 0
 
     def drain(arrays):
         """Emit one block's outputs, a station a row (every block is held
         until the next one has been read)."""
         nonlocal events
-        for c in range(k):
+        for c in range(n):
             if active is not None and not active[c]:
                 continue
             left, right, fo = station_outputs(arrays, c)
@@ -576,10 +607,10 @@ def _wideband_decode(cfg, k, max_blocks, kwargs, rds_groups=False,
             if w is not None:
                 w.close()
 
-    print(f"processed {blocks} wideband blocks x {k} channels, "
+    print(f"processed {blocks} wideband blocks x {n} channels, "
           f"{events} RDS events", file=sys.stderr)
     if decoders is not None:
-        for c in range(k):
+        for c in range(n):
             if active is None or active[c]:
                 _print_rds_summary(decoders[c], prefix=f"[ch{c}] ")
     return 0

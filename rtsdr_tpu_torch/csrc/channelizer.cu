@@ -91,6 +91,18 @@
 // be written to and read back from device memory, 2 x 1.26 GB a step at
 // the cell (about 0.75 ms at 3.35 TB/s).  K = 4, 8 and 16 are compiled in
 // (16 taps a plane in both stages, zero-padded).
+//
+// Several stations a slot.  A dense band puts S stations over the K slots
+// (ops/channelizer.py::StationMap): station j takes slot slot_of[j]'s s_k
+// and its own RF taps f_j.  Stage A and the DFT stay once per capture tile
+// and slot; stage B runs S lanes, a (station, R outputs, slice) item per
+// thread, 256 items at a time, reading its slot's s_k (stations of one
+// slot read the same words: a broadcast).  Its taps (decim x 16 x S
+// complex) and partial sums take the dead stage-A space, grown to a_elems
+// float2 where they need more (S = 38 over K = 8: tile 48, 103,920 bytes,
+// still two blocks an SM).  S and the map are read at run time: one
+// station a slot is the map k -> k (at K = 8, 128 captures, 1 % slower
+// than with S = K compiled in, the same outputs).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -449,11 +461,13 @@ constexpr int kHalfB = kTapsB / 2;   // a stage-B unit: half a plane's taps
 struct TwoStageArgs {
   const uint8_t *raw, *zi;
   const float* ha;          // (kTapsA, K): h[K a + r] / 128 at [a][r]
-  const float2* fb;         // (decim, kTapsB, K): f_k[decim a + b] at [b][a][k]
+  const float2* fb;         // (decim, kTapsB, S): f_j[decim a + b] at [b][a][j]
   const float2* tw;         // (K): W^m
-  float* y;                 // (B, K, 2, P)
+  const int* slot_of;       // (S): station j's slot
+  float* y;                 // (B, S, 2, P)
   uint8_t* zi_out;          // (B, 2(L-1))
-  int n, taps, decim, p_out, tile, n_tiles, ns, pitch_a, bp, kp;
+  int n, n_st, taps, decim, p_out, tile, n_tiles, ns, pitch_a, a_elems, bp,
+      kp;
 };
 
 // r's log2(KT) bits reversed
@@ -516,17 +530,20 @@ __device__ __forceinline__ void dft(float2 (&x)[KT],
 //
 // Threads: stage A, residue r = tid % K (its 16 taps in registers) and
 // groups of R outputs t, tid / K apart; the DFT, one t a thread; stage B,
-// (station k = tid % K, group of R outputs, slice of ns), a slice taking
-// every ns-th of the 2 decim half-planes (8 taps each), the slices' partial
-// sums added in order after.  Shared memory: stage A's planes (K x pitch_a
-// float2), whose space then holds stage B's taps and the partial sums
-// (pitch tile + 1); u_r and then s_k in place (K x kp).
+// items (station j = item % S, group of R outputs, slice of ns), item =
+// tid + 256 i, a slice taking every ns-th of the 2 decim half-planes (8
+// taps each) of its station's slot, the slices' partial sums added in
+// order after.  Shared memory: stage A's planes (K x pitch_a float2) in the
+// first a_elems float2, whose space then holds stage B's taps and the
+// partial sums (pitch tile + 1); u_r and then s_k in place (K x kp) after
+// it.
 template <int KT>
 __global__ void __launch_bounds__(kThreads, 2)
     composed_kernel_two_stage(TwoStageArgs a) {
   extern __shared__ __align__(16) float2 smem[];
   float2* planes = smem;                   // stage A; then taps, partials
-  float2* sb = smem + KT * a.pitch_a;      // u_r, then s_k
+  float2* sb = smem + a.a_elems;           // u_r, then s_k
+  const int n_st = a.n_st;
   const int tid = threadIdx.x;
   const int cap = blockIdx.x / a.n_tiles;
   const int tile_idx = blockIdx.x % a.n_tiles;
@@ -573,7 +590,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   __syncthreads();
 
   // stage B's taps over the dead planes; the DFT across residues in place
-  for (int i = tid; i < a.decim * kTapsB * KT; i += kThreads)
+  for (int i = tid; i < a.decim * kTapsB * n_st; i += kThreads)
     planes[i] = __ldg(a.fb + i);
   {
     float2 tw[KT];
@@ -601,41 +618,45 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
   __syncthreads();
 
-  // stage B: each station's RF FIR, half-planes of 8 taps
+  // stage B: each station's RF FIR over its slot's s_k, half-planes of 8
+  // taps
   const int groups = a.tile / kR;
-  const int k = tid % KT;
-  const int grp = (tid / KT) % groups;
-  const int slice = tid / (KT * groups);
   const int ppitch = a.tile + 1;
-  float2* part = planes + a.decim * kTapsB * KT;
-  if (slice < a.ns) {
+  float2* part = planes + a.decim * kTapsB * n_st;
+  const int n_items = n_st * groups * a.ns;
+  for (int item = tid; item < n_items; item += kThreads) {
+    const int j = item % n_st;
+    const int grp = (item / n_st) % groups;
+    const int slice = item / (n_st * groups);
+    const int slot = __ldg(a.slot_of + j);
     float2 acc[kR];
 #pragma unroll
     for (int i = 0; i < kR; ++i) acc[i] = make_float2(0.0f, 0.0f);
-    const float2* sk = sb + k * a.kp + grp * kR;
+    const float2* sk = sb + slot * a.kp + grp * kR;
     for (int u = slice; u < 2 * a.decim; u += a.ns) {
       const int b = u >> 1, half = u & 1;
       // taps kHalfB * half + t of plane b meet rows i - t + 15 - kHalfB * half
-      const float2* tp = planes + (b * kTapsB + kHalfB * half) * KT + k;
+      const float2* tp = planes + (b * kTapsB + kHalfB * half) * n_st + j;
       plane_fir<kHalfB, float2>(sk + b * a.bp + kHalfB * (1 - half), kHalfB,
-                                [tp](int t) { return tp[t * KT]; }, acc);
+                                [tp, n_st](int t) { return tp[t * n_st]; },
+                                acc);
     }
-    float2* pp = part + (slice * KT + k) * ppitch + grp * kR;
+    float2* pp = part + (slice * n_st + j) * ppitch + grp * kR;
 #pragma unroll
     for (int i = 0; i < kR; ++i) pp[i] = acc[i];
   }
   __syncthreads();
-  for (int it = tid; it < KT * a.tile; it += kThreads) {
+  for (int it = tid; it < n_st * a.tile; it += kThreads) {
     const int q = it % a.tile, kk = it / a.tile;
     const int p = p0 + q;
     if (p >= a.p_out) continue;
     float2 s = make_float2(0.0f, 0.0f);
     for (int sl = 0; sl < a.ns; ++sl) {
-      const float2 v = part[(sl * KT + kk) * ppitch + q];
+      const float2 v = part[(sl * n_st + kk) * ppitch + q];
       s.x += v.x;
       s.y += v.y;
     }
-    float* yr = a.y + ((size_t)cap * KT + kk) * 2 * a.p_out;
+    float* yr = a.y + ((size_t)cap * n_st + kk) * 2 * a.p_out;
     yr[p] = s.x;
     yr[a.p_out + p] = s.y;
   }
@@ -714,25 +735,30 @@ extern "C" int rtsdr_channelize_composed(
 }
 
 // The two-stage role (ops/channelizer.py::composed_plan with factors): raw,
-// zi, zi_out, y as above; ha (16, K) and fb (decim, 16, K, 2) float32, tw
-// (K, 2).  The geometry (two_stage_geometry): tile, n_tiles, ns, pitch_a,
-// bp, kp, smem.  K in {4, 8, 16}; needs n % (decim K) == 0.  Returns
-// cudaGetLastError().
+// zi, zi_out as above; y (B, S, 2, n/d) float32; ha (16, K) and fb (decim,
+// 16, S, 2) float32, tw (K, 2); slot_of (S) int32, each station's slot in
+// [0, K).  The geometry
+// (two_stage_geometry): tile, n_tiles, ns, pitch_a, a_elems, bp, kp, smem.
+// K in {4, 8, 16}; needs n % (decim K) == 0.  Returns cudaGetLastError().
 extern "C" int rtsdr_channelize_two_stage(
     const uint8_t* raw, const uint8_t* zi, const float* ha, const float* fb,
-    const float* tw, float* y, uint8_t* zi_out, int n_cap, int n, int k,
-    int taps, int decim, int p_out, int tile, int n_tiles, int ns,
-    int pitch_a, int bp, int kp, int smem, void* stream) {
+    const float* tw, const int* slot_of, float* y, uint8_t* zi_out,
+    int n_cap, int n, int k, int n_st, int taps, int decim, int p_out,
+    int tile, int n_tiles, int ns, int pitch_a, int a_elems, int bp, int kp,
+    int smem, void* stream) {
   const int d = decim * k;
   const int ms = decim * (tile + kTapsB - 1);
   const int ms_pad = (ms + kR - 1) / kR * kR;
   if (n_cap <= 0 || n <= 0 || (k != 4 && k != 8 && k != 16) || decim < 1 ||
+      n_st < 1 || slot_of == nullptr ||
       taps < 1 || n % d != 0 || p_out != n / d || tile < kR ||
       tile % kR != 0 || n_tiles != (p_out + tile - 1) / tile || ns < 1 ||
-      k * (tile / kR) * ns > kThreads || bp < tile + kTapsB - 1 ||
+      k * (tile / kR) > kThreads || bp < tile + kTapsB - 1 ||
       kp < decim * bp || pitch_a < ms_pad + kTapsA - 1 ||
-      decim * kTapsB * k + ns * k * (tile + 1) > k * pitch_a ||
-      smem < 8 * k * (pitch_a + kp) || smem > kSmemCap ||
+      a_elems < k * pitch_a ||
+      (long long)decim * kTapsB * n_st + (long long)ns * n_st * (tile + 1) >
+          a_elems ||
+      smem < 8LL * (a_elems + (long long)k * kp) || smem > kSmemCap ||
       ((reinterpret_cast<uintptr_t>(raw) | reinterpret_cast<uintptr_t>(zi)) &
        1) != 0)
     return (int)cudaErrorInvalidValue;
@@ -740,9 +766,11 @@ extern "C" int rtsdr_channelize_two_stage(
   a.raw = raw; a.zi = zi; a.ha = ha;
   a.fb = reinterpret_cast<const float2*>(fb);
   a.tw = reinterpret_cast<const float2*>(tw);
+  a.slot_of = slot_of;
   a.y = y; a.zi_out = zi_out;
-  a.n = n; a.taps = taps; a.decim = decim; a.p_out = p_out; a.tile = tile;
-  a.n_tiles = n_tiles; a.ns = ns; a.pitch_a = pitch_a; a.bp = bp; a.kp = kp;
+  a.n = n; a.n_st = n_st; a.taps = taps; a.decim = decim; a.p_out = p_out;
+  a.tile = tile; a.n_tiles = n_tiles; a.ns = ns; a.pitch_a = pitch_a;
+  a.a_elems = a_elems; a.bp = bp; a.kp = kp;
   const dim3 grid((unsigned)(n_cap * n_tiles));
   cudaStream_t s = (cudaStream_t)stream;
   if (k == 4) return (int)launch_two_stage<4>(a, smem, grid, s);

@@ -30,6 +30,14 @@ Three routes, as in the reference:
     (``composed_channelize_u8_ref``: windows + ``torch.matmul``), which is
     also what the kernel is compared with on the card.
 
+Stations and slots: by default station k is slot k (S = K).  A
+``StationMap`` (``station_map``) puts S stations over the K slots, several
+a slot where the band is dense: ``pfb_channelize_u8`` then gives each
+station its slot's row, and the composed bank has one row of taps a
+station (its slot's band-pass and its own RF filter), which the kernel
+runs in its two-stage role (the slot bank once a capture, then each
+station's RF FIR).
+
 Streaming: the carried state is the input tail (complex samples, or raw
 bytes where 128 stands for 0), so chained blocks equal one long call.
 
@@ -37,14 +45,17 @@ Spans: each call of ``pfb_channelize_u8`` and ``composed_channelize_u8`` is
 one ``rtsdr.channelize`` span of ``utils/trace.py`` (``route``,
 ``captures``, ``slots``, ``shared``, ``own`` and ``two_stage``: the
 stations on the shared prototype, on their own taps and on the two-stage
-role, ``taps``: the bank's length), on an eager call and at a compiled
-step's capture; a replayed graph runs no span.
+role, ``taps``: the bank's length, ``stations``: S, ``per_slot``: the most
+stations any slot carries), on an eager call and at a compiled step's
+capture; a replayed graph runs no span.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -53,6 +64,44 @@ from rtsdr_tpu_torch.ops import _cuda
 from rtsdr_tpu_torch.ops.coeffs import lowpass_taps
 from rtsdr_tpu_torch.ops.fir import derived_from, derived_from_list
 from rtsdr_tpu_torch.utils.trace import annotate
+
+
+class StationMap(NamedTuple):
+    """S stations over the K slots of a capture: station j decodes slot
+    ``slot_of[j]``.  Made by ``station_map``; where a function takes
+    ``stations=None``, station k is slot k (S = K)."""
+
+    k: int
+    slot_of: tuple
+
+    @property
+    def stations(self) -> int:
+        return len(self.slot_of)
+
+    @property
+    def per_slot(self) -> int:
+        """The most stations any slot carries."""
+        return max(collections.Counter(self.slot_of).values())
+
+
+def station_map(n_slots: int, slot_of) -> StationMap | None:
+    """The ``StationMap`` of stations in slots ``slot_of`` (each in
+    ``[0, n_slots)``, at least one station); None where it is one station
+    a slot in slot order, which every function takes as its default."""
+    slots = tuple(int(c) for c in slot_of)
+    if not slots or any(c < 0 or c >= n_slots for c in slots):
+        raise ValueError(f"slot_of: each station's slot in [0, {n_slots}), "
+                         f"got {list(slot_of)}")
+    if slots == tuple(range(n_slots)):
+        return None
+    return StationMap(n_slots, slots)
+
+
+def _span_stations(k: int, stations: StationMap | None) -> dict:
+    """The span attributes ``stations`` and ``per_slot``."""
+    if stations is None:
+        return {"stations": k, "per_slot": 1}
+    return {"stations": stations.stations, "per_slot": stations.per_slot}
 
 
 def channelizer_taps(n_channels: int, taps_per_branch: int = 16,
@@ -193,7 +242,8 @@ def _windows_matmul(x_ext: torch.Tensor, h_mat: torch.Tensor, nblk: int,
 
 
 def pfb_channelize_u8(raw_u8: torch.Tensor, h, zi_raw: torch.Tensor,
-                      n_channels: int, block: int = 16
+                      n_channels: int, block: int = 16,
+                      stations: StationMap | None = None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """K-channel PFB straight from interleaved uint8 IQ bytes.
 
@@ -208,14 +258,31 @@ def pfb_channelize_u8(raw_u8: torch.Tensor, h, zi_raw: torch.Tensor,
     raw_u8: (..., 2*N) interleaved IQ; zi_raw: (..., 2*(t*K + K - 1))
     carried byte tail (start from ``channelizer_zi_u8``).  Returns
     ((..., K, 2, M) float32 stacked I/Q at the channel rate — the
-    receivers' 'iq' frontend input — and the new byte tail).
+    receivers' 'iq' frontend input — and the new byte tail).  With
+    ``stations``, the output holds each station's slot: (..., S, 2, M).
     """
     with annotate("rtsdr.channelize", route="pfb") as span:
         if span:
             span.add(captures=math.prod(raw_u8.shape[:-1]),
                      slots=n_channels, shared=n_channels, own=0,
-                     two_stage=0, taps=len(h))
-        return _pfb_channelize_u8(raw_u8, h, zi_raw, n_channels, block)
+                     two_stage=0, taps=len(h),
+                     **_span_stations(n_channels, stations))
+        y, zi = _pfb_channelize_u8(raw_u8, h, zi_raw, n_channels, block)
+        if stations is not None:
+            y = y.index_select(-3, _slot_index(stations, y.device))
+        return y, zi
+
+
+def _slot_index(stations: StationMap, device) -> torch.Tensor:
+    """Each station's slot as an int64 tensor on ``device`` (made once)."""
+    key = (stations, str(device))
+    if key not in _slot_indices:
+        _slot_indices[key] = torch.as_tensor(stations.slot_of,
+                                             dtype=torch.int64).to(device)
+    return _slot_indices[key]
+
+
+_slot_indices: dict = {}
 
 
 def _pfb_channelize_u8(raw_u8, h, zi_raw, n_channels: int, block: int):
@@ -282,36 +349,54 @@ def composed_rf_taps(n_channels: int, h_proto, h_rf, decim: int,
 
 
 def composed_rf_factors(n_channels: int, h_proto, h_rf, decim: int,
-                        offsets_hz=None, fs_ch: float | None = None
+                        offsets_hz=None, fs_ch: float | None = None,
+                        stations: StationMap | None = None
                         ) -> tuple[np.ndarray, tuple]:
     """``composed_rf_taps``' g and the factors it is composed of:
     ``(g, (h_ch, f))``, h_ch the prototype padded to whole branches
-    (float64, length K * taps per branch) and f (K, len(h_rf)) complex128
-    each station's RF taps turned to its offset, ``f_k[j] = h_rf[j] *
-    exp(-1j*step_k*j)``; ``g_k = conv(upsample_K(f_k), h_ch^(k))``.  The
-    factors let ``composed_channelize_u8`` run the two stages apart."""
+    (float64, length K * taps per branch) and f (S, len(h_rf)) complex128
+    each station's RF taps turned to its offset, ``f_j[i] = h_rf[i] *
+    exp(-1j*step_j*i)``; ``g_j = conv(upsample_K(f_j), h_ch^(slot_j))``.
+    The factors let ``composed_channelize_u8`` run the two stages apart.
+
+    ``stations``: S stations over the K slots; station j takes slot
+    ``slot_of[j]``'s band-pass and ``offsets_hz[j]`` (length S); by
+    default station k is slot k."""
     k = n_channels
+    slot_of = _slots(k, stations)
     h64, t = _padded_proto(h_proto, k)
     h_rf = np.asarray(h_rf, np.float64)
     j_idx = np.arange(len(h_rf), dtype=np.float64)
-    f = np.empty((k, len(h_rf)), np.complex128)
-    for ch in range(k):
-        f[ch] = h_rf
-        if offsets_hz is not None and offsets_hz[ch]:
+    f = np.empty((len(slot_of), len(h_rf)), np.complex128)
+    for j in range(len(slot_of)):
+        f[j] = h_rf
+        if offsets_hz is not None and offsets_hz[j]:
             if fs_ch is None:
                 raise ValueError("offsets_hz needs fs_ch")
-            step = -2.0 * np.pi * float(offsets_hz[ch]) / fs_ch
-            f[ch] = f[ch] * np.exp(-1j * step * j_idx)
-    return _compose(h64, f, k), (h64, f)
+            step = -2.0 * np.pi * float(offsets_hz[j]) / fs_ch
+            f[j] = f[j] * np.exp(-1j * step * j_idx)
+    return _compose(h64, f, k, slot_of), (h64, f)
 
 
-def _compose(h64: np.ndarray, f: np.ndarray, k: int) -> np.ndarray:
-    """g_k = conv(upsample_K(f_k), h_ch^(k)): (K, (l_rf-1)*K + len(h64))."""
+def _slots(k: int, stations: StationMap | None) -> tuple:
+    """Each station's slot: ``stations.slot_of``, or slot k for station k."""
+    if stations is None:
+        return tuple(range(k))
+    if stations.k != k:
+        raise ValueError(f"stations: a map over {stations.k} slots, not {k}")
+    return stations.slot_of
+
+
+def _compose(h64: np.ndarray, f: np.ndarray, k: int, slot_of=None
+             ) -> np.ndarray:
+    """g_j = conv(upsample_K(f_j), h_ch^(slot_j)): (S, (l_rf-1)*K +
+    len(h64)); station j in slot j where ``slot_of`` is None."""
     n_idx = np.arange(len(h64), dtype=np.float64)
     g = []
-    for ch in range(k):
+    for j in range(f.shape[0]):
+        ch = j if slot_of is None else slot_of[j]
         up = np.zeros(((f.shape[1] - 1) * k + 1), np.complex128)
-        up[::k] = f[ch]
+        up[::k] = f[j]
         h_chk = h64 * np.exp(2j * np.pi * n_idx * ch / k)
         g.append(np.convolve(up, h_chk))
     return np.stack(g)
@@ -335,13 +420,15 @@ def _new_tail(raw_u8: torch.Tensor, zi_raw: torch.Tensor) -> torch.Tensor:
 
 def composed_channelize_u8_ref(raw_u8: torch.Tensor, g: np.ndarray,
                                zi_raw: torch.Tensor, decim: int,
-                               block: int = 16
+                               block: int = 16,
+                               stations: StationMap | None = None
                                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of ``composed_channelize_u8`` (any device):
     the normalized byte windows of ``block`` outputs each against the
     banded byte-domain matrix of ``g``, in float32.  A ragged P is padded
-    to whole blocks and sliced."""
-    k, g_l = g.shape
+    to whole blocks and sliced.  ``stations``: g's S rows are stations
+    over K slots (the decimation decim * K); by default K = g's rows."""
+    k, g_l = _slot_count(g, stations), g.shape[1]
     d = decim * k                       # complex samples per output
     _check_composed(raw_u8, g, zi_raw, d)
     p_out = raw_u8.shape[-1] // 2 // d
@@ -356,8 +443,19 @@ def composed_channelize_u8_ref(raw_u8: torch.Tensor, g: np.ndarray,
 
     h_mat = _derived_from(g, ("composed", d, block), build, raw_u8.device)
     x_ext = torch.cat([zi_raw, raw_u8], dim=-1)
-    y = _windows_matmul(x_ext, h_mat, nblk, 2 * d * block, k, block)
+    y = _windows_matmul(x_ext, h_mat, nblk, 2 * d * block, g.shape[0],
+                        block)
     return y[..., :p_out].contiguous(), _new_tail(raw_u8, zi_raw)
+
+
+def _slot_count(g: np.ndarray, stations: StationMap | None) -> int:
+    """K: g's rows, or the map's slots where it has one row a station."""
+    if stations is None:
+        return g.shape[0]
+    if stations.stations != g.shape[0]:
+        raise ValueError(f"g: {g.shape[0]} rows for {stations.stations} "
+                         "stations")
+    return stations.k
 
 
 def _check_composed(raw_u8, g, zi_raw, d: int) -> None:
@@ -420,7 +518,10 @@ class ComposedPlan:
         y_k[p] = sum_j f_k[j] * s_k[decim*p - j]
 
     the slot bank at the slot rate (K real FIRs and one K-point DFT per
-    slot sample, for all stations), then each station's RF FIR.
+    slot sample, for all stations), then each station's RF FIR.  With a
+    ``StationMap`` the role runs S stations: y_j from s at slot_of[j], its
+    own f_j (``slot_of``); the shared and own-taps roles take one station
+    a slot only.
     """
 
     k: int
@@ -434,11 +535,16 @@ class ComposedPlan:
     own_taps: np.ndarray | None   # (d, a_sp, n_own, 2) float32, g / 128
     # the two-stage role (every station; shared and own then empty):
     stage_a: np.ndarray | None = None  # (16, K) f32: h[K*a + r] / 128 at [a, r]
-    stage_b: np.ndarray | None = None  # (decim, 16, K, 2) f32: f_k[decim*a + b]
+    stage_b: np.ndarray | None = None  # (decim, 16, S, 2) f32: f_j[decim*a + b]
+    slot_of: tuple | None = None  # the two-stage role: each station's slot
 
     @property
     def d(self) -> int:
         return self.decim * self.k
+
+    @property
+    def stations(self) -> int:
+        return self.k if self.slot_of is None else len(self.slot_of)
 
     @property
     def two_stage(self) -> bool:
@@ -460,7 +566,8 @@ def _planes_of(taps: np.ndarray, d: int, a_sp: int) -> np.ndarray:
     return np.swapaxes(pad.reshape(*taps.shape[:-1], a_sp, d), -1, -2)
 
 
-def composed_plan(g: np.ndarray, decim: int, factors=None) -> ComposedPlan:
+def composed_plan(g: np.ndarray, decim: int, factors=None,
+                  stations: StationMap | None = None) -> ComposedPlan:
     """The route of ``composed_channelize_u8`` for the (K, L) taps ``g``,
     made once per array (``g`` and the factors must not change once
     passed).
@@ -478,20 +585,29 @@ def composed_plan(g: np.ndarray, decim: int, factors=None) -> ComposedPlan:
     than those routes (4 L + 8 K a shared station, 8 L an own-taps one,
     against decim (4 len(h_ch) + 8 K^2) + 8 K len(f) for the slot bank and
     every station's RF FIR) and the kernel has it for K, len(h_ch) / K and
-    len(f) / decim (``TWO_STAGE_SLOTS``, ``TWO_STAGE_TAPS``)."""
+    len(f) / decim (``TWO_STAGE_SLOTS``, ``TWO_STAGE_TAPS``).
+
+    ``stations`` (g's (S, L) rows are stations over K slots): the
+    two-stage role whenever the kernel has it, which needs the factors;
+    else ValueError (the shared and own-taps roles take one station a
+    slot)."""
+    if stations is not None and factors is None:
+        raise ValueError(
+            "composed_plan: stations over shared slots take only the "
+            "two-stage role, which needs g's factors (composed_rf_factors)")
     if factors is None:
         return derived_from(g, ("composed_plan", decim),
                             lambda: _build_plan(np.asarray(g), decim))
     h_ch, f = factors
     return derived_from_list(
-        (g, h_ch, f), ("composed_plan", decim),
+        (g, h_ch, f), ("composed_plan", decim, stations),
         lambda: _build_plan(np.asarray(g), decim, np.asarray(h_ch),
-                            np.asarray(f)))
+                            np.asarray(f), stations))
 
 
-def _build_plan(g: np.ndarray, decim: int, h_ch=None, f=None
-                ) -> ComposedPlan:
-    k, g_l = g.shape
+def _build_plan(g: np.ndarray, decim: int, h_ch=None, f=None,
+                stations: StationMap | None = None) -> ComposedPlan:
+    k, g_l = _slot_count(g, stations), g.shape[1]
     d = decim * k
     a = -(-g_l // d)
     a_sp = a if a == FIXED_TAPS_PER_PLANE else -(-a // 4) * 4
@@ -499,10 +615,18 @@ def _build_plan(g: np.ndarray, decim: int, h_ch=None, f=None
     ang = 2.0 * np.pi * np.arange(k) / k
     twiddle = np.stack([np.cos(ang), np.sin(ang)], -1).astype(np.float32)
     if h_ch is not None:
-        _check_factors(g, h_ch, f)
+        _check_factors(g, h_ch, f, stations)
+        fits = _two_stage_fits(k, decim, len(h_ch), f.shape[1], g.shape[0])
+        if stations is not None:
+            if not fits:
+                raise ValueError(
+                    f"composed_plan: the two-stage role does not take "
+                    f"{g.shape[0]} stations over {k} slots (K in "
+                    f"{TWO_STAGE_SLOTS}, the taps within its window)")
+            return _two_stage_plan(g, decim, h_ch, f, a_sp, twiddle,
+                                   stations.slot_of)
         if (_two_stage_flop(k, decim, len(h_ch), f.shape[1])
-                < _mixed_flop(g, decim) and _two_stage_fits(
-                    k, decim, len(h_ch), f.shape[1])):
+                < _mixed_flop(g, decim) and fits):
             return _two_stage_plan(g, decim, h_ch, f, a_sp, twiddle)
     c = _derotated(np.asarray(g, np.complex128))
     lim = SHARED_MATCH_REL * float(np.abs(c).max())
@@ -526,17 +650,19 @@ def _build_plan(g: np.ndarray, decim: int, h_ch=None, f=None
                         own_taps)
 
 
-def _check_factors(g: np.ndarray, h_ch: np.ndarray, f: np.ndarray) -> None:
-    k = g.shape[0]
+def _check_factors(g: np.ndarray, h_ch: np.ndarray, f: np.ndarray,
+                   stations: StationMap | None = None) -> None:
+    k = _slot_count(g, stations)
     if (h_ch.ndim != 1 or len(h_ch) % k or np.iscomplexobj(h_ch)
-            or f.ndim != 2 or f.shape[0] != k
+            or f.ndim != 2 or f.shape[0] != g.shape[0]
             or g.shape[1] != (f.shape[1] - 1) * k + len(h_ch)):
         raise ValueError(
-            f"factors: a real prototype of whole branches and (K, l_rf) "
+            f"factors: a real prototype of whole branches and (S, l_rf) "
             f"station taps composing to g {g.shape}, got {h_ch.shape}, "
             f"{f.shape}")
-    err = float(np.abs(_compose(np.asarray(h_ch, np.float64),
-                                np.asarray(f, np.complex128), k) - g).max())
+    err = float(np.abs(_compose(
+        np.asarray(h_ch, np.float64), np.asarray(f, np.complex128), k,
+        None if stations is None else stations.slot_of) - g).max())
     if err > FACTORS_MATCH_REL * float(np.abs(g).max()):
         raise ValueError(
             f"factors do not compose to g: max error {err:.3g} against max "
@@ -552,31 +678,37 @@ def _mixed_flop(g: np.ndarray, decim: int) -> int:
     return (4 * g_l + 8 * k * n_sh if n_sh else 0) + 8 * g_l * n_own
 
 
-def _two_stage_flop(k: int, decim: int, l_ch: int, l_rf: int) -> int:
+def _two_stage_flop(k: int, decim: int, l_ch: int, l_rf: int,
+                    s: int | None = None) -> int:
     """FLOP an output and capture of the two-stage role: the slot bank
-    (l_ch real taps, then a direct K-point DFT row a station, at the slot
-    rate) and every station's l_rf complex taps."""
-    return decim * (4 * l_ch + 8 * k * k) + 8 * k * l_rf
+    (l_ch real taps, then a direct K-point DFT row a slot, at the slot
+    rate) and every station's l_rf complex taps (S stations, K by
+    default)."""
+    return decim * (4 * l_ch + 8 * k * k) + 8 * (k if s is None else s) * l_rf
 
 
-def _two_stage_fits(k: int, decim: int, l_ch: int, l_rf: int) -> bool:
+def _two_stage_fits(k: int, decim: int, l_ch: int, l_rf: int,
+                    s: int | None = None) -> bool:
     return (k in TWO_STAGE_SLOTS and l_ch <= TWO_STAGE_TAPS * k
             and l_rf <= TWO_STAGE_TAPS * decim
-            and bool(_two_stage_tiles(k, decim)))
+            and bool(_two_stage_tiles(k, decim, s)))
 
 
-def _two_stage_plan(g, decim, h_ch, f, a_sp, twiddle) -> ComposedPlan:
-    k, g_l = g.shape
+def _two_stage_plan(g, decim, h_ch, f, a_sp, twiddle, slot_of=None
+                    ) -> ComposedPlan:
+    s, g_l = g.shape
+    k = twiddle.shape[0]
+    slot_of = tuple(range(k)) if slot_of is None else slot_of
     ta = TWO_STAGE_TAPS
     h = np.zeros(ta * k)
     h[:len(h_ch)] = h_ch
     stage_a = (h.reshape(ta, k) / 128.0).astype(np.float32)
-    fp = np.zeros((k, ta * decim), np.complex128)
+    fp = np.zeros((s, ta * decim), np.complex128)
     fp[:, :f.shape[1]] = f
-    fp = fp.reshape(k, ta, decim).transpose(2, 1, 0)     # (decim, ta, K)
+    fp = fp.reshape(s, ta, decim).transpose(2, 1, 0)     # (decim, ta, S)
     stage_b = np.stack([fp.real, fp.imag], -1).astype(np.float32)
     return ComposedPlan(k, g_l, decim, a_sp, (), (), None, twiddle, None,
-                        stage_a, stage_b)
+                        stage_a, stage_b, slot_of)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -663,48 +795,58 @@ def composed_geometry(plan: ComposedPlan, n_cap: int, p_out: int,
 @dataclasses.dataclass(frozen=True)
 class TwoStageGeometry:
     """How the two-stage role cuts one launch: a block is one capture's
-    tile of ``tile`` outputs; stage A's K planes of ``pitch_a`` rows (odd);
-    u_r, then s_k, as stage B's decim planes of ``bp`` rows (odd), a
-    station's ``kp`` apart (odd); stage B in ``ns`` slices of the half-
-    planes; ``smem`` bytes of dynamic shared memory."""
+    tile of ``tile`` outputs; stage A's K planes of ``pitch_a`` rows (odd),
+    in the first ``a_elems`` float2 of shared memory, which stage B's taps
+    and partial sums take over once stage A is done; u_r, then s_k, as
+    stage B's decim planes of ``bp`` rows (odd), a slot's ``kp`` apart
+    (odd), after them; stage B in ``ns`` slices of the half-planes, its
+    (station, R outputs, slice) items ``K5_THREADS`` at a time; ``smem``
+    bytes of dynamic shared memory."""
 
     tile: int
     n_tiles: int
     ns: int
     pitch_a: int
+    a_elems: int
     bp: int
     kp: int
     smem: int
 
 
-def _two_stage_tiles(k: int, decim: int) -> list:
-    """(cost an output, tile, ns, pitch_a, bp, kp, smem) of each tile whose
-    block fits two to an SM.  The cost counts a thread's turns of work a
-    block: stage A's groups of R outputs of a residue (R x 16 taps x 2
-    FMA), the DFT's slot samples (about 4 K log2 K + 2 K), stage B's half-
-    planes (R x 8 taps x 4 FMA) and the staging, over the tile."""
+def _two_stage_tiles(k: int, decim: int, s: int | None = None) -> list:
+    """(cost an output, tile, ns, pitch_a, a_elems, bp, kp, smem) of each
+    tile whose block fits two to an SM, for S stations (K by default).
+    The cost counts a thread's turns of work a block: stage A's groups of
+    R outputs of a residue (R x 16 taps x 2 FMA), the DFT's slot samples
+    (about 4 K log2 K + 2 K), stage B's half-planes (R x 8 taps x 4 FMA;
+    S x tile / R x ns items, a turn for each K5_THREADS of them) and the
+    staging, over the tile.  Where the block's threads cover S stations'
+    groups, ns is as many slices as they allow; else 1."""
     ta, r, thr = TWO_STAGE_TAPS, K5_R, K5_THREADS
+    s = k if s is None else s
     out = []
     for tile in range(r, 16 * r + 1, r):
         groups = tile // r
         if k * groups > thr:
             break
-        ns = thr // (k * groups)
+        ns = max(1, thr // (s * groups))
+        passes = -(-s * groups * ns // thr)
         qb = tile + ta - 1
         bp = qb | 1
         kp = (decim * bp) | 1
         ms = decim * qb
         ms_pad = -(-ms // r) * r
         pitch_a = (ms_pad + ta - 1) | 1
-        smem = 8 * k * (pitch_a + kp)
-        if (smem > K5_SMEM
-                or decim * ta * k + ns * k * (tile + 1) > k * pitch_a):
+        # stage B's taps and partial sums over the dead stage-A planes
+        a_elems = max(k * pitch_a, decim * ta * s + ns * s * (tile + 1))
+        smem = 8 * (a_elems + k * kp)
+        if smem > K5_SMEM or (s == k and a_elems > k * pitch_a):
             continue
         turns = (-(-k * ms_pad // (r * thr)) * r * ta * 2
                  + -(-ms // thr) * (4 * k * int(math.log2(k)) + 2 * k)
-                 + -(-2 * decim // ns) * r * (ta // 2) * 4
+                 + passes * -(-2 * decim // ns) * r * (ta // 2) * 4
                  + -(-k * (ms_pad + ta) // thr) * 6)
-        out.append((turns / tile, tile, ns, pitch_a, bp, kp, smem))
+        out.append((turns / tile, tile, ns, pitch_a, a_elems, bp, kp, smem))
     return out
 
 
@@ -712,11 +854,12 @@ def two_stage_geometry(plan: ComposedPlan, n_cap: int, p_out: int,
                        n_sm: int = 132) -> TwoStageGeometry:
     """The tile of least cost an output whose grid gives two blocks per
     SM; else the narrowest tile."""
-    opts = _two_stage_tiles(plan.k, plan.decim)
+    opts = _two_stage_tiles(plan.k, plan.decim, plan.stations)
     fill = [o for o in opts if n_cap * -(-p_out // o[1]) >= 2 * n_sm]
-    _, tile, ns, pitch_a, bp, kp, smem = (min(fill) if fill else opts[0])
-    return TwoStageGeometry(tile, -(-p_out // tile), ns, pitch_a, bp, kp,
-                            smem)
+    _, tile, ns, pitch_a, a_elems, bp, kp, smem = (min(fill) if fill
+                                                    else opts[0])
+    return TwoStageGeometry(tile, -(-p_out // tile), ns, pitch_a, a_elems,
+                            bp, kp, smem)
 
 
 _n_sm: dict = {}
@@ -730,7 +873,8 @@ def _sm_count(dev) -> int:
 
 
 def composed_channelize_u8(raw_u8: torch.Tensor, g: np.ndarray,
-                           zi_raw: torch.Tensor, decim: int, factors=None
+                           zi_raw: torch.Tensor, decim: int, factors=None,
+                           stations: StationMap | None = None
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """K stations' channelizer + RF front-end LPF + decimate as ONE complex
     FIR bank over the raw wideband bytes.
@@ -752,6 +896,11 @@ def composed_channelize_u8(raw_u8: torch.Tensor, g: np.ndarray,
     kernel run the slot bank and each station's RF FIR apart where that is
     less work (``composed_plan``).
 
+    ``stations``: g's rows are S stations over K slots (``composed_rf_
+    factors`` with the same map; the decimation decim * K): outputs
+    (..., S, 2, P), the two-stage role on a CUDA tensor, which needs the
+    factors.
+
     A CUDA tensor launches the kernel (``csrc/channelizer.cu``) or raises;
     the route (shared prototype + in-kernel DFT, own taps, or two stages)
     is chosen on the host from ``g`` and its factors (``composed_plan``).
@@ -759,18 +908,23 @@ def composed_channelize_u8(raw_u8: torch.Tensor, g: np.ndarray,
     """
     with annotate("rtsdr.channelize", route="composed") as span:
         if span:
-            plan = composed_plan(g, decim, factors)
-            span.add(captures=math.prod(raw_u8.shape[:-1]), slots=g.shape[0],
+            plan = composed_plan(g, decim, factors, stations)
+            k = _slot_count(g, stations)
+            span.add(captures=math.prod(raw_u8.shape[:-1]), slots=k,
                      shared=len(plan.shared), own=len(plan.own),
                      two_stage=g.shape[0] if plan.two_stage else 0,
-                     taps=g.shape[1])
-        return _composed_channelize_u8(raw_u8, g, zi_raw, decim, factors)
+                     taps=g.shape[1], **_span_stations(k, stations))
+        return _composed_channelize_u8(raw_u8, g, zi_raw, decim, factors,
+                                       stations)
 
 
-def _composed_channelize_u8(raw_u8, g, zi_raw, decim: int, factors=None):
+def _composed_channelize_u8(raw_u8, g, zi_raw, decim: int, factors=None,
+                            stations: StationMap | None = None):
     if not raw_u8.is_cuda:
-        return composed_channelize_u8_ref(raw_u8, g, zi_raw, decim)
-    k, g_l = g.shape
+        return composed_channelize_u8_ref(raw_u8, g, zi_raw, decim,
+                                          stations=stations)
+    k, g_l = _slot_count(g, stations), g.shape[1]
+    n_st = g.shape[0]
     d = decim * k
     _check_composed(raw_u8, g, zi_raw, d)
     dev = raw_u8.device
@@ -782,9 +936,10 @@ def _composed_channelize_u8(raw_u8, g, zi_raw, decim: int, factors=None):
     n_cap = math.prod(lead)
     n = raw_u8.shape[-1] // 2
     p_out = n // d
-    plan = composed_plan(g, decim, factors)
+    plan = composed_plan(g, decim, factors, stations)
     n_sm = _sm_count(dev)
-    y = torch.empty((*lead, k, 2, p_out), dtype=torch.float32, device=dev)
+    y = torch.empty((*lead, n_st, 2, p_out), dtype=torch.float32,
+                    device=dev)
     new_zi = torch.empty_like(zi_raw)
     on = _plan_on(g, plan, dev)
     if plan.two_stage:
@@ -794,9 +949,9 @@ def _composed_channelize_u8(raw_u8, g, zi_raw, decim: int, factors=None):
         _cuda.launch(
             "rtsdr_channelize_two_stage", "channelizer.composed_two_stage",
             _cuda.ptr(raw_u8), _cuda.ptr(zi_raw), *map(_cuda.ptr, on),
-            _cuda.ptr(y), _cuda.ptr(new_zi), n_cap, n, k, g_l, decim, p_out,
-            geo.tile, geo.n_tiles, geo.ns, geo.pitch_a, geo.bp, geo.kp,
-            geo.smem)
+            _cuda.ptr(y), _cuda.ptr(new_zi), n_cap, n, k, n_st, g_l, decim,
+            p_out, geo.tile, geo.n_tiles, geo.ns, geo.pitch_a, geo.a_elems,
+            geo.bp, geo.kp, geo.smem)
         return y, new_zi
     geo = derived_from(
         g, ("composed_geometry", decim, n_cap, p_out, n_sm),
@@ -813,9 +968,10 @@ def _composed_channelize_u8(raw_u8, g, zi_raw, decim: int, factors=None):
 
 def _plan_on(g: np.ndarray, plan: ComposedPlan, dev) -> tuple:
     """The plan's arrays on ``dev`` (made once per ``g``, route and
-    device): the two-stage role's slot-bank taps, RF taps and twiddles;
-    else the prototype planes, the twiddles, the shared stations, the own
-    taps, the own stations (None where a route has no station)."""
+    device): the two-stage role's slot-bank taps, RF taps, twiddles and
+    stations' slots; else the prototype
+    planes, the twiddles, the shared stations, the own taps, the own
+    stations (None where a route has no station)."""
     def f32(a):
         return None if a is None else torch.as_tensor(
             np.ascontiguousarray(a, np.float32)).to(dev)
@@ -826,7 +982,8 @@ def _plan_on(g: np.ndarray, plan: ComposedPlan, dev) -> tuple:
 
     def build():
         if plan.two_stage:
-            return (f32(plan.stage_a), f32(plan.stage_b), f32(plan.twiddle))
+            return (f32(plan.stage_a), f32(plan.stage_b), f32(plan.twiddle),
+                    i32(plan.slot_of))
         return (f32(plan.proto), f32(plan.twiddle), i32(plan.shared),
                 f32(plan.own_taps), i32(plan.own))
 

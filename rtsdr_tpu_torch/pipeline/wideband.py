@@ -18,6 +18,13 @@ Two front doors:
     matrix product, stock ops), mix there, per-station float RF FIR
     (``frontend_impl='iq'``: the FIR-bank kernel at stride 10).  It remains
     for ragged lengths, float64, and as the parity oracle.
+
+Stations and slots: by default one station a slot, station k in slot k.
+``channel_slots`` decouples them: S stations, each with its slot and its
+residual offset from the slot's centre, several a slot where a band is
+dense (every second channel of the 200 kHz raster puts five in a 2.4 MHz
+slot).  The slot bank then runs once a capture and each station its own
+RF filter and NCO; outputs carry the S stations in the given order.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import torch
 from rtsdr_tpu_torch.config import ReceiverConfig
 from rtsdr_tpu_torch.device import require_kernel_dtype, resolve_device
 from rtsdr_tpu_torch.ops.channelizer import (
+    channel_center_freqs,
     channelizer_taps,
     channelizer_zi,
     channelizer_zi_u8,
@@ -38,6 +46,7 @@ from rtsdr_tpu_torch.ops.channelizer import (
     composed_zi_u8,
     pfb_channelize,
     pfb_channelize_u8,
+    station_map,
 )
 from rtsdr_tpu_torch.ops.ingestfir import normalize_deinterleave
 from rtsdr_tpu_torch.pipeline.frontend import rf_lpf_taps
@@ -47,9 +56,9 @@ from rtsdr_tpu_torch.utils.shards import step_shards
 
 class WidebandState(NamedTuple):
     chan_zi: torch.Tensor    # channelizer carried input tail (bytes/complex)
-    rx: ReceiverState | tuple  # batched per-channel receiver state (with
+    rx: ReceiverState | tuple  # batched per-station receiver state (with
     #                            channel_sharding: one per shard)
-    mix_phase: torch.Tensor | None = None  # (K,) carried residual-NCO phase
+    mix_phase: torch.Tensor | None = None  # (S,) carried residual-NCO phase
 
     def shard_axis(self, field: str) -> int:
         """The row axis of the shard tuple in ``field`` (only ``rx`` holds
@@ -71,6 +80,18 @@ class ShardedStages(NamedTuple):
     k_sh: int
 
 
+def passband_error(name: str, offset_hz: float, slot_center_hz: float,
+                   fs: float) -> str | None:
+    """Why a station ``offset_hz`` from its slot's centre cannot decode
+    (its ±100 kHz leaves the slot's passband), or None."""
+    limit = 0.5 * fs - 100e3
+    if abs(offset_hz) <= limit:
+        return None
+    return (f"{name} is {offset_hz / 1e3:+.0f} kHz from its nearest slot "
+            f"center ({slot_center_hz / 1e6:+.1f}M) — beyond the decodable "
+            f"±{limit / 1e3:.0f} kHz.")
+
+
 def make_wideband_receiver(
     cfg: ReceiverConfig,
     n_rf_channels: int,
@@ -81,14 +102,16 @@ def make_wideband_receiver(
     channel_offsets_hz=None,
     channelizer_impl: str = "auto",
     device="cuda",
+    channel_slots=None,
     **receiver_kwargs,
 ):
     """Build ``(init_fn, step_fn)`` for a K-channel wideband receiver.
 
     ``step_fn(state, raw_u8)``: raw_u8 is (..., K * cfg.block_size)
     interleaved uint8 IQ at ``fs_w = K * cfg.rf.fs`` on ``device``.
-    Outputs are the standard ``ReceiverOutputs`` with a trailing (..., K)
-    channel batch dim prepended to each leaf's time axis.
+    Outputs are the standard ``ReceiverOutputs`` with a trailing (..., S)
+    station batch dim prepended to each leaf's time axis (S = K but with
+    ``channel_slots``).
 
     ``channel_offsets_hz``: optional length-K residual frequency offset
     per slot — OFF-GRID station support.  A real band's 100/200 kHz
@@ -97,13 +120,19 @@ def make_wideband_receiver(
     carried per-slot NCO phase so blocks chain continuously.  The PFB
     prototype passes stations up to ~±(0.45*fs_ch - 100 kHz) off-center.
 
+    ``channel_slots``: optional length-S list of each station's slot, for
+    S stations over the K slots, several a slot where the band is dense;
+    ``channel_offsets_hz`` is then length S (each station's offset from its
+    slot's centre), the NCO runs per station, and a station whose ±100 kHz
+    leaves its slot's passband raises.  None: one station a slot.
+
     ``channelizer_impl``: 'composed', 'pfb', or 'auto' = 'composed' whenever
     the geometry allows it (float32, the per-channel block a multiple of 32
     and of the RF decimation, the IF block a multiple of 16) — never chosen
     by the channel count or by what happens to build.
 
     ``channel_sharding``: optional sequence of devices (repeats allowed,
-    ``parallel/channels.py::make_wideband_sharded_receiver``): the K
+    ``parallel/channels.py::make_wideband_sharded_receiver``): the S
     stations split into that many equal contiguous groups, each decoded on
     its device; the channelizer runs on ``device``.  ``state.rx`` is then a
     tuple of the groups' receiver states, and outputs are gathered on
@@ -113,13 +142,18 @@ def make_wideband_receiver(
     dev = resolve_device(device)
     require_kernel_dtype(dev, dtype)
     k = n_rf_channels
+    stations = None
+    s = k                                   # stations
+    if channel_slots is not None:
+        stations = station_map(k, channel_slots)
+        s = len(channel_slots)
     shard_devs = None
     if channel_sharding is not None:
         shard_devs = [resolve_device(d) for d in channel_sharding]
         for d in shard_devs:
             require_kernel_dtype(d, dtype)
-        if not shard_devs or k % len(shard_devs):
-            raise ValueError(f"{k} RF channels not divisible by "
+        if not shard_devs or s % len(shard_devs):
+            raise ValueError(f"{s} stations not divisible by "
                              f"{len(shard_devs)} shards")
     h = np.asarray(channelizer_taps(k, taps_per_branch))
     taps = len(h)
@@ -127,10 +161,18 @@ def make_wideband_receiver(
     offs = None
     if channel_offsets_hz is not None:
         offs = np.asarray(channel_offsets_hz, np.float64)
-        if offs.shape != (k,):
-            raise ValueError(f"need {k} offsets, got {offs.shape}")
-        if not np.any(offs):
-            offs = None
+        if offs.shape != (s,):
+            raise ValueError(f"need {s} offsets, got {offs.shape}")
+    if channel_slots is not None:
+        centers = channel_center_freqs(k, k * cfg.rf.fs)
+        for j, c in enumerate(channel_slots):
+            err = passband_error(f"station {j}",
+                                 0.0 if offs is None else offs[j],
+                                 centers[c], cfg.rf.fs)
+            if err:
+                raise ValueError(err)
+    if offs is not None and not np.any(offs):
+        offs = None
 
     cdtype = torch.complex64 if dtype == torch.float32 else torch.complex128
     # The raw-byte banded-matmul channelizer needs whole output blocks and
@@ -153,10 +195,10 @@ def make_wideband_receiver(
     rx_kw = dict(frontend_impl="if" if use_composed else "iq",
                  **receiver_kwargs)
     if shard_devs is None:
-        init_rx, step_rx = make_receiver(cfg, (*batch_shape, k), dtype,
+        init_rx, step_rx = make_receiver(cfg, (*batch_shape, s), dtype,
                                          device=dev, **rx_kw)
     else:
-        k_sh = k // len(shard_devs)
+        k_sh = s // len(shard_devs)
         shard_rx = [make_receiver(cfg, (*batch_shape, k_sh), dtype,
                                   device=d, **rx_kw) for d in shard_devs]
         k_axis = len(batch_shape)     # the station axis of every leaf
@@ -175,7 +217,7 @@ def make_wideband_receiver(
         # station's RF FIR apart (ops/channelizer.py::composed_plan)
         g_taps, g_factors = composed_rf_factors(
             k, h, rf_lpf_taps(cfg), cfg.rf.decim, offsets_hz=offs,
-            fs_ch=cfg.rf.fs)
+            fs_ch=cfg.rf.fs, stations=stations)
 
     # per-sample NCO increment and its per-block phase advance are static
     # (offsets are config, not data), so the carried phase stays small
@@ -206,7 +248,7 @@ def make_wideband_receiver(
             chan_zi = channelizer_zi_u8(k, taps, batch_shape, dev)
         else:
             chan_zi = channelizer_zi(k, taps, batch_shape, cdtype, dev)
-        mix_phase = (torch.zeros((k,), dtype=dtype, device=dev)
+        mix_phase = (torch.zeros((s,), dtype=dtype, device=dev)
                      if offs is not None else None)
         return WidebandState(chan_zi=chan_zi, rx=init_rx(),
                              mix_phase=mix_phase)
@@ -217,28 +259,33 @@ def make_wideband_receiver(
         the new ``chan_zi`` and ``mix_phase``."""
         if use_composed:
             raw_iq, chan_zi = composed_channelize_u8(
-                raw_u8, g_taps, state.chan_zi, cfg.rf.decim, g_factors)
+                raw_u8, g_taps, state.chan_zi, cfg.rf.decim, g_factors,
+                stations)
         elif use_u8:
-            raw_iq, chan_zi = pfb_channelize_u8(raw_u8, h, state.chan_zi, k)
+            raw_iq, chan_zi = pfb_channelize_u8(raw_u8, h, state.chan_zi, k,
+                                                stations=stations)
         else:
             iq = normalize_deinterleave(raw_u8, dtype)
             x = torch.complex(iq[..., 0, :], iq[..., 1, :]).to(cdtype)
             y, chan_zi = pfb_channelize(x, h, state.chan_zi, k)
             # (..., M, K) -> (..., K, 2, M): per-channel stacked I/Q at
-            # the station rate, the receiver's 'iq' frontend input
+            # the station rate, the receiver's 'iq' frontend input; each
+            # station's slot
             y = torch.movedim(y, -1, -2)
+            if stations is not None:
+                y = y[..., list(stations.slot_of), :]
             raw_iq = torch.stack([y.real, y.imag], dim=-2).to(dtype)
         mix_phase = state.mix_phase
         if offs is not None:
-            # residual per-slot downconversion: (I + jQ) *
-            # exp(j*(phase_k + step_k*m)), the ramp pre-reduced mod 2pi in
+            # residual per-station downconversion: (I + jQ) *
+            # exp(j*(phase_j + step_j*m)), the ramp pre-reduced mod 2pi in
             # float64 (see mix_ramp above)
             ang = state.mix_phase[:, None] + mix_ramp
-            c, s = torch.cos(ang), torch.sin(ang)     # (K, M)
+            c, sn = torch.cos(ang), torch.sin(ang)    # (S, M)
             i_in = raw_iq[..., 0, :]
             q_in = raw_iq[..., 1, :]
-            raw_iq = torch.stack([i_in * c - q_in * s,
-                                  i_in * s + q_in * c], dim=-2)
+            raw_iq = torch.stack([i_in * c - q_in * sn,
+                                  i_in * sn + q_in * c], dim=-2)
             mix_phase = torch.remainder(state.mix_phase + blk_adv,
                                         2.0 * np.pi)
         return raw_iq, chan_zi, mix_phase

@@ -28,7 +28,10 @@ The spans mark the host loop's layer boundaries (attributes in brackets):
   ``StreamRunner`` asks for, 0 when held until after it);
 * ``rtsdr.channelize``: one call of the wideband channelizer,
   ``ops/channelizer.py`` (``route``, ``captures``, ``slots``, ``shared``,
-  ``own``, ``taps``), eager or at a capture: never inside a replay.
+  ``own``, ``two_stage``: the stations on each of the kernel's roles,
+  ``taps``; ``stations``: the stations decoded, S; ``per_slot``: the most
+  stations any slot carries, 1 where each slot holds one), eager or at a
+  capture: never inside a replay.
 
 A span records only while a profiler session records (``profile``,
 ``trace``, or any ``torch.profiler`` session in its active steps); with

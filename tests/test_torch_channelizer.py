@@ -401,14 +401,16 @@ def test_two_stage_on_a_device_tensor_launches(monkeypatch, rng):
     ((entry, count_as, args),) = seen
     assert (entry, count_as) == ("rtsdr_channelize_two_stage",
                                  "channelizer.composed_two_stage")
-    assert args[7:] == (3, decim * k * p_if, k, taps, decim, p_if, geo.tile,
-                        geo.n_tiles, geo.ns, geo.pitch_a, geo.bp, geo.kp,
-                        geo.smem)
+    assert args[8:] == (3, decim * k * p_if, k, k, taps, decim, p_if,
+                        geo.tile, geo.n_tiles, geo.ns, geo.pitch_a,
+                        geo.a_elems, geo.bp, geo.kp, geo.smem)
     assert tuple(y.shape) == (3, k, 2, p_if)
     assert tuple(new_zi.shape) == (3, 2 * (taps - 1))
-    ha, fb, tw = tch._plan_on(g, plan, torch.device("cpu"))
+    ha, fb, tw, slots = tch._plan_on(g, plan, torch.device("cpu"))
     assert tuple(ha.shape) == (16, k) and tuple(fb.shape) == (10, 16, k, 2)
     assert tuple(tw.shape) == (k, 2) and fb.dtype == torch.float32
+    # one station a slot: station k in slot k
+    assert slots.dtype == torch.int32 and slots.tolist() == list(range(k))
     tch.composed_channelize_u8(raw, g, zi, decim)
     assert seen[-1][:2] == ("rtsdr_channelize_composed",
                             "channelizer.composed")

@@ -370,12 +370,14 @@ def _dft(x, tw):
     return out
 
 
-def rehearse_two_stage(raw, zi, g, decim, factors, n_sm=132):
-    """What the two-stage kernel writes for (B, 2n) bytes: (y, tail)."""
-    plan = tch.composed_plan(g, decim, factors)
+def rehearse_two_stage(raw, zi, g, decim, factors, n_sm=132, stations=None):
+    """What the two-stage kernel writes for (B, 2n) bytes: (y, tail);
+    ``stations``: g's rows are S stations over K slots."""
+    plan = tch.composed_plan(g, decim, factors, stations)
     assert plan.two_stage
     n_cap = raw.shape[0]
-    k, taps = g.shape
+    k, s_n, taps = plan.k, plan.stations, g.shape[1]
+    slot_of = list(plan.slot_of)
     t1, n = taps - 1, raw.shape[1] // 2
     d = decim * k
     p_out = n // d
@@ -387,15 +389,20 @@ def rehearse_two_stage(raw, zi, g, decim, factors, n_sm=132):
     rows_a = ms_pad + ta - 1
     assert rows_a <= geo.pitch_a and qb <= geo.bp and decim * geo.bp <= geo.kp
     assert geo.pitch_a % 2 == geo.bp % 2 == geo.kp % 2 == 1
-    assert k * (tile // R) * geo.ns <= tch.K5_THREADS
-    assert geo.smem == 8 * k * (geo.pitch_a + geo.kp) <= tch.K5_SMEM
-    # stage B's taps and the partial sums fit the dead stage-A planes
-    assert decim * ta * k + geo.ns * k * (tile + 1) <= k * geo.pitch_a
+    if s_n == k:
+        # one station a slot: stage B's items in one turn of the threads,
+        # its taps and partial sums within the dead stage-A planes
+        assert k * (tile // R) * geo.ns <= tch.K5_THREADS
+        assert geo.a_elems == k * geo.pitch_a
+    assert geo.smem == 8 * (geo.a_elems + k * geo.kp) <= tch.K5_SMEM
+    # stage B's taps and the partial sums fit the stage-A space
+    assert decim * ta * s_n + geo.ns * s_n * (tile + 1) <= geo.a_elems
+    assert geo.a_elems >= k * geo.pitch_a
     ext = np.concatenate([zi, raw], axis=1).astype(np.int64) - 128
     ext_c = (ext[:, 0::2] + 1j * ext[:, 1::2]).astype(np.complex64)
     fb = (plan.stage_b[..., 0] + 1j * plan.stage_b[..., 1]).astype(
-        np.complex64)
-    y = np.full((n_cap, k, 2, p_out), np.nan, np.float32)
+        np.complex64)                         # (decim, ta, S)
+    y = np.full((n_cap, s_n, 2, p_out), np.nan, np.float32)
     for tile_idx in range(geo.n_tiles):
         p0 = tile_idx * tile
         # stage A's plane r, row j: ext[e0 + K j + (K - 1 - r)]
@@ -410,11 +417,13 @@ def rehearse_two_stage(raw, zi, g, decim, factors, n_sm=132):
             u = u + plan.stage_a[a][None, :, None] * planes[
                 :, :, ta - 1 - a: ta - 1 - a + ms_pad]
         s = np.stack(_dft([u[:, r, :ms] for r in range(k)], plan.twiddle), 1)
-        # stage B's plane b, row i: s[decim i + decim - 1 - b]
+        # stage B's plane b, row i: s[decim i + decim - 1 - b]; each
+        # station reads its slot's
         sb = s.reshape(n_cap, k, qb, decim)[..., ::-1].swapaxes(-1, -2)
+        sb = sb[:, slot_of]
         tot = None
         for sl in range(geo.ns):
-            part = np.zeros((n_cap, k, tile), np.complex64)
+            part = np.zeros((n_cap, s_n, tile), np.complex64)
             for unit in range(sl, 2 * decim, geo.ns):
                 b, half = unit >> 1, unit & 1
                 for t in range(ta // 2):

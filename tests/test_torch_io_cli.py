@@ -499,8 +499,11 @@ def test_cli_wideband_auto_scans_then_decodes_active_slots(wideband_capture,
 
 
 def test_cli_wideband_centers_errors_exit_1(tmp_path):
-    res = _cli(["0", "--wideband", "4", "--wideband-centers", "2.3M,2.5M",
+    """Two centres closer than a station's 200 kHz channel are refused
+    (two in one slot, 200 kHz apart or more, are two stations)."""
+    res = _cli(["0", "--wideband", "4", "--wideband-centers", "2.3M,2.4M",
                 "--device", "cpu"])
     assert res.returncode == 1
-    assert res.stderr.decode().startswith("error: 2.5M and 2.3M both map to "
-                                          "channel 1 (+2.4M)")
+    assert res.stderr.decode().startswith(
+        "error: 2.4M and 2.3M are 100 kHz apart — under a station's "
+        "200 kHz channel")

@@ -170,13 +170,24 @@ def test_cli_scan_table_equals_jax_cli(band, tmp_path):
     "+2.5M,-2.3M", "-4.7M", "4.9M", "2.3M,2.5M", "oops", "+1.15M", "+1.0M",
     "150k, ,-2400000", ""])
 def test_centers_to_offsets_equals_jax(spec):
-    """Offsets and error texts of ``--wideband-centers``, word for word."""
-    t_off, t_err = tcli._centers_to_offsets(MODE0, 4, spec)
+    """Offsets and error texts of ``--wideband-centers``, word for word,
+    where each centre claims a slot of its own (the port's stations, one a
+    centre, put in their slots give the JAX package's per-slot offsets).
+    Two centres in one slot, which the JAX package refuses, are two
+    stations of that slot in the port."""
+    t_slots, t_off, t_err = tcli._centers_to_offsets(MODE0, 4, spec)
     j_off, j_err = jcli._centers_to_offsets(JMODE0, 4, spec)
+    if j_err is not None and "both map to" in j_err:
+        assert t_err is None
+        assert t_slots == [1, 1] and np.array_equal(t_off, [-100e3, 100e3])
+        return
     assert t_err == j_err
     if j_err is None:
-        assert np.array_equal(t_off, j_off)
+        per_slot = np.zeros(4)
+        per_slot[t_slots] = t_off
+        assert len(set(t_slots)) == len(t_slots)
+        assert np.array_equal(per_slot, j_off)
     else:
-        assert t_off is None
+        assert t_slots is None and t_off is None
     for s in ("98.1M", "-200k", "150000", " 7K "):
         assert tcli._parse_freq(s) == jcli._parse_freq(s)

@@ -65,7 +65,8 @@ def test_channelize_span_on_eager_calls(route):
     for r in recs:
         assert r["attrs"] == {"route": route, "captures": 2, "slots": K,
                               "shared": shared, "own": own,
-                              "two_stage": two_stage, "taps": taps}
+                              "two_stage": two_stage, "taps": taps,
+                              "stations": K, "per_slot": 1}
         assert r["parent"] is None
 
 
