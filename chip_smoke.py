@@ -15,7 +15,8 @@ git-ignored ``rtsdr_tpu_torch/build``), then
      the stations of each route, then at K = 8 and 32 and in its generic
      instance (K = 3, decim 2); its two-stage role over a station map
      (``k5_station_map``: 38 stations over 8 slots and one a slot, 27
-     captures, and one K5 launch a step of the compiled band38 receiver);
+     captures, with and without the residual NCO in its epilogue, and one
+     K5 launch a step of the compiled band38 receiver);
      every wrapper
      call of the third step of the MODE1 / MODE1_RDS receivers (320,000-byte
      blocks, 16,000 IF samples, the x57/250 resampler with its 9,003 taps),
@@ -1065,11 +1066,37 @@ def main() -> int:
         mixed = ((4 * g_len + 8 * k_ * n_sh) if n_sh else 0) + own
         return min(mixed, slot_bank + k_ * two_stage)
 
-    def k5_case(g, blocks, ncap, decim, label, timed, factors=None):
+    def k5_nco(offs, seed):
+        """The residual NCO as ``make_wideband_receiver`` builds it on the
+        composed route: (phase, ramp, a block's advance), the ramp at the
+        IF rate reduced mod 2 pi in float64, the phase not zero."""
+        step = -2.0 * np.pi * np.asarray(offs, np.float64) / cfg.rf.fs
+        ramp = np.mod((step * cfg.rf.decim)[:, None] * np.arange(
+            cfg.block_size // 2 // cfg.rf.decim, dtype=np.float64),
+            2.0 * np.pi)
+        adv = np.mod(step * (cfg.block_size // 2), 2.0 * np.pi)
+        phase = np.random.default_rng(seed).uniform(0.0, 2.0 * np.pi,
+                                                    len(step))
+        return tuple(torch.as_tensor(a, dtype=torch.float32, device=dev)
+                     for a in (phase, ramp, adv))
+
+    def mix_readings(k_y, r_y, m_y, nco):
+        """K5 with ``mix`` against the plain version then the stock mix,
+        and the elements whose bits (a zero's sign too) differ from the
+        kernel's bank then the stock mix."""
+        stock = channelizer.residual_mix(k_y, *nco[:2])
+        bits = int((m_y.view(torch.int32) != stock.view(torch.int32)).sum())
+        return max_err(m_y, channelizer.residual_mix(r_y, *nco[:2])), bits
+
+    def k5_case(g, blocks, ncap, decim, label, timed, factors=None,
+                mix_offsets=None):
         """Two chained blocks through the kernel and the plain version;
         the second timed (with the yardstick) where ``timed``; ``factors``
         (h_ch, f): g's two stages, handed to the kernel (its plan may take
-        the two-stage role) and counted for the least-work bound."""
+        the two-stage role) and counted for the least-work bound;
+        ``mix_offsets``: each station's offset, whose residual NCO the
+        kernel then also turns as the receiver has it turn (a carried
+        phase, checked and timed as ``kernel_mix_ms``)."""
         k_, g_len = g.shape
         g_l1 = float(np.abs(g).sum(axis=1).max())
         p_if = blocks[0].shape[-1] // 2 // (decim * k_)
@@ -1079,6 +1106,7 @@ def main() -> int:
                else channelizer.composed_geometry(plan, ncap, p_if))
         d = decim * k_
         zi = channelizer.composed_zi_u8(g_len, (ncap,), dev)
+        nco = None if mix_offsets is None else k5_nco(mix_offsets, k_)
         for blk in range(2):            # block 1 reads block 0's byte tail
             raw = blocks[blk][:ncap].contiguous()
             k_y, k_zi = channelizer.composed_channelize_u8(raw, g, zi, decim,
@@ -1088,7 +1116,14 @@ def main() -> int:
             errs = {"y": max_err(k_y, r_y),
                     "new_zi_bytes_differing": float((k_zi != r_zi).sum())}
             tols = {"y": TOL_K5_REL * g_l1, "new_zi_bytes_differing": 0.0}
-            timing = {}
+            timing, mixed = {}, {}
+            if nco is not None:
+                m_y, _ = channelizer.composed_channelize_u8(
+                    raw, g, zi, decim, factors, mix=nco[:2])
+                errs["y_mix"], mixed["mix_bits_differing_vs_stock"] = \
+                    mix_readings(k_y, r_y, m_y, nco)
+                tols["y_mix"] = tols["y"]
+                del m_y
             if blk == 1 and timed:
                 # yardstick: one conv1d over the normalized, de-interleaved
                 # input
@@ -1118,6 +1153,9 @@ def main() -> int:
                     kernel_burst_ms=burst_ms(
                         lambda: channelizer.composed_channelize_u8(
                             raw, g, zi, decim, factors)),
+                    **({} if nco is None else {"kernel_mix_ms": time_ms(
+                        lambda: channelizer.composed_channelize_u8(
+                            raw, g, zi, decim, factors, mix=nco[:2]))}),
                     plain_ms=time_ms(
                         lambda: channelizer.composed_channelize_u8_ref(
                             raw, g, zi, decim, block=32),
@@ -1154,8 +1192,11 @@ def main() -> int:
                   two_stage_stations=k_ if plan.two_stage else 0,
                   tile=geo.tile,
                   taps_per_plane=plan.a_sp, sum_abs_g=g_l1,
-                  y_max_abs=float(r_y.abs().max()), **timing)
+                  y_max_abs=float(r_y.abs().max()), **timing, **mixed)
             zi = k_zi
+            if nco is not None:
+                nco = (torch.remainder(nco[0] + nco[2], 2.0 * np.pi),
+                       *nco[1:])
         del k_y, r_y, k_zi, r_zi, raw
 
     for label, offs in (("no offsets", None), ("one offset", wb_offsets),
@@ -1171,12 +1212,12 @@ def main() -> int:
     # their slot's centre): the two-stage role
     cell = [torch.randint(0, 256, (128, 8 * cfg.block_size), generator=gen,
                           device=dev, dtype=torch.uint8) for _ in range(2)]
+    wb8_offs = [200e3, -600e3, 800e3, -200e3, 400e3, 0.0, -800e3, 600e3]
     g, factors = channelizer.composed_rf_factors(
         8, channelizer.channelizer_taps(8, 16), rf_h, cfg.rf.decim,
-        offsets_hz=[200e3, -600e3, 800e3, -200e3, 400e3, 0.0, -800e3,
-                    600e3], fs_ch=cfg.rf.fs)
+        offsets_hz=wb8_offs, fs_ch=cfg.rf.fs)
     k5_case(g, cell, 128, cfg.rf.decim, "wideband8 band plan", True,
-            factors)
+            factors, mix_offsets=wb8_offs)
     del cell
     torch.cuda.empty_cache()
     for k_ in (8, 32):
@@ -1207,8 +1248,10 @@ def main() -> int:
     # 38 over K = 8 (every second 200 kHz channel of the band but those on
     # a slot edge, up to 5 a slot), and S = K on the identity map, 27
     # captures of 8 x 307,200 bytes, two chained blocks each, against the
-    # plain version; one launch a call; then one K5 launch a step of the
-    # compiled wideband receiver with the map
+    # plain version, without and with the residual NCO in its epilogue (the
+    # phase carried across the blocks as the receiver carries it, against
+    # the plain version then the stock mix); one launch a call; then one
+    # K5 launch a step of the compiled wideband receiver with the map
     band_slots, band_offs = band38_plan(cfg)
     band_map = channelizer.station_map(8, band_slots)
     band_cap = [torch.randint(0, 256, (27, 8 * cfg.block_size),
@@ -1227,37 +1270,57 @@ def main() -> int:
                                              // cfg.rf.decim)
         g_l1 = float(np.abs(g).sum(axis=1).max())
         zi = channelizer.composed_zi_u8(g.shape[1], (27,), dev)
+        nco = k5_nco(offs, g.shape[0])
+
+        def off_by(launches):
+            return float(abs(launches.get(
+                "channelizer.composed_two_stage", 0) - 1) + sum(
+                v for n_, v in launches.items()
+                if n_ != "channelizer.composed_two_stage"))
+
         for blk in range(2):
             _cuda.reset_launch_counts()
             k_y, k_zi = channelizer.composed_channelize_u8(
                 band_cap[blk], g, zi, cfg.rf.decim, factors, stations)
             launches = _cuda.launch_counts()
+            _cuda.reset_launch_counts()
+            m_y, m_zi = channelizer.composed_channelize_u8(
+                band_cap[blk], g, zi, cfg.rf.decim, factors, stations,
+                nco[:2])
+            m_launches = _cuda.launch_counts()
             r_y, r_zi = channelizer.composed_channelize_u8_ref(
                 band_cap[blk], g, zi, cfg.rf.decim, block=32,
                 stations=stations)
+            y_mix, bits = mix_readings(k_y, r_y, m_y, nco)
             timing = {}
             if blk == 1:
-                timing = {"kernel_ms": time_ms(
-                    lambda: channelizer.composed_channelize_u8(
-                        band_cap[blk], g, zi, cfg.rf.decim, factors,
-                        stations))}
+                # kernel_ms: K5 as the receiver runs it, with the NCO;
+                # bank_kernel_ms: without it
+                timing = {
+                    "kernel_ms": time_ms(
+                        lambda: channelizer.composed_channelize_u8(
+                            band_cap[blk], g, zi, cfg.rf.decim, factors,
+                            stations, nco[:2])),
+                    "bank_kernel_ms": time_ms(
+                        lambda: channelizer.composed_channelize_u8(
+                            band_cap[blk], g, zi, cfg.rf.decim, factors,
+                            stations))}
             map_rows.append(check(
                 "channelizer.composed_stations",
                 f"u8 (27, {8 * cfg.block_size}), K = 8, S = {g.shape[0]}",
-                {"y": max_err(k_y, r_y),
-                 "new_zi_bytes_differing": float((k_zi != r_zi).sum()),
-                 "launches_off_by": float(abs(launches.get(
-                     "channelizer.composed_two_stage", 0) - 1)
-                     + sum(v for n_, v in launches.items()
-                           if n_ != "channelizer.composed_two_stage"))},
-                {"y": TOL_K5_REL * g_l1, "new_zi_bytes_differing": 0.0,
-                 "launches_off_by": 0.0},
+                {"y": max_err(k_y, r_y), "y_mix": y_mix,
+                 "new_zi_bytes_differing": float((k_zi != r_zi).sum()
+                                                 + (m_zi != r_zi).sum()),
+                 "launches_off_by": off_by(launches) + off_by(m_launches)},
+                {"y": TOL_K5_REL * g_l1, "y_mix": TOL_K5_REL * g_l1,
+                 "new_zi_bytes_differing": 0.0, "launches_off_by": 0.0},
                 case=label, block=blk, stations=g.shape[0],
                 per_slot=1 if stations is None else stations.per_slot,
-                tile=geo.tile, ns=geo.ns,
-                smem=geo.smem, sum_abs_g=g_l1, **timing))
+                tile=geo.tile, ns=geo.ns, smem=geo.smem, sum_abs_g=g_l1,
+                mix_bits_differing_vs_stock=bits, **timing))
             zi = k_zi
-        del k_y, r_y, k_zi, r_zi
+            nco = (torch.remainder(nco[0] + nco[2], 2.0 * np.pi), *nco[1:])
+        del k_y, r_y, k_zi, r_zi, m_y, m_zi
     del band_cap
     torch.cuda.empty_cache()
     b_init, b_step = jit_mod.jit_step(*make_wideband_receiver(
@@ -1283,9 +1346,9 @@ def main() -> int:
     emit({"k5_station_map": {
         "cases": [{k: r[k] for k in ("case", "block", "errors", "tolerances",
                                      "stations", "per_slot", "tile", "ns",
-                                     "smem") if k in r}
-                  | ({"kernel_ms": r["kernel_ms"]} if "kernel_ms" in r
-                     else {}) for r in map_rows],
+                                     "smem", "mix_bits_differing_vs_stock",
+                                     "kernel_ms", "bank_kernel_ms")
+                   if k in r} for r in map_rows],
         "receiver_launches_3_steps": b_counts}, "card": card})
     del b_state, b_out, b_raw, b_step
     torch.cuda.empty_cache()

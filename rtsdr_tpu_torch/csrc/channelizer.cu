@@ -103,6 +103,19 @@
 // still two blocks an SM).  S and the map are read at run time: one
 // station a slot is the map k -> k (at K = 8, 128 captures, 1 % slower
 // than with S = K compiled in, the same outputs).
+//
+// The residual NCO in the epilogue.  A station off its slot's centre
+// leaves stage B still turning at its offset; the receiver turns it back
+// by exp(j (phase_j + ramp_j[p])): phase_j carried from block to block,
+// ramp_j the host's float64 table of the offset's angle at each output,
+// reduced mod 2 pi (step_j p in float32 reaches 3e5 rad at 0.8 MHz, where
+// the float32 ulp is 0.03 rad).  Given both, the last loop turns each
+// output as it writes it: one sincosf (the accurate one: the angle stays
+// under 4 pi) and a complex multiply an output, the ramp read once (S x P
+// float32, 2.3 MB at S = 38, from L2 across the captures), rounded as the
+// stock ops round it.  In stock ops the same turn reads and writes the
+// whole IF about six times (126 MB at 1,026 stations).  Without them y is
+// what the bank gives, bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -464,6 +477,8 @@ struct TwoStageArgs {
   const float2* fb;         // (decim, kTapsB, S): f_j[decim a + b] at [b][a][j]
   const float2* tw;         // (K): W^m
   const int* slot_of;       // (S): station j's slot
+  const float* mix_phase;   // (S) or NULL: the residual NCO's carried phase
+  const float* mix_ramp;    // (S, P) or NULL: its ramp, reduced mod 2 pi
   float* y;                 // (B, S, 2, P)
   uint8_t* zi_out;          // (B, 2(L-1))
   int n, n_st, taps, decim, p_out, tile, n_tiles, ns, pitch_a, a_elems, bp,
@@ -656,6 +671,17 @@ __global__ void __launch_bounds__(kThreads, 2)
       s.x += v.x;
       s.y += v.y;
     }
+    if (a.mix_ramp != nullptr) {
+      // the residual NCO: (I + jQ) exp(j (phase_k + ramp_k[p])), each
+      // product and sum rounded apart as the receiver's stock mix rounds
+      // them (no contraction into FMAs)
+      float sn, cs;
+      sincosf(__fadd_rn(__ldg(a.mix_phase + kk),
+                        __ldg(a.mix_ramp + (size_t)kk * a.p_out + p)),
+              &sn, &cs);
+      s = make_float2(__fsub_rn(__fmul_rn(s.x, cs), __fmul_rn(s.y, sn)),
+                      __fadd_rn(__fmul_rn(s.x, sn), __fmul_rn(s.y, cs)));
+    }
     float* yr = a.y + ((size_t)cap * n_st + kk) * 2 * a.p_out;
     yr[p] = s.x;
     yr[a.p_out + p] = s.y;
@@ -737,12 +763,14 @@ extern "C" int rtsdr_channelize_composed(
 // The two-stage role (ops/channelizer.py::composed_plan with factors): raw,
 // zi, zi_out as above; y (B, S, 2, n/d) float32; ha (16, K) and fb (decim,
 // 16, S, 2) float32, tw (K, 2); slot_of (S) int32, each station's slot in
-// [0, K).  The geometry
+// [0, K); mix_phase (S) and mix_ramp (S, n/d) float32, both or neither
+// (NULL: y as the bank leaves it).  The geometry
 // (two_stage_geometry): tile, n_tiles, ns, pitch_a, a_elems, bp, kp, smem.
 // K in {4, 8, 16}; needs n % (decim K) == 0.  Returns cudaGetLastError().
 extern "C" int rtsdr_channelize_two_stage(
     const uint8_t* raw, const uint8_t* zi, const float* ha, const float* fb,
-    const float* tw, const int* slot_of, float* y, uint8_t* zi_out,
+    const float* tw, const int* slot_of, const float* mix_phase,
+    const float* mix_ramp, float* y, uint8_t* zi_out,
     int n_cap, int n, int k, int n_st, int taps, int decim, int p_out,
     int tile, int n_tiles, int ns, int pitch_a, int a_elems, int bp, int kp,
     int smem, void* stream) {
@@ -751,6 +779,7 @@ extern "C" int rtsdr_channelize_two_stage(
   const int ms_pad = (ms + kR - 1) / kR * kR;
   if (n_cap <= 0 || n <= 0 || (k != 4 && k != 8 && k != 16) || decim < 1 ||
       n_st < 1 || slot_of == nullptr ||
+      (mix_phase == nullptr) != (mix_ramp == nullptr) ||
       taps < 1 || n % d != 0 || p_out != n / d || tile < kR ||
       tile % kR != 0 || n_tiles != (p_out + tile - 1) / tile || ns < 1 ||
       k * (tile / kR) > kThreads || bp < tile + kTapsB - 1 ||
@@ -767,6 +796,7 @@ extern "C" int rtsdr_channelize_two_stage(
   a.fb = reinterpret_cast<const float2*>(fb);
   a.tw = reinterpret_cast<const float2*>(tw);
   a.slot_of = slot_of;
+  a.mix_phase = mix_phase; a.mix_ramp = mix_ramp;
   a.y = y; a.zi_out = zi_out;
   a.n = n; a.n_st = n_st; a.taps = taps; a.decim = decim; a.p_out = p_out;
   a.tile = tile; a.n_tiles = n_tiles; a.ns = ns; a.pitch_a = pitch_a;

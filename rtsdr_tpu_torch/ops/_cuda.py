@@ -69,10 +69,10 @@ _ARGTYPES = {
     # n_own, own_lanes, n_og, ns_sh, ns_own, g_sh, g_own, plane_elems, smem,
     # stream
     "rtsdr_channelize_composed": [_P] * 9 + [_I] * 21 + [_P],
-    # raw, zi, stage A taps, stage B taps, twiddle, each station's slot, y,
-    # zi_out, B, n_pairs, K, S, taps, decim, P, tile, n_tiles, ns, pitch_a,
-    # a_elems, bp, kp, smem, stream
-    "rtsdr_channelize_two_stage": [_P] * 8 + [_I] * 15 + [_P],
+    # raw, zi, stage A taps, stage B taps, twiddle, each station's slot,
+    # NCO phase and ramp (or NULL), y, zi_out, B, n_pairs, K, S, taps,
+    # decim, P, tile, n_tiles, ns, pitch_a, a_elems, bp, kp, smem, stream
+    "rtsdr_channelize_two_stage": [_P] * 10 + [_I] * 15 + [_P],
     # sid, valid, corr (or NULL), base_pos, last_in, bad_in, is_sync, is_fp,
     # is_resync, last_out, bad_out, L (lanes), W (windows), stream
     "rtsdr_sync_walk": [_P] * 11 + [_I] * 2 + [_P],

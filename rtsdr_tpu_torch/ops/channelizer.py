@@ -46,8 +46,15 @@ one ``rtsdr.channelize`` span of ``utils/trace.py`` (``route``,
 ``captures``, ``slots``, ``shared``, ``own`` and ``two_stage``: the
 stations on the shared prototype, on their own taps and on the two-stage
 role, ``taps``: the bank's length, ``stations``: S, ``per_slot``: the most
-stations any slot carries), on an eager call and at a compiled step's
-capture; a replayed graph runs no span.
+stations any slot carries, ``mix``: the stations whose residual NCO the
+two-stage role turns in its epilogue, S or 0), on an eager call and at a
+compiled step's capture; a replayed graph runs no span.
+
+The residual NCO.  A station off its slot's centre leaves the bank still
+turning at its offset; ``residual_mix`` turns it back in stock ops, and
+``composed_channelize_u8(..., mix=(phase, ramp))`` returns its outputs so
+turned: inside the kernel's two-stage role on a CUDA tensor, by
+``residual_mix`` after the bank on every other route.
 """
 
 from __future__ import annotations
@@ -265,7 +272,7 @@ def pfb_channelize_u8(raw_u8: torch.Tensor, h, zi_raw: torch.Tensor,
         if span:
             span.add(captures=math.prod(raw_u8.shape[:-1]),
                      slots=n_channels, shared=n_channels, own=0,
-                     two_stage=0, taps=len(h),
+                     two_stage=0, taps=len(h), mix=0,
                      **_span_stations(n_channels, stations))
         y, zi = _pfb_channelize_u8(raw_u8, h, zi_raw, n_channels, block)
         if stations is not None:
@@ -872,9 +879,22 @@ def _sm_count(dev) -> int:
     return _n_sm[dev]
 
 
+def residual_mix(iq: torch.Tensor, mix_phase: torch.Tensor,
+                 mix_ramp: torch.Tensor) -> torch.Tensor:
+    """Each station's residual downconversion in stock ops: (I + jQ) *
+    exp(j*(phase_j + ramp_j[m])) over iq (..., S, 2, M), mix_phase (S,),
+    mix_ramp (S, M) (the NCO's angle at each sample, reduced mod 2 pi in
+    float64 when built)."""
+    ang = mix_phase[:, None] + mix_ramp
+    c, sn = torch.cos(ang), torch.sin(ang)    # (S, M)
+    i_in = iq[..., 0, :]
+    q_in = iq[..., 1, :]
+    return torch.stack([i_in * c - q_in * sn, i_in * sn + q_in * c], dim=-2)
+
+
 def composed_channelize_u8(raw_u8: torch.Tensor, g: np.ndarray,
                            zi_raw: torch.Tensor, decim: int, factors=None,
-                           stations: StationMap | None = None
+                           stations: StationMap | None = None, mix=None
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """K stations' channelizer + RF front-end LPF + decimate as ONE complex
     FIR bank over the raw wideband bytes.
@@ -901,6 +921,12 @@ def composed_channelize_u8(raw_u8: torch.Tensor, g: np.ndarray,
     (..., S, 2, P), the two-stage role on a CUDA tensor, which needs the
     factors.
 
+    ``mix``: optional ``(mix_phase, mix_ramp)``, (S,) and (S, P) float32
+    on the input's device: the outputs come turned by each station's
+    residual NCO, as ``residual_mix`` turns them.  The two-stage role on a
+    CUDA tensor turns them in the kernel's epilogue; every other route
+    (the mixed roles, the CPU) runs ``residual_mix`` after the bank.
+
     A CUDA tensor launches the kernel (``csrc/channelizer.cu``) or raises;
     the route (shared prototype + in-kernel DFT, own taps, or two stages)
     is chosen on the host from ``g`` and its factors (``composed_plan``).
@@ -910,19 +936,24 @@ def composed_channelize_u8(raw_u8: torch.Tensor, g: np.ndarray,
         if span:
             plan = composed_plan(g, decim, factors, stations)
             k = _slot_count(g, stations)
+            fused = mix is not None and raw_u8.is_cuda and plan.two_stage
             span.add(captures=math.prod(raw_u8.shape[:-1]), slots=k,
                      shared=len(plan.shared), own=len(plan.own),
                      two_stage=g.shape[0] if plan.two_stage else 0,
-                     taps=g.shape[1], **_span_stations(k, stations))
+                     taps=g.shape[1], mix=g.shape[0] if fused else 0,
+                     **_span_stations(k, stations))
         return _composed_channelize_u8(raw_u8, g, zi_raw, decim, factors,
-                                       stations)
+                                       stations, mix)
 
 
 def _composed_channelize_u8(raw_u8, g, zi_raw, decim: int, factors=None,
-                            stations: StationMap | None = None):
+                            stations: StationMap | None = None, mix=None):
+    """The route's call; ``mix`` turns in the two-stage role's epilogue,
+    by ``residual_mix`` after the bank on the others."""
     if not raw_u8.is_cuda:
-        return composed_channelize_u8_ref(raw_u8, g, zi_raw, decim,
-                                          stations=stations)
+        y, new_zi = composed_channelize_u8_ref(raw_u8, g, zi_raw, decim,
+                                               stations=stations)
+        return (y if mix is None else residual_mix(y, *mix)), new_zi
     k, g_l = _slot_count(g, stations), g.shape[1]
     n_st = g.shape[0]
     d = decim * k
@@ -946,9 +977,16 @@ def _composed_channelize_u8(raw_u8, g, zi_raw, decim: int, factors=None,
         geo = derived_from(
             g, ("two_stage_geometry", decim, n_cap, p_out, n_sm),
             lambda: two_stage_geometry(plan, n_cap, p_out, n_sm))
+        phase = ramp = None
+        if mix is not None:
+            phase = _cuda.check(mix[0], "mix_phase", (n_st,), torch.float32,
+                                dev)
+            ramp = _cuda.check(mix[1], "mix_ramp", (n_st, p_out),
+                               torch.float32, dev)
         _cuda.launch(
             "rtsdr_channelize_two_stage", "channelizer.composed_two_stage",
             _cuda.ptr(raw_u8), _cuda.ptr(zi_raw), *map(_cuda.ptr, on),
+            _cuda.ptr(phase), _cuda.ptr(ramp),
             _cuda.ptr(y), _cuda.ptr(new_zi), n_cap, n, k, n_st, g_l, decim,
             p_out, geo.tile, geo.n_tiles, geo.ns, geo.pitch_a, geo.a_elems,
             geo.bp, geo.kp, geo.smem)
@@ -963,7 +1001,7 @@ def _composed_channelize_u8(raw_u8, g, zi_raw, decim: int, factors=None,
         plan.a_sp, p_out, geo.tile, geo.n_tiles, geo.nb, geo.pitch,
         len(plan.shared), len(plan.own), geo.own_lanes, geo.n_og, geo.ns_sh,
         geo.ns_own, geo.g_sh, geo.g_own, geo.plane_elems, geo.smem)
-    return y, new_zi
+    return (y if mix is None else residual_mix(y, *mix)), new_zi
 
 
 def _plan_on(g: np.ndarray, plan: ComposedPlan, dev) -> tuple:

@@ -13,7 +13,8 @@ Two front doors:
     FIR bank straight from the bytes (the hand-written kernel
     ``csrc/channelizer.cu`` on a CUDA tensor); the receivers start at the
     discriminator (``frontend_impl='if'``) and the off-grid residual NCO
-    runs at the IF rate.
+    runs at the IF rate, inside the kernel's two-stage role where it runs
+    (``composed_channelize_u8(..., mix=...)``).
   * 'pfb' — the two-stage path: channelize to the channel rate (one banded
     matrix product, stock ops), mix there, per-station float RF FIR
     (``frontend_impl='iq'``: the FIR-bank kernel at stride 10).  It remains
@@ -46,6 +47,7 @@ from rtsdr_tpu_torch.ops.channelizer import (
     composed_zi_u8,
     pfb_channelize,
     pfb_channelize_u8,
+    residual_mix,
     station_map,
 )
 from rtsdr_tpu_torch.ops.ingestfir import normalize_deinterleave
@@ -257,10 +259,15 @@ def make_wideband_receiver(
     def front_fn(state: WidebandState, raw_u8: torch.Tensor):
         """The channelizer and the residual NCO: the receivers' input and
         the new ``chan_zi`` and ``mix_phase``."""
+        # residual per-station downconversion: (I + jQ) *
+        # exp(j*(phase_j + step_j*m)), the ramp pre-reduced mod 2pi in
+        # float64 (see mix_ramp above)
+        mix = None if offs is None else (state.mix_phase, mix_ramp)
         if use_composed:
+            # the bank turns its outputs itself (K5's epilogue on a card)
             raw_iq, chan_zi = composed_channelize_u8(
                 raw_u8, g_taps, state.chan_zi, cfg.rf.decim, g_factors,
-                stations)
+                stations, mix)
         elif use_u8:
             raw_iq, chan_zi = pfb_channelize_u8(raw_u8, h, state.chan_zi, k,
                                                 stations=stations)
@@ -275,17 +282,10 @@ def make_wideband_receiver(
             if stations is not None:
                 y = y[..., list(stations.slot_of), :]
             raw_iq = torch.stack([y.real, y.imag], dim=-2).to(dtype)
+        if mix is not None and not use_composed:
+            raw_iq = residual_mix(raw_iq, *mix)
         mix_phase = state.mix_phase
         if offs is not None:
-            # residual per-station downconversion: (I + jQ) *
-            # exp(j*(phase_j + step_j*m)), the ramp pre-reduced mod 2pi in
-            # float64 (see mix_ramp above)
-            ang = state.mix_phase[:, None] + mix_ramp
-            c, sn = torch.cos(ang), torch.sin(ang)    # (S, M)
-            i_in = raw_iq[..., 0, :]
-            q_in = raw_iq[..., 1, :]
-            raw_iq = torch.stack([i_in * c - q_in * sn,
-                                  i_in * sn + q_in * c], dim=-2)
             mix_phase = torch.remainder(state.mix_phase + blk_adv,
                                         2.0 * np.pi)
         return raw_iq, chan_zi, mix_phase

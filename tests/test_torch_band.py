@@ -13,7 +13,8 @@ benchmark's market generator (``benchmark/traffic/synth_market.py``).
 * ``channel_slots=None`` against a map that lists the slots in another
   order, bit for bit (one station a slot is the same program);
 * planted faults read wrong: a station 8 Hz off the raster with its NCO
-  phase not carried, two stations' slots swapped;
+  phase not carried (on a card too, the NCO turned in K5's epilogue: a
+  ``gpu`` test that skips without one), two stations' slots swapped;
 * ``channel_sharding`` over 2 shards of the stations against the
   unsharded receiver;
 * the CLI's ``--wideband-centers`` mapping of the dense band's 38 centres
@@ -81,7 +82,8 @@ def _run(capture, n_blocks=N_BLOCKS, fault=None, **kw):
     init, step = make_wideband_receiver(MODE0, K, (1,), **opts)
     state, outs = init(), []
     for b in range(n_blocks):
-        new, out = step(state, torch.as_tensor(capture[b][None]))
+        new, out = step(state,
+                        torch.as_tensor(capture[b][None]).to(opts["device"]))
         state = new if fault is None else fault(state, new)
         outs.append(out)
     return outs
@@ -162,6 +164,31 @@ def test_mix_phase_carried_off_the_raster(capture):
     off[2] += 8.0
     for offsets, wrong in ((off, True), (OFFSETS, False)):
         good = _run(capture, 2, channel_offsets_hz=offsets, **kw)
+        bad = _run(capture, 2, fault=_no_phase_carry,
+                   channel_offsets_hz=offsets, **kw)
+        d = float((good[1].mono[0, 2] - bad[1].mono[0, 2]).abs().max())
+        assert torch.equal(good[0].mono, bad[0].mono)
+        assert (d > 100 * 5e-5) if wrong else d == 0.0
+
+
+@pytest.mark.gpu
+def test_mix_phase_carried_off_the_raster_in_the_kernel(capture):
+    """The same fault through the CUDA composed route, where K5's
+    two-stage role turns each station by its NCO in its epilogue: station
+    2 8 Hz off the raster reads wrong without the carry, by more than
+    100 x the cell's ``mono_err`` limit; on the raster the fault changes
+    nothing."""
+    from rtsdr_tpu_torch.ops import _cuda
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU form")
+    kw = dict(enable_rds=False, enable_stereo=False, device="cuda")
+    off = list(OFFSETS)
+    off[2] += 8.0
+    for offsets, wrong in ((off, True), (OFFSETS, False)):
+        _cuda.reset_launch_counts()
+        good = _run(capture, 2, channel_offsets_hz=offsets, **kw)
+        assert _cuda.launch_counts()["channelizer.composed_two_stage"] == 2
         bad = _run(capture, 2, fault=_no_phase_carry,
                    channel_offsets_hz=offsets, **kw)
         d = float((good[1].mono[0, 2] - bad[1].mono[0, 2]).abs().max())

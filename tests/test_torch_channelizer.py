@@ -383,7 +383,8 @@ def test_composed_on_a_device_tensor_launches_or_raises(monkeypatch, rng):
 def test_two_stage_on_a_device_tensor_launches(monkeypatch, rng):
     """With factors that make it the least work, a CUDA tensor reaches the
     two-stage entry (one count of ``channelizer.composed_two_stage``) with
-    the plan's arrays and the geometry; without them, the composed one."""
+    the plan's arrays, the residual NCO's phase and ramp (NULL without
+    ``mix``) and the geometry; without factors, the composed one."""
     seen = []
     monkeypatch.setattr(
         _cuda, "launch",
@@ -401,9 +402,10 @@ def test_two_stage_on_a_device_tensor_launches(monkeypatch, rng):
     ((entry, count_as, args),) = seen
     assert (entry, count_as) == ("rtsdr_channelize_two_stage",
                                  "channelizer.composed_two_stage")
-    assert args[8:] == (3, decim * k * p_if, k, k, taps, decim, p_if,
-                        geo.tile, geo.n_tiles, geo.ns, geo.pitch_a,
-                        geo.a_elems, geo.bp, geo.kp, geo.smem)
+    assert args[6:8] == (None, None)     # no residual NCO: NULL pointers
+    assert args[10:] == (3, decim * k * p_if, k, k, taps, decim, p_if,
+                         geo.tile, geo.n_tiles, geo.ns, geo.pitch_a,
+                         geo.a_elems, geo.bp, geo.kp, geo.smem)
     assert tuple(y.shape) == (3, k, 2, p_if)
     assert tuple(new_zi.shape) == (3, 2 * (taps - 1))
     ha, fb, tw, slots = tch._plan_on(g, plan, torch.device("cpu"))
@@ -411,6 +413,10 @@ def test_two_stage_on_a_device_tensor_launches(monkeypatch, rng):
     assert tuple(tw.shape) == (k, 2) and fb.dtype == torch.float32
     # one station a slot: station k in slot k
     assert slots.dtype == torch.int32 and slots.tolist() == list(range(k))
+    # with the residual NCO: its phase and ramp, for the epilogue
+    mix = (torch.zeros(k), torch.zeros((k, p_if)))
+    tch.composed_channelize_u8(raw, g, zi, decim, factors, mix=mix)
+    assert seen[-1][2][6:8] == tuple(t.data_ptr() for t in mix)
     tch.composed_channelize_u8(raw, g, zi, decim)
     assert seen[-1][:2] == ("rtsdr_channelize_composed",
                             "channelizer.composed")

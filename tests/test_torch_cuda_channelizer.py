@@ -30,8 +30,11 @@ residue over K polyphase planes, a radix-2 DFT across the residues) into
 shared memory in stage B's layout, then each station's RF FIR over decim
 planes in half-planes of 8 taps, the slices' partial sums added in order.
 Its rehearsal rounds every operation to float32 (no FMA emulation): it
-holds the indexing, at the same tolerance.  The tests marked ``gpu`` run
-the kernel itself and skip without a card.
+holds the indexing, at the same tolerance.  Given the residual NCO's
+phase and ramp, its epilogue turns each output p of station j by
+exp(j (phase_j + ramp_j[p])) as it writes it, held against the plain
+version followed by the stock mix (``residual_mix``).  The tests marked
+``gpu`` run the kernel itself and skip without a card.
 """
 
 import numpy as np
@@ -370,9 +373,12 @@ def _dft(x, tw):
     return out
 
 
-def rehearse_two_stage(raw, zi, g, decim, factors, n_sm=132, stations=None):
+def rehearse_two_stage(raw, zi, g, decim, factors, n_sm=132, stations=None,
+                       mix=None):
     """What the two-stage kernel writes for (B, 2n) bytes: (y, tail);
-    ``stations``: g's rows are S stations over K slots."""
+    ``stations``: g's rows are S stations over K slots; ``mix``: the
+    residual NCO's (phase (S,), ramp (S, P)) float32 arrays, which the
+    epilogue turns each output by."""
     plan = tch.composed_plan(g, decim, factors, stations)
     assert plan.two_stage
     n_cap = raw.shape[0]
@@ -433,8 +439,17 @@ def rehearse_two_stage(raw, zi, g, decim, factors, n_sm=132, stations=None):
             tot = part if tot is None else tot + part
         q = np.arange(tile)
         valid = p0 + q < p_out
-        y[:, :, 0, (p0 + q)[valid]] = tot.real[..., valid]
-        y[:, :, 1, (p0 + q)[valid]] = tot.imag[..., valid]
+        re, im = tot.real[..., valid], tot.imag[..., valid]
+        if mix is not None:
+            # the epilogue: ang = phase_j + ramp_j[p] and the turn, each
+            # product and sum rounded to float32
+            phase, ramp = mix
+            ang = phase[:, None] + ramp[:, (p0 + q)[valid]]
+            cs, sn = np.cos(ang), np.sin(ang)
+            assert ang.dtype == cs.dtype == np.float32
+            re, im = re * cs - im * sn, re * sn + im * cs
+        y[:, :, 0, (p0 + q)[valid]] = re
+        y[:, :, 1, (p0 + q)[valid]] = im
     return y, np.concatenate([zi, raw], axis=1)[:, 2 * n:]
 
 

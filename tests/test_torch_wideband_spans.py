@@ -1,6 +1,7 @@
 """The wideband receiver's spans (``utils/trace.py::annotate``): one
-``rtsdr.channelize`` a channelizer call with its route and the stations
-on each of its routes, on eager calls and at a compiled step's capture;
+``rtsdr.channelize`` a channelizer call with its route, the stations on
+each of its routes and those whose residual NCO the two-stage role turns
+in its epilogue, on eager calls and at a compiled step's capture;
 the CLI's wideband loop (``cli.py::_wideband_decode``) reading and
 emitting each capture block under ``rtsdr.read`` and ``rtsdr.emit``; and
 nothing recorded without a profiler session.  CPU only, the receivers
@@ -25,11 +26,13 @@ K = 8
 BAND_PLAN_HZ = [200e3, -600e3, 800e3, -200e3, 400e3, 0.0, -800e3, 600e3]
 MONO = dict(device="cpu", enable_rds=False, enable_stereo=False)
 WBS = K * MODE0.block_size
-# route: (shared, own, two_stage, taps) for the band plan: the composed
-# route runs every station in two stages (the slot bank, then each
-# station's RF FIR), a quarter of its own taps' work
-ROUTES = {"composed": (0, 0, K, (MODE0.rf.taps - 1) * K + 16 * K),
-          "pfb": (K, 0, 0, 16 * K)}
+# route: (shared, own, two_stage, taps, mix) for the band plan: the
+# composed route runs every station in two stages (the slot bank, then
+# each station's RF FIR), a quarter of its own taps' work; on the CPU no
+# kernel turns a station (``mix`` 0: the stock mix runs after the bank, as
+# on ``pfb``; the card's count is ``test_torch_cuda_band.py``'s)
+ROUTES = {"composed": (0, 0, K, (MODE0.rf.taps - 1) * K + 16 * K, 0),
+          "pfb": (K, 0, 0, 16 * K, 0)}
 
 
 @pytest.fixture(autouse=True)
@@ -50,7 +53,8 @@ def test_channelize_span_on_eager_calls(route):
     """Two eager steps over 2 captures: one ``rtsdr.channelize`` a step
     with the route, the captures, the slots, the stations on the shared
     prototype, on their own taps and on the two-stage role for the band
-    plan, and the bank's length."""
+    plan, the bank's length, and the stations turned in K5's epilogue
+    (none on the CPU)."""
     init, step = make_wideband_receiver(
         MODE0, K, (2,), channel_offsets_hz=BAND_PLAN_HZ,
         channelizer_impl=route, **MONO)
@@ -60,14 +64,33 @@ def test_channelize_span_on_eager_calls(route):
         for b in range(2):
             state, _ = step(state, blocks[b])
     recs = [r for r in tr.recorded() if r["name"] == "rtsdr.channelize"]
-    shared, own, two_stage, taps = ROUTES[route]
+    shared, own, two_stage, taps, mix = ROUTES[route]
     assert len(recs) == 2
     for r in recs:
         assert r["attrs"] == {"route": route, "captures": 2, "slots": K,
                               "shared": shared, "own": own,
                               "two_stage": two_stage, "taps": taps,
-                              "stations": K, "per_slot": 1}
+                              "mix": mix, "stations": K, "per_slot": 1}
         assert r["parent"] is None
+
+
+@pytest.mark.parametrize("plan", ["one_offset", "no_offsets"])
+def test_channelize_span_mix_off_the_two_stage_role(plan):
+    """``mix`` is 0 where the epilogue turns nothing: one station off its
+    slot's centre (the mixed roles, 7 shared and 1 own, less work than
+    the two-stage role: the NCO runs after the bank), and no offsets (no
+    NCO)."""
+    offsets = [0.0] * K
+    if plan == "one_offset":
+        offsets[2] = 800e3
+    init, step = make_wideband_receiver(
+        MODE0, K, channel_offsets_hz=offsets, **MONO)
+    with tr.profile():
+        step(init(), _capture_blocks(1, 1)[0, 0])
+    (chan,) = [r for r in tr.recorded() if r["name"] == "rtsdr.channelize"]
+    want = (K - 1, 1, 0, 0) if plan == "one_offset" else (K, 0, 0, 0)
+    assert tuple(chan["attrs"][a] for a in (
+        "shared", "own", "two_stage", "mix")) == want
 
 
 def test_channelize_span_at_the_capture():
@@ -86,7 +109,7 @@ def test_channelize_span_at_the_capture():
     assert chan["parent"] == "rtsdr.capture"
     assert chan["attrs"]["captures"] == 1
     assert (chan["attrs"]["shared"], chan["attrs"]["own"],
-            chan["attrs"]["two_stage"]) == (0, 0, K)
+            chan["attrs"]["two_stage"], chan["attrs"]["mix"]) == (0, 0, K, 0)
 
 
 def _decode_file(path, monkeypatch, tmp_path) -> int:
